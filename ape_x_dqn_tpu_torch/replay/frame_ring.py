@@ -1,0 +1,201 @@
+"""Frame-ring prioritized replay: single frames on the device, stacks on
+demand.
+
+Counterpart of ``ape_x_dqn_tpu/replay/frame_ring.py`` (the layout and
+its reasoning are documented there). In short: actors ship fixed-size
+SEGMENTS of B transitions with the F = B + n_step + stack - 1 frames
+they need; the ring stores each frame ONCE as a ``pad128(H*W)``-byte
+row of a ``[S*F, frame_row]`` uint8 tensor, plus per-transition fields
+``[capacity]`` (action/reward/discount/next_off). Segment k owns
+transition slots [k*B, (k+1)*B) and frame rows [k*F, (k+1)*F); `pos`
+counts SEGMENTS, `size` transitions, and the sum-tree indexes
+transitions. A transition at slot j of segment k has
+    obs      = rows k*F + j     + [0, stack)
+    next_obs = rows k*F + j + m + [0, stack),  m = next_off (1..n_step)
+and the sample path rebuilds both stacks with the hand-written frame-row
+gather kernel (ops/frame_gather.py), one launch per side.
+
+Dead padding slots (next_off 0) carry tree priority 0, are never
+sampled, and get IS weight 0 if a clamp-landed draw hits one.
+
+Writes are IN PLACE on the state (the JAX version returns new arrays);
+the lockstep, evict and `add_at` forms wait for their slices.
+"""
+
+from __future__ import annotations
+
+from typing import Any
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+
+from ape_x_dqn_tpu_torch.ops import sum_tree
+from ape_x_dqn_tpu_torch.ops.frame_gather import gather_rows
+from ape_x_dqn_tpu_torch.replay.packing import dus_rows, pad128
+from ape_x_dqn_tpu_torch.replay.prioritized import (PrioritizedReplay,
+                                                    ReplayState, ring_cursor,
+                                                    ring_finish)
+
+FIELDS = ("action", "reward", "discount", "next_off")
+
+
+class FrameRingReplay(PrioritizedReplay):
+    """Device-side prioritized replay over segment storage.
+
+    `add` consumes staged segments {"seg_frames": [G, F, H, W] uint8,
+    "action"/"reward"/"discount"/"next_off": [G, B]} with initial
+    |TD| [G, B]; `sample` (inherited) returns flat transitions
+    {obs, action, reward, next_obs, discount} with obs/next_obs
+    [B, H, W, stack] uint8 views of the gathered rows.
+    """
+
+    def __init__(self, capacity: int, seg_transitions: int, n_step: int,
+                 obs_shape: tuple[int, ...], obs_dtype=np.uint8,
+                 alpha: float = 0.6, beta: float = 0.4, eps: float = 1e-6,
+                 device: str | torch.device = "cuda"):
+        super().__init__(capacity=capacity, alpha=alpha, beta=beta, eps=eps,
+                         device=device)
+        if capacity % seg_transitions != 0:
+            raise ValueError("segment size must divide capacity")
+        if len(obs_shape) != 3:
+            raise ValueError(
+                f"frame-ring replay needs [H, W, stack] pixel obs, "
+                f"got {obs_shape}")
+        if np.dtype(obs_dtype) != np.uint8:
+            raise ValueError(
+                f"frame-ring byte-row storage requires uint8 frames "
+                f"(got {np.dtype(obs_dtype)})")
+        self.B = seg_transitions
+        self.n = n_step
+        self.h, self.w, self.stack = obs_shape
+        self.F = self.B + self.n + self.stack - 1
+        self.S = capacity // self.B          # segment slots
+        self.frame_bytes = self.h * self.w
+        self.frame_row = pad128(self.frame_bytes)
+
+    # -- state construction ------------------------------------------------
+
+    def init(self) -> ReplayState:
+        dev = self.device
+        storage = {
+            "frames": torch.zeros((self.S * self.F, self.frame_row),
+                                  dtype=torch.uint8, device=dev),
+            "action": torch.zeros(self.capacity, dtype=torch.int32,
+                                  device=dev),
+            "reward": torch.zeros(self.capacity, dtype=torch.float32,
+                                  device=dev),
+            "discount": torch.zeros(self.capacity, dtype=torch.float32,
+                                    device=dev),
+            "next_off": torch.zeros(self.capacity, dtype=torch.int32,
+                                    device=dev),
+        }
+        return ReplayState(storage=storage,
+                           tree=sum_tree.init(self.capacity, dev),
+                           pos=0, size=0)
+
+    # -- transitions -------------------------------------------------------
+
+    def _write_segments(self, state: ReplayState, items: Any,
+                        td_abs: torch.Tensor) -> ReplayState:
+        """ONE contiguous block of G*F frame rows / G*B transition
+        slots at the segment cursor, with skip-to-head wrap (in
+        place)."""
+        g = td_abs.shape[0]
+        seg0, pos1, size1 = ring_cursor(state.pos, state.size, g, self.S,
+                                        size_scale=self.B)
+        dev = state.tree.device
+        tidx = seg0 * self.B + torch.arange(g * self.B, device=dev)
+        rows = items["seg_frames"].to(dev, torch.uint8).reshape(
+            g * self.F, self.frame_bytes)
+        if self.frame_row != self.frame_bytes:
+            rows = F.pad(rows, (0, self.frame_row - self.frame_bytes))
+        st = state.storage
+        dus_rows(st["frames"], rows, seg0 * self.F)
+        for k in FIELDS:
+            dus_rows(st[k], items[k].to(dev).reshape(g * self.B),
+                     seg0 * self.B)
+        td = td_abs.to(dev, torch.float32).reshape(g * self.B)
+        valid = items["next_off"].to(dev).reshape(g * self.B) > 0
+        pri = torch.where(valid, (td + self.eps) ** self.alpha,
+                          torch.zeros_like(td))
+        return ring_finish(state, tidx, pri, pos1, size1)
+
+    def add(self, state: ReplayState, items: Any,
+            td_abs: torch.Tensor) -> ReplayState:
+        """Write G whole segments at the segment cursor, in place.
+
+        items: {"seg_frames": [G, F, H, W], "action"/"reward"/
+        "discount"/"next_off": [G, B]}; td_abs: [G, B] initial |TD| (0
+        on dead pads). Host tensors are copied to the replay's device.
+        """
+        return self._write_segments(state, items, td_abs)
+
+    def stack_rows(self, state: ReplayState, idx: torch.Tensor
+                   ) -> tuple[torch.Tensor, torch.Tensor]:
+        """Frame-row indices [Bt*stack] of the obs and next_obs stacks
+        of transitions idx [Bt], in stack order."""
+        seg = torch.div(idx, self.B, rounding_mode="floor")
+        base = seg * self.F + idx % self.B
+        offs = torch.arange(self.stack, device=idx.device)[None, :]
+        nxt = base + state.storage["next_off"][idx].long()
+        return ((base[:, None] + offs).reshape(-1),
+                (nxt[:, None] + offs).reshape(-1))
+
+    def unpack_stack(self, rows: torch.Tensor) -> torch.Tensor:
+        """Gathered [Bt*stack, frame_row] rows -> [Bt, H, W, stack]
+        (a view: trim, reshape and moveaxis copy nothing)."""
+        f = rows[:, :self.frame_bytes].reshape(-1, self.stack, self.h,
+                                               self.w)
+        return torch.movedim(f, 1, -1)
+
+    def _gather(self, state: ReplayState, idx: torch.Tensor) -> dict:
+        """Reconstruct flat transitions {obs, action, reward, next_obs,
+        discount} for transition indices idx [Bt]: one frame-row gather
+        kernel launch per side, then a batch-local view as [H, W]
+        planes (the network's NHWC -> NCHW permute undoes the moveaxis
+        without a copy)."""
+        st = state.storage
+        obs_rows, next_rows = self.stack_rows(state, idx)
+        return {
+            "obs": self.unpack_stack(gather_rows(st["frames"], obs_rows)),
+            "action": st["action"][idx],
+            "reward": st["reward"][idx],
+            # dead slots: next_off 0 — never sampled
+            "next_obs": self.unpack_stack(
+                gather_rows(st["frames"], next_rows)),
+            "discount": st["discount"][idx],
+        }
+
+    def sample_items(self, state: ReplayState, batch: int,
+                     noise: torch.Tensor | None = None,
+                     generator: torch.Generator | None = None
+                     ) -> tuple[Any, torch.Tensor, torch.Tensor]:
+        """-> (flat transition batch, leaf indices [B], probs [B])."""
+        idx, probs = sum_tree.sample(state.tree, batch, size=state.size,
+                                     noise=noise, generator=generator)
+        return self._gather(state, idx), idx, probs
+
+    def update_priorities(self, state: ReplayState, idx: torch.Tensor,
+                          td_abs: torch.Tensor) -> ReplayState:
+        pri = (td_abs + self.eps) ** self.alpha
+        # a dead slot must stay dead: a clamp-landed draw would otherwise
+        # write (garbage-TD)^alpha here and resurrect it into the
+        # sampling distribution permanently
+        pri = torch.where(state.storage["next_off"][idx] > 0, pri,
+                          torch.zeros_like(pri))
+        sum_tree.update(state.tree, idx, pri)
+        return state
+
+    def valid_mask(self, state: ReplayState,
+                   idx: torch.Tensor) -> torch.Tensor:
+        """[B] f32: 1 on live transitions, 0 on dead pad slots."""
+        return (state.storage["next_off"][idx] > 0).to(torch.float32)
+
+    def cursor_transitions(self, state: ReplayState) -> int:
+        """Write cursor in transition units (`pos` counts segments)."""
+        return state.pos * self.B
+
+    def live_transitions(self, state: ReplayState) -> torch.Tensor:
+        """Count of live (non-pad) transition slots."""
+        return (state.storage["next_off"] > 0).sum(dim=-1)

@@ -1,0 +1,443 @@
+#!/usr/bin/env python3
+"""Chip smoke for the PyTorch/H100 port (ape_x_dqn_tpu_torch).
+
+Run from the repository root on a machine with one NVIDIA card:
+
+    python3 chip_smoke.py [--seed 0]
+
+Phases, one result line each; any failure exits non-zero:
+1. device    the card's name and power limit (nvidia-smi); no CUDA -> exit 2
+2. build     nvcc builds every kernel from the sources in the checkout
+3. kernel    each kernel against its plain PyTorch version on the card at
+             the main path's shapes (bitwise for the gather), with its
+             time, the plain version's, one library call's, and its bound
+4. reference one K=4 macro-step of a small float32 learner on the
+             card and on the CPU from the same weights, replay and
+             noise: the kernel path agrees with the plain one
+5. main      the `pong` learner at full width and full 2^20 capacity:
+             prefill >= min_fill transitions through add_many, then K=4
+             macro-steps through train_step_k; kernel launch counts are
+             zeroed just before and read just after; then a
+             torch.profiler pass: device busy share and top kernels
+6. the kernels line, the card line, and the contract's last line.
+
+It imports torch and the port only: no JAX, nothing of ape_x_dqn_tpu.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import math
+import subprocess
+import sys
+import time
+
+import numpy as np
+import torch
+
+# H100 SXM published peak memory rate (NVIDIA data sheet), at 700 W
+PEAK_BYTES_PER_S = 3.35e12
+# main path: 2 warm-up + 8 timed train_step_k calls, then macro-steps
+# split into their two stages for CUDA-event stage times, then a
+# torch.profiler pass (after the launch counts are read)
+MACRO_STEPS = 10
+STAGED_STEPS = 3
+PROFILE_STEPS = 3
+
+
+def log(msg: str) -> None:
+    print(msg, flush=True)
+
+
+def check(cond: bool, msg: str) -> None:
+    if not cond:
+        raise RuntimeError(f"check failed: {msg}")
+
+
+def card_line() -> str:
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60)
+    check(out.returncode == 0, f"nvidia-smi failed: {out.stderr}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(fn, iters: int, warmup: int = 3) -> float:
+    """Mean device time of fn() over `iters` calls, by CUDA events."""
+    for _ in range(warmup):
+        fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(iters):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / iters
+
+
+def pong_setup(dev):
+    from ape_x_dqn_tpu_torch.configs import get_config
+    from ape_x_dqn_tpu_torch.envs.base import EnvSpec
+
+    cfg = get_config("pong")
+    # 18 actions: the full ALE action set, as the JAX bench sizes pong
+    spec = EnvSpec(obs_shape=(84, 84, 4), obs_dtype=np.dtype(np.uint8),
+                   discrete=True, num_actions=18)
+    return cfg, spec
+
+
+def segments(replay, spec, g_outer: int, g: int, rng) -> tuple[dict, object]:
+    """Synthetic staged segments [g_outer, g, ...] as bench.py's
+    _seg_chunk builds them, from numpy."""
+    b, f = replay.B, replay.F
+    shape = (g_outer, g, b)
+    items = {
+        "seg_frames": torch.from_numpy(rng.integers(
+            0, 255, (g_outer, g, f, *spec.obs_shape[:2]), dtype=np.uint8)),
+        "action": torch.from_numpy(
+            rng.integers(0, spec.num_actions, shape).astype(np.int32)),
+        "reward": torch.from_numpy(
+            rng.normal(size=shape).astype(np.float32)),
+        "discount": torch.full(shape, 0.99 ** 3),
+        "next_off": torch.full(shape, 3, dtype=torch.int32),
+    }
+    return items, torch.from_numpy(
+        rng.uniform(0.1, 2.0, shape).astype(np.float32))
+
+
+def phase_kernel(dev, seed: int) -> dict:
+    """gather_rows vs plain on the card at the main path's shape: one
+    side of a K=4 x B=512 draw (8192 rows of stack frames) from a ring
+    of the pong preset's full row count."""
+    from ape_x_dqn_tpu_torch.ops import frame_gather as fg
+    from ape_x_dqn_tpu_torch.runtime.build import build_prioritized_replay
+    from ape_x_dqn_tpu_torch.utils.misc import next_pow2
+
+    cfg, spec = pong_setup(dev)
+    geo = build_prioritized_replay(cfg, spec,
+                                   next_pow2(cfg.replay.capacity), dev)
+    n_rows, row = geo.S * geo.F, geo.frame_row
+    m = cfg.learner.sample_chunk * cfg.learner.batch_size * geo.stack
+    check(n_rows >= 1_441_792 and row == 7168 and m == 8192,
+          f"unexpected main-path shape {n_rows}x{row}, m={m}")
+    g = torch.Generator(device=dev)
+    g.manual_seed(seed)
+    src = torch.randint(0, 256, (n_rows, row), dtype=torch.uint8,
+                        device=dev, generator=g)
+    # 8 index sets, cycled, so the ~59 MB a call reads is not served
+    # from the 50 MB L2 by the previous call
+    idx_sets = [torch.randint(0, n_rows, (m,), device=dev, generator=g)
+                for _ in range(8)]
+    edge = idx_sets[0].clone()
+    edge[:6] = torch.tensor([0, n_rows - 1, n_rows - 1, 0, 0, 7],
+                            device=dev)
+    max_err = 0
+    for idx in [*idx_sets, edge, edge.to(torch.int32)]:
+        out = fg.gather_rows(src, idx)
+        torch.cuda.synchronize()
+        ref = fg.gather_rows_reference(src, idx)
+        check(out.shape == ref.shape and out.dtype == ref.dtype,
+              "gather_rows shape/dtype")
+        max_err = max(max_err, int((out.int() - ref.int()).abs().max()))
+        check(torch.equal(out, ref), "gather_rows != plain (bitwise)")
+
+    def cycle(fn):
+        it = iter(range(1 << 30))
+        return lambda: fn(src, idx_sets[next(it) % len(idx_sets)])
+
+    versions = {
+        "ms": cycle(fg.gather_rows),
+        "plain_ms": cycle(fg.gather_rows_reference),
+        "library_ms": cycle(lambda s, i: s.index_select(0, i)),
+    }
+    rounds = {k: [] for k in versions}
+    for _ in range(3):  # in turns, so drift hits every version alike
+        for k, fn in versions.items():
+            rounds[k].append(cuda_ms(fn, iters=50))
+    times = {k: float(np.median(v)) for k, v in rounds.items()}
+    nbytes = 2 * m * row + m * idx_sets[0].element_size()
+    bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
+    log(f"kernel gather_rows: bitwise equal to plain on {len(idx_sets) + 2} "
+        f"index sets of {m} rows x {row} B from {n_rows} rows "
+        f"(dups and both ends incl.); ms={times['ms']:.5f} "
+        f"plain_ms={times['plain_ms']:.5f} "
+        f"library_ms={times['library_ms']:.5f} (index_select) "
+        f"bound_ms={bound_ms:.5f} ({nbytes} B at 3.35 TB/s); "
+        f"rounds={json.dumps(rounds)}")
+    del src, idx_sets, edge
+    torch.cuda.empty_cache()
+    return {"name": "gather_rows", "route": "cuda",
+            "source": "ape_x_dqn_tpu_torch/csrc/frame_gather.cu",
+            "replaces": "ape_x_dqn_tpu/ops/frame_gather.py:46",
+            "max_abs_err": max_err, "bound_ms": bound_ms,
+            "bound_by": "bytes", **times}
+
+
+def phase_reference(dev, seed: int) -> None:
+    """One K=4 macro-step of a small float32 learner, run on the card
+    (kernel path) and on the CPU (plain path) from the same weights,
+    replay contents and stratification noise: one draw from identical
+    trees, so both train on the same transitions. TF32 is off for this
+    phase, so the card computes in full float32. Tolerances: loss 1e-4
+    relative; params 2 * lr per Adam step absolute (one element's
+    normalised update can flip sign where its gradient is at rounding
+    level); leaf priorities 2e-3 absolute, except leaves drawn twice
+    (see below)."""
+    from ape_x_dqn_tpu_torch.configs import (LearnerConfig, NetworkConfig,
+                                             ReplayConfig)
+    from ape_x_dqn_tpu_torch.ops import sum_tree
+    from ape_x_dqn_tpu_torch.runtime.build import build_learner
+
+    cfg, spec = pong_setup(dev)
+    cfg = cfg.replace(
+        network=NetworkConfig(kind="nature_cnn", cnn_channels=(8, 16, 16),
+                              torso_dense=64, compute_dtype="float32"),
+        replay=ReplayConfig(kind="prioritized", capacity=4096,
+                            storage="frame_ring", seg_transitions=16),
+        learner=LearnerConfig(batch_size=32, sample_chunk=4,
+                              target_sync_every=3),
+        seed=seed)
+    tf32 = (torch.backends.cuda.matmul.allow_tf32,
+            torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        runs = []
+        for d in (dev, torch.device("cpu")):
+            learner, state = build_learner(cfg, spec, device=d)
+            rng = np.random.default_rng(seed)
+            items, td = segments(learner.replay, spec, 2, 64, rng)
+            learner.add_many(state, items, td)
+            noise = torch.from_numpy(rng.uniform(
+                size=4 * cfg.learner.batch_size).astype(np.float32))
+            # the leaves this macro-step's one draw will return (the
+            # same descent train_step_k makes, read-only)
+            drawn, _ = sum_tree.sample(state.replay.tree.cpu(),
+                                       noise.numel(), state.replay.size,
+                                       noise)
+            state, m = learner.train_step_k(state, 4, noise.to(d))
+            runs.append((state, m))
+        (gs, g2), (cs, c2) = runs
+        for key in ("loss", "q_mean", "grad_norm"):
+            a, b_ = g2[key].item(), c2[key].item()
+            check(math.isfinite(a) and abs(a - b_) <= 1e-4 * abs(b_) + 1e-6,
+                  f"reference {key}: card {a} vs cpu {b_}")
+        tol = 2 * cfg.learner.lr * gs.step
+        err = max(float((p.cpu() - q).abs().max()) for p, q in
+                  zip(gs.net.state_dict().values(),
+                      cs.net.state_dict().values()))
+        check(err <= tol, f"reference params differ by {err} > {tol}")
+        # a leaf drawn twice gets two write-back values, and which one
+        # lands is unordered on the card: those leaves are not compared.
+        # A leaf holds (|td| + 1e-6)^0.6, whose slope is unbounded near
+        # td = 0: a float32-level TD difference d moves a leaf by up to
+        # d^0.6 (2.5e-4 at d = 1e-6), so the others get 2e-3 absolute
+        cap = learner.replay.capacity
+        once = torch.ones(cap, dtype=torch.bool)
+        leaves, counts = torch.unique(drawn, return_counts=True)
+        once[leaves[counts > 1]] = False
+        terr = float((gs.replay.tree[cap:].cpu()
+                      - cs.replay.tree[cap:])[once].abs().max())
+        check(terr <= 2e-3, f"reference tree leaves differ by {terr}")
+        log(f"reference: card vs cpu after {gs.step} grad-steps: loss "
+            f"{g2['loss'].item():.6f} vs {c2['loss'].item():.6f}, max "
+            f"param diff {err:.3g} (tol {tol:.3g}), max leaf priority "
+            f"diff {terr:.3g} (tol 2e-3; {int((~once).sum())} leaves drawn "
+            f"twice not compared)")
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = tf32
+
+
+def profile_macro_steps(learner, state, k: int, n: int) -> str:
+    """n train_step_k calls under torch.profiler: device busy share
+    (kernel time over wall time) and the kernels that take the most
+    device time. The profiler's own host cost inflates the wall time,
+    so the busy share is a lower bound."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, _ = learner.train_step_k(state, k)
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kern = [e for e in prof.key_averages()
+            if e.device_type == torch.autograd.DeviceType.CUDA]
+
+    def dev_us(e):
+        return getattr(e, "self_device_time_total", None) \
+            or getattr(e, "self_cuda_time_total", 0.0)
+
+    busy_us = sum(dev_us(e) for e in kern)
+    if not kern or busy_us <= 0:
+        return "profile: no device time in the trace (not measured)"
+    top = sorted(kern, key=dev_us, reverse=True)[:12]
+    rows = [{"kernel": e.key[:90], "count": e.count / n,
+             "ms_per_macro": round(dev_us(e) / n / 1e3, 4)} for e in top]
+    return (f"profile: {n} macro-steps, wall {wall_us / n / 1e3:.3f} "
+            f"ms/macro-step under the profiler, device busy "
+            f"{busy_us / n / 1e3:.3f} ms/macro-step = "
+            f"{busy_us / wall_us:.3f} of wall, "
+            f"{sum(e.count for e in kern) / n:.0f} kernel launches per "
+            f"macro-step; top by device time: {json.dumps(rows)}")
+
+
+def phase_main(dev, seed: int) -> dict:
+    """The pong learner at full width and capacity through the port's
+    entry points. -> the launch counts of this run."""
+    from ape_x_dqn_tpu_torch.ops import frame_gather as fg
+    from ape_x_dqn_tpu_torch.runtime.build import build_learner
+
+    cfg, spec = pong_setup(dev)
+    k = cfg.learner.sample_chunk
+    check(k == 4 and cfg.learner.batch_size == 512
+          and cfg.network.compute_dtype == "bfloat16", "pong preset drift")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    learner, state = build_learner(cfg, spec, device=dev)
+    replay = learner.replay
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    ring_gb = state.replay.storage["frames"].numel() / 1e9
+    check(replay.capacity == 1 << 20, f"capacity {replay.capacity}")
+
+    rng = np.random.default_rng(seed)
+    per_group = 256                   # segments per staged block
+    groups = -(-cfg.replay.min_fill // (per_group * replay.B))
+    items, td = segments(replay, spec, groups, per_group, rng)
+
+    fg.gather_rows.launches = 0       # count the main path's run only
+    t0 = time.perf_counter()
+    state = learner.add_many(state, items, td)
+    torch.cuda.synchronize()
+    fill_s = time.perf_counter() - t0
+    check(state.replay.size >= cfg.replay.min_fill,
+          f"prefill reached {state.replay.size}")
+
+    root0 = state.replay.tree[1].item()
+    losses = []
+    warm = 2
+    for _ in range(warm):
+        state, m = learner.train_step_k(state, k)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(MACRO_STEPS - warm):
+        state, m = learner.train_step_k(state, k)
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    grad_steps_s = (MACRO_STEPS - warm) * k / wall
+    root1 = state.replay.tree[1].item()
+
+    # per-stage device times: the two stages train_step_k composes
+    ev = [torch.cuda.Event(enable_timing=True) for _ in range(3)]
+    sample_ms, learn_ms = [], []
+    for _ in range(STAGED_STEPS):
+        ev[0].record()
+        sample = learner._sample_stage(state.replay, k, None,
+                                       state.generator)
+        ev[1].record()
+        state, m = learner._learn_stage(state, sample, k)
+        ev[2].record()
+        torch.cuda.synchronize()
+        sample_ms.append(ev[0].elapsed_time(ev[1]))
+        learn_ms.append(ev[1].elapsed_time(ev[2]))
+        losses.append(m["loss"])
+    torch.cuda.synchronize()
+    launches = {"gather_rows": fg.gather_rows.launches}
+
+    loss_vals = [x.item() for x in losses]
+    check(all(math.isfinite(x) for x in loss_vals), f"loss {loss_vals}")
+    check(root1 != root0, "tree root unchanged by the write-backs")
+    total = MACRO_STEPS + STAGED_STEPS
+    want = 2 * total                  # one launch per side per draw
+    check(launches["gather_rows"] == want,
+          f"gather_rows launched {launches['gather_rows']} times, "
+          f"expected {want} ({total} macro-steps x 2 sides)")
+    diag = {key: round(v.item(), 6) for key, v in m["diag"].items()}
+    check(all(math.isfinite(v) for v in diag.values()), f"diag {diag}")
+
+    # one macro-step's gathered batch: kernel vs plain on the same rows
+    noise = torch.rand(k * cfg.learner.batch_size, device=dev,
+                       generator=state.generator)
+    got, idx, _ = replay.sample_items(state.replay,
+                                      k * cfg.learner.batch_size, noise)
+    obs_rows, next_rows = replay.stack_rows(state.replay, idx)
+    frames = state.replay.storage["frames"]
+    for key, rows in (("obs", obs_rows), ("next_obs", next_rows)):
+        want_stack = replay.unpack_stack(
+            fg.gather_rows_reference(frames, rows))
+        check(got[key].shape == (k * cfg.learner.batch_size, 84, 84, 4),
+              f"{key} shape {tuple(got[key].shape)}")
+        check(torch.equal(got[key], want_stack),
+              f"sampled {key}: kernel != plain")
+
+    log(f"main: pong learner, dueling Nature-CNN bf16, 84x84x4 uint8, "
+        f"{spec.num_actions} actions, batch {cfg.learner.batch_size}, "
+        f"K={k}, ring {replay.S * replay.F} rows = {ring_gb:.2f} GB for "
+        f"{replay.capacity} transitions; build {build_s:.2f} s, prefill "
+        f"{state.replay.size} transitions in {fill_s:.2f} s; "
+        f"{MACRO_STEPS} train_step_k + {STAGED_STEPS} staged macro-steps; "
+        f"grad-steps/s={grad_steps_s:.2f} (host clock over "
+        f"{MACRO_STEPS - warm} macro-steps after {warm} warm-up); "
+        f"sample_stage_ms={float(np.median(sample_ms)):.3f} "
+        f"learn_stage_ms={float(np.median(learn_ms)):.3f} (CUDA events, "
+        f"median of {STAGED_STEPS}); losses={[round(x, 5) for x in loss_vals]}"
+        f"; root {root0:.3f} -> {root1:.3f}; launches={launches}; "
+        f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}; "
+        f"gathered obs/next_obs bitwise equal to plain; diag={diag}")
+    log(profile_macro_steps(learner, state, k, PROFILE_STEPS))
+    return launches
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--seed", type=int, default=0)
+    args = ap.parse_args()
+
+    # 1. device
+    if not torch.cuda.is_available():
+        print("FAIL: torch.cuda.is_available() is False: this smoke needs "
+              "an NVIDIA card", file=sys.stderr)
+        return 2
+    dev = torch.device("cuda", 0)
+    card = card_line()
+    log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
+        f"torch {torch.__version__}, CUDA {torch.version.cuda}")
+
+    # 2. build (set-up time)
+    from ape_x_dqn_tpu_torch.ops import frame_gather as fg
+    build_s = fg.build()
+    log(f"build: frame_gather.cu with nvcc for sm_90a in {build_s:.2f} s")
+
+    # 3. kernel vs plain
+    kernels = [phase_kernel(dev, args.seed)]
+    # 4. small reference: card vs cpu
+    phase_reference(dev, args.seed)
+    # 5. main path
+    launches = phase_main(dev, args.seed)
+    for kern in kernels:
+        kern["launches"] = launches[kern["name"]]
+        check(kern["launches"] > 0, f"{kern['name']} never launched")
+
+    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
+            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
+    log(json.dumps({"kernels": [{k: kern[k] for k in keys}
+                                for kern in kernels]}))
+    log(card_line())
+    log(json.dumps({"ok": True, "device": {
+        "platform": "gpu", "kind": torch.cuda.get_device_name(0),
+        "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -71,6 +71,8 @@ def pytest_addoption(parser):
 
 def pytest_configure(config):
     config.addinivalue_line("markers", "slow: long-running integration test")
+    config.addinivalue_line(
+        "markers", "cuda: needs an NVIDIA CUDA card (skips without one)")
 
 
 def pytest_collection_modifyitems(config, items):
