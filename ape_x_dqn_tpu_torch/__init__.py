@@ -11,7 +11,17 @@ The package imports torch and numpy, never jax, flax, optax or
 when CUDA is absent; pass ``device="cpu"`` to run the plain PyTorch
 versions of the kernels (what the CPU tests do).
 
-Ported so far: the ``pong`` prioritized frame-ring learner cycle
-(``runtime/build.py: build_learner``), with the frame-row gather as a
-hand-written CUDA kernel (``ops/frame_gather.py``, ``csrc/``).
+Ported so far:
+- the ``pong`` prioritized frame-ring learner cycle
+  (``runtime/build.py: build_learner``), with the frame-row gather as a
+  hand-written CUDA kernel (``ops/frame_gather.py``, ``csrc/``);
+- the single-process trainer (``runtime/single_process.py:
+  train_single_process`` and ``python -m
+  ape_x_dqn_tpu_torch.runtime.train --single-process``): environments,
+  n-step folding, flat prioritized and uniform replay (packed pixel rows
+  gathered by the same kernel), the K-batch and prefetch learner paths.
 """
+
+# the version log_run_header stamps into every run's JSONL (the JAX
+# package's, whose run records the port's mirror)
+__version__ = "0.2.0"

@@ -1,8 +1,16 @@
-"""Environment interface: the static spec only (the env classes wait for
-the actor slice)."""
+"""Environment interface.
+
+Counterpart of ``ape_x_dqn_tpu/envs/base.py``: a host-side (numpy)
+environment API for the trainer's acting loop. The environments are
+native implementations (CartPole physics, a synthetic ALE-compatible
+game), with the real ALE behind an import, exactly as in the JAX
+package; their steps are bitwise equal to the originals'
+(tests/test_torch_envs.py).
+"""
 
 from __future__ import annotations
 
+import abc
 from dataclasses import dataclass
 
 import numpy as np
@@ -19,3 +27,44 @@ class EnvSpec:
     action_dim: int = 0  # continuous only
     action_low: float = -1.0
     action_high: float = 1.0
+
+
+class Env(abc.ABC):
+    """Minimal synchronous env: reset() -> obs, step(a) -> (obs, r, done, info).
+
+    `done` is episode termination (true terminal OR time limit); `info` may
+    carry `terminal` (bootstrapping-relevant termination, i.e. excluding
+    time limits), `lives`, and `episode_return` on episode end.
+    """
+
+    spec: EnvSpec
+
+    @abc.abstractmethod
+    def reset(self) -> np.ndarray:
+        ...
+
+    @abc.abstractmethod
+    def step(self, action) -> tuple[np.ndarray, float, bool, dict]:
+        ...
+
+    def seed(self, seed: int) -> None:  # pragma: no cover - default noop
+        pass
+
+
+def make_env(cfg, seed: int = 0, actor_index: int = 0) -> Env:
+    """Factory from an EnvConfig (ape_x_dqn_tpu_torch.configs.EnvConfig).
+    The continuous-control kind waits for the DPG slice."""
+    from ape_x_dqn_tpu_torch.envs import atari, cartpole
+
+    kind = cfg.kind
+    if kind == "cartpole":
+        return cartpole.CartPole(seed=seed)
+    if kind == "cartpole_po":
+        return cartpole.MaskedCartPole(seed=seed)
+    if kind in ("atari", "synthetic_atari"):
+        return atari.make_atari(cfg, seed=seed, actor_index=actor_index)
+    if kind == "control":
+        raise NotImplementedError(
+            "env kind 'control' (the DM Control stand-ins) is not ported "
+            "yet: it waits for the DPG slice (ROADMAP Queue A item 13)")
+    raise ValueError(f"unknown env kind {kind!r}")

@@ -31,15 +31,19 @@ from ape_x_dqn_tpu_torch.utils.rng import component_generator
 
 def build_prioritized_replay(cfg, spec, capacity: int,
                              device: str | torch.device) -> FrameRingReplay:
-    """Prioritized replay at `capacity` in the configured layout (the
-    frame ring is the only layout ported so far)."""
+    """Prioritized replay at `capacity` in the configured layout. Only
+    the frame ring is built here so far: the driver's flat layout waits
+    for the driver slice (the single-process trainer builds its own flat
+    replay, runtime/single_process.py: build_replay)."""
     r = cfg.replay
     if r.kind != "prioritized" or r.storage != "frame_ring" \
             or len(spec.obs_shape) != 3:
         raise NotImplementedError(
-            f"only prioritized frame-ring replay over [H, W, stack] "
-            f"pixels is ported so far (got kind={r.kind!r}, "
-            f"storage={r.storage!r}, obs_shape={spec.obs_shape})")
+            f"build_learner builds prioritized frame-ring replay over "
+            f"[H, W, stack] pixels only (got kind={r.kind!r}, "
+            f"storage={r.storage!r}, obs_shape={spec.obs_shape}); "
+            f"flat and uniform replay train through "
+            f"runtime/single_process.py")
     return FrameRingReplay(
         capacity=capacity, seg_transitions=r.seg_transitions,
         n_step=cfg.learner.n_step, obs_shape=spec.obs_shape,

@@ -13,15 +13,19 @@ tensors read by the caller where it already synchronises.
 The K-batch relaxation (LearnerConfig.sample_chunk = K) keeps the JAX
 package's semantics exactly: one stratified K*B draw whose chunk j takes
 the INTERLEAVED strata {j, j+K, j+2K, ...}, per-chunk IS
-renormalisation, K SGD steps, then ONE priority write-back.
-`sample_prefetch`, `evict_region` and `add_at` wait for later slices.
+renormalisation, K SGD steps, then ONE priority write-back. The
+double-buffered form (LearnerConfig.sample_prefetch) keeps one
+macro-step's sample in flight: `sample_k` draws the NEXT sample from the
+current tree before `learn_k` trains on the pending one. `evict_region`
+and `add_at` wait for the tiers' slice.
 """
 
 from __future__ import annotations
 
 import copy
+import itertools
 from dataclasses import dataclass
-from typing import Any
+from typing import Any, Iterable
 
 import numpy as np
 import torch
@@ -30,6 +34,7 @@ from torch import nn
 from ape_x_dqn_tpu_torch.models.base import hard_update
 from ape_x_dqn_tpu_torch.obs import learning as learn_obs
 from ape_x_dqn_tpu_torch.ops.losses import TransitionBatch, make_dqn_loss
+from ape_x_dqn_tpu_torch.replay.packing import ItemSpec, torch_dtype
 from ape_x_dqn_tpu_torch.replay.prioritized import ReplayState
 
 
@@ -48,6 +53,18 @@ class TrainState:
     replay: ReplayState
     generator: torch.Generator
     step: int                  # grad-step counter
+
+
+def transition_item_spec(obs_shape, obs_dtype) -> dict[str, ItemSpec]:
+    """Item spec for one flat n-step transition (discrete actions)."""
+    obs = ItemSpec(tuple(obs_shape), torch_dtype(obs_dtype))
+    return {
+        "obs": obs,
+        "action": ItemSpec((), torch.int32),
+        "reward": ItemSpec((), torch.float32),
+        "next_obs": obs,
+        "discount": ItemSpec((), torch.float32),
+    }
 
 
 class ClipAdam:
@@ -205,21 +222,66 @@ class SingleChipLearner:
         batch_size] stratification noise, as in `train_step`."""
         return self._train_step_k(state, k, noise)
 
-    def train_many(self, state: TrainState, n: int):
+    def sample_k(self, state: TrainState, k: int,
+                 noise: torch.Tensor | None = None):
+        """SAMPLE dispatch of the double-buffered pipeline: draw the
+        NEXT macro-step's chunked sample from the current tree. Leaves
+        the state untouched, except that the draw advances
+        `state.generator`; the sample holds its own copies of the
+        gathered items, so later in-place writes do not reach it.
+        `noise`: [k * batch_size] stratification noise, as in
+        `train_step_k`."""
+        return self._sample_stage(state.replay, k, noise, state.generator)
+
+    def learn_k(self, state: TrainState, sample, k: int):
+        """LEARN dispatch: K SGD steps + one write-back on a sample drawn
+        earlier by `sample_k`, possibly against a tree that an `add` or
+        a write-back has changed since (the accepted one-dispatch
+        staleness). It draws nothing."""
+        return self._learn_stage(state, sample, k)
+
+    def train_many(self, state: TrainState, n: int,
+                   noise: Iterable[torch.Tensor] | None = None):
         """n grad-steps. With sample_chunk=K>1: n % K exact single steps
         FIRST, then n // K K-batch macro-steps, so the returned
         (last-step) metrics come from the macro-steps that do the bulk
-        of the work. -> (state, last step's metrics)."""
+        of the work. With sample_prefetch the macro-steps run
+        double-buffered (`_train_many_prefetch`). `noise`: one
+        stratification-noise tensor per draw, in draw order (tests feed
+        JAX's). -> (state, last step's metrics)."""
         k = getattr(self.lcfg, "sample_chunk", 1)
+        draws = iter(noise) if noise is not None else itertools.repeat(None)
+        if getattr(self.lcfg, "sample_prefetch", False):
+            return self._train_many_prefetch(state, n, max(k, 1), draws)
         metrics = None
         if k <= 1:
             for _ in range(n):
-                state, metrics = self._train_step(state)
+                state, metrics = self._train_step(state, next(draws))
             return state, metrics
         for _ in range(n % k):
-            state, metrics = self._train_step(state)
+            state, metrics = self._train_step(state, next(draws))
         for _ in range(n // k):
-            state, metrics = self._train_step_k(state, k)
+            state, metrics = self._train_step_k(state, k, next(draws))
+        return state, metrics
+
+    def _train_many_prefetch(self, state: TrainState, n: int, k: int,
+                             draws):
+        """Double-buffered macro-steps: the NEXT macro-step's sample is
+        drawn from the tree BEFORE this macro-step's K SGD steps and
+        write-back run, so it sees priorities that predate that
+        write-back (one dispatch of lag). Remainder singles first; the
+        first macro-step trains on a fresh prologue draw, so a
+        one-macro-step call matches `train_step_k` in params; the last
+        prefetched sample is discarded."""
+        metrics = None
+        for _ in range(n % k):
+            state, metrics = self._train_step(state, next(draws))
+        if n // k:
+            pending = self.sample_k(state, k, next(draws))
+            for _ in range(n // k):
+                nxt = self.sample_k(state, k, next(draws))
+                state, metrics = self.learn_k(state, pending, k)
+                pending = nxt
         return state, metrics
 
     def add(self, state: TrainState, items: Any,

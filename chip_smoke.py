@@ -5,21 +5,35 @@ Run from the repository root on a machine with one NVIDIA card:
 
     python3 chip_smoke.py [--seed 0]
 
-Phases, one result line each; any failure exits non-zero:
+Phases, one result line each with its seconds; any failure exits
+non-zero:
 1. device    the card's name and power limit (nvidia-smi); no CUDA -> exit 2
 2. build     nvcc builds every kernel from the sources in the checkout
 3. kernel    each kernel against its plain PyTorch version on the card at
-             the main path's shapes (bitwise for the gather), with its
-             time, the plain version's, one library call's, and its bound
+             each main path's shapes (bitwise for the gather: the frame
+             ring's 7168-byte frame rows and flat replay's 28,288-byte
+             packed 84x84x4 stacks), with its time, the plain
+             version's, one library call's, and its bound
 4. reference one K=4 macro-step of a small float32 learner on the
              card and on the CPU from the same weights, replay and
              noise: the kernel path agrees with the plain one
-5. main      the `pong` learner at full width and full 2^20 capacity:
-             prefill >= min_fill transitions through add_many, then K=4
-             macro-steps through train_step_k; kernel launch counts are
-             zeroed just before and read just after; then a
-             torch.profiler pass: device busy share and top kernels
-6. the kernels line, the card line, and the contract's last line.
+5. main      the `pong` frame-ring learner at full width and full 2^20
+             capacity: prefill >= min_fill transitions through add_many,
+             then K=4 macro-steps through train_step_k; kernel launch
+             counts are zeroed just before and read just after; then a
+             torch.profiler pass: device busy share and top kernels.
+             Its 10.3 GB ring is freed before the next phases.
+6. cartpole  `python -m ape_x_dqn_tpu_torch.runtime.train --config
+             cartpole_smoke --single-process` for 9,000 frames on the
+             card: the repo's quick learning bar (last20 > 60)
+7. pong-sp   the same CLI with `--config pong --set
+             learner.sample_prefetch=True` for 24,000 frames: the
+             dueling Nature-CNN at full width over a 2^20-slot flat
+             prioritized replay (59.3 GB of packed pixel rows), K=4 with
+             the double-buffered sampler; launch counts zeroed just
+             before and read just after; two gather launches per
+             sample_k call; one drawn sample bitwise vs plain
+8. the kernels line, the card line, and the contract's last line.
 
 It imports torch and the port only: no JAX, nothing of ape_x_dqn_tpu.
 """
@@ -27,6 +41,9 @@ It imports torch and the port only: no JAX, nothing of ape_x_dqn_tpu.
 from __future__ import annotations
 
 import argparse
+import contextlib
+import gc
+import io
 import json
 import math
 import subprocess
@@ -109,27 +126,22 @@ def segments(replay, spec, g_outer: int, g: int, rng) -> tuple[dict, object]:
         rng.uniform(0.1, 2.0, shape).astype(np.float32))
 
 
-def phase_kernel(dev, seed: int) -> dict:
-    """gather_rows vs plain on the card at the main path's shape: one
-    side of a K=4 x B=512 draw (8192 rows of stack frames) from a ring
-    of the pong preset's full row count."""
+def kernel_site(dev, seed: int, site: str, n_rows: int, row: int,
+                m: int) -> dict:
+    """gather_rows vs plain on the card at one call site's shape: m
+    indices into a [n_rows, row] uint8 buffer, bitwise on 8 random
+    index sets and on sets with duplicates and both ends, int64 and
+    int32; then kernel / plain / index_select times (CUDA events, median
+    of 3 rounds of 50 launches in turns, the 8 index sets cycled so the
+    rows a call reads are not all served from the 50 MB L2 by the
+    previous call) and the byte bound."""
     from ape_x_dqn_tpu_torch.ops import frame_gather as fg
-    from ape_x_dqn_tpu_torch.runtime.build import build_prioritized_replay
-    from ape_x_dqn_tpu_torch.utils.misc import next_pow2
 
-    cfg, spec = pong_setup(dev)
-    geo = build_prioritized_replay(cfg, spec,
-                                   next_pow2(cfg.replay.capacity), dev)
-    n_rows, row = geo.S * geo.F, geo.frame_row
-    m = cfg.learner.sample_chunk * cfg.learner.batch_size * geo.stack
-    check(n_rows >= 1_441_792 and row == 7168 and m == 8192,
-          f"unexpected main-path shape {n_rows}x{row}, m={m}")
+    t0 = time.perf_counter()
     g = torch.Generator(device=dev)
     g.manual_seed(seed)
     src = torch.randint(0, 256, (n_rows, row), dtype=torch.uint8,
                         device=dev, generator=g)
-    # 8 index sets, cycled, so the ~59 MB a call reads is not served
-    # from the 50 MB L2 by the previous call
     idx_sets = [torch.randint(0, n_rows, (m,), device=dev, generator=g)
                 for _ in range(8)]
     edge = idx_sets[0].clone()
@@ -143,7 +155,8 @@ def phase_kernel(dev, seed: int) -> dict:
         check(out.shape == ref.shape and out.dtype == ref.dtype,
               "gather_rows shape/dtype")
         max_err = max(max_err, int((out.int() - ref.int()).abs().max()))
-        check(torch.equal(out, ref), "gather_rows != plain (bitwise)")
+        check(torch.equal(out, ref),
+              f"gather_rows != plain (bitwise) at the {site} shape")
 
     def cycle(fn):
         it = iter(range(1 << 30))
@@ -152,7 +165,7 @@ def phase_kernel(dev, seed: int) -> dict:
     versions = {
         "ms": cycle(fg.gather_rows),
         "plain_ms": cycle(fg.gather_rows_reference),
-        "library_ms": cycle(lambda s, i: s.index_select(0, i)),
+        "library_ms": cycle(lambda s_, i: s_.index_select(0, i)),
     }
     rounds = {k: [] for k in versions}
     for _ in range(3):  # in turns, so drift hits every version alike
@@ -161,20 +174,40 @@ def phase_kernel(dev, seed: int) -> dict:
     times = {k: float(np.median(v)) for k, v in rounds.items()}
     nbytes = 2 * m * row + m * idx_sets[0].element_size()
     bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
-    log(f"kernel gather_rows: bitwise equal to plain on {len(idx_sets) + 2} "
-        f"index sets of {m} rows x {row} B from {n_rows} rows "
-        f"(dups and both ends incl.); ms={times['ms']:.5f} "
+    log(f"kernel gather_rows [{site}]: bitwise equal to plain on "
+        f"{len(idx_sets) + 2} index sets of {m} rows x {row} B from "
+        f"{n_rows} rows (dups and both ends incl.); ms={times['ms']:.5f} "
         f"plain_ms={times['plain_ms']:.5f} "
         f"library_ms={times['library_ms']:.5f} (index_select) "
         f"bound_ms={bound_ms:.5f} ({nbytes} B at 3.35 TB/s); "
-        f"rounds={json.dumps(rounds)}")
+        f"rounds={json.dumps(rounds)}; {time.perf_counter() - t0:.2f} s")
     del src, idx_sets, edge
     torch.cuda.empty_cache()
-    return {"name": "gather_rows", "route": "cuda",
-            "source": "ape_x_dqn_tpu_torch/csrc/frame_gather.cu",
-            "replaces": "ape_x_dqn_tpu/ops/frame_gather.py:46",
-            "max_abs_err": max_err, "bound_ms": bound_ms,
-            "bound_by": "bytes", **times}
+    return {"site": site, "shape": [n_rows, row], "indices": m,
+            "max_abs_err": max_err, "bound_ms": bound_ms, **times}
+
+
+def phase_kernel(dev, seed: int) -> list[dict]:
+    """The gather at both main paths' shapes: one side of a K=4 x B=512
+    frame-ring draw (8192 frame rows of 7168 B from a ring of the pong
+    preset's full row count), and one side of the same draw from flat
+    replay (2048 packed 84x84x4 stacks of 28,288 B, from 32,768 rows)."""
+    from ape_x_dqn_tpu_torch.replay.packing import pad128
+    from ape_x_dqn_tpu_torch.runtime.build import build_prioritized_replay
+    from ape_x_dqn_tpu_torch.utils.misc import next_pow2
+
+    cfg, spec = pong_setup(dev)
+    geo = build_prioritized_replay(cfg, spec,
+                                   next_pow2(cfg.replay.capacity), dev)
+    kb = cfg.learner.sample_chunk * cfg.learner.batch_size
+    n_rows, row, m = geo.S * geo.F, geo.frame_row, kb * geo.stack
+    check(n_rows >= 1_441_792 and row == 7168 and m == 8192,
+          f"unexpected frame-ring shape {n_rows}x{row}, m={m}")
+    flat_row = pad128(int(np.prod(spec.obs_shape)))
+    check(flat_row == 28288 and kb == 2048,
+          f"unexpected flat shape: row {flat_row}, m={kb}")
+    return [kernel_site(dev, seed, "frame_ring", n_rows, row, m),
+            kernel_site(dev, seed, "flat", 32768, flat_row, kb)]
 
 
 def phase_reference(dev, seed: int) -> None:
@@ -395,6 +428,138 @@ def phase_main(dev, seed: int) -> dict:
         f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}; "
         f"gathered obs/next_obs bitwise equal to plain; diag={diag}")
     log(profile_macro_steps(learner, state, k, PROFILE_STEPS))
+    # free the 10.3 GB ring before the flat replay's 59.3 GB
+    del learner, state, replay, sample, frames, got, items
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def run_cli(argv: list[str]) -> tuple[dict, float]:
+    """`python -m ape_x_dqn_tpu_torch.runtime.train ARGV` in this
+    process, its one JSON summary line captured (so that this script's
+    only JSON lines are the kernels line and the last line). -> (the
+    summary, wall seconds)."""
+    from ape_x_dqn_tpu_torch.runtime import train
+
+    buf = io.StringIO()
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(buf):
+        rc = train.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    check(rc == 0, f"train.main({argv}) exited {rc}")
+    lines = buf.getvalue().strip().splitlines()
+    check(len(lines) == 1, f"expected one summary line, got {lines}")
+    return json.loads(lines[0]), wall
+
+
+def phase_cartpole() -> None:
+    """cartpole_smoke learns on the card: the repo's quick bar."""
+    out, wall = run_cli(["--config", "cartpole_smoke", "--single-process",
+                         "--total-env-frames", "9000", "--device", "cuda"])
+    check(out["episodes"] >= 5 and out["last20_return"] > 60.0,
+          f"cartpole_smoke did not clear last20 > 60: {out}")
+    log(f"cartpole: `--config cartpole_smoke --single-process "
+        f"--total-env-frames 9000 --device cuda` cleared the quick bar "
+        f"(last20 {out['last20_return']:.2f} > 60 over "
+        f"{out['episodes']} episodes); frames/s={out['frames'] / wall:.1f} "
+        f"grad-steps/s={out['grad_steps'] / wall:.1f} (host clock over "
+        f"the whole run: acting, one sync per greedy frame, and "
+        f"training); summary={json.dumps(out)}; {wall:.2f} s")
+
+
+def phase_pong_single_process(seed: int) -> dict:
+    """The pong preset through the CLI with the double-buffered sampler,
+    at full width over a 2^20-slot flat prioritized replay. sample_k and
+    learn_k are wrapped to count their calls (and to keep the learner
+    and its state for the check after the run). -> the launch counts of
+    this run."""
+    from ape_x_dqn_tpu_torch.configs import get_config
+    from ape_x_dqn_tpu_torch.envs.atari import atari_backend
+    from ape_x_dqn_tpu_torch.ops import frame_gather as fg
+    from ape_x_dqn_tpu_torch.runtime.learner import DQNLearner
+
+    cfg = get_config("pong")
+    k, b = cfg.learner.sample_chunk, cfg.learner.batch_size
+    check(k == 4 and b == 512 and cfg.network.compute_dtype == "bfloat16"
+          and cfg.replay.min_fill == 20_000, "pong preset drift")
+    calls = {"sample_k": 0, "learn_k": 0, "first_s": None}
+    seen = {}
+    orig_sample_k, orig_learn_k = DQNLearner.sample_k, DQNLearner.learn_k
+
+    def sample_k(self, state, k_, noise=None):
+        if calls["first_s"] is None:
+            calls["first_s"] = time.perf_counter()
+        calls["sample_k"] += 1
+        seen["learner"], seen["state"] = self, state
+        return orig_sample_k(self, state, k_, noise)
+
+    def learn_k(self, state, sample, k_):
+        calls["learn_k"] += 1
+        return orig_learn_k(self, state, sample, k_)
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    DQNLearner.sample_k, DQNLearner.learn_k = sample_k, learn_k
+    fg.gather_rows.launches = 0       # count the main path's run only
+    try:
+        out, wall = run_cli([
+            "--config", "pong", "--single-process", "--seed", str(seed),
+            "--total-env-frames", "24000",
+            "--set", "learner.sample_prefetch=True", "--device", "cuda"])
+    finally:
+        DQNLearner.sample_k, DQNLearner.learn_k = orig_sample_k, orig_learn_k
+    t_end = time.perf_counter()
+    launches = {"gather_rows": fg.gather_rows.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+
+    check(math.isfinite(out["final_loss"]), f"loss {out['final_loss']}")
+    check(calls["learn_k"] > 0 and calls["sample_k"] == calls["learn_k"] + 1,
+          f"sample_k {calls['sample_k']} calls vs learn_k "
+          f"{calls['learn_k']}: expected one prologue draw more")
+    check(out["grad_steps"] == k * calls["learn_k"],
+          f"grad_steps {out['grad_steps']} != K x {calls['learn_k']} "
+          f"macro-steps")
+    check(launches["gather_rows"] == 2 * calls["sample_k"],
+          f"gather_rows launched {launches['gather_rows']} times, expected "
+          f"2 per sample_k call ({calls['sample_k']} calls)")
+
+    # one drawn sample (outside the counted run): kernel vs plain
+    learner, state = seen.pop("learner"), seen.pop("state")
+    replay = learner.replay
+    storage = state.replay.storage
+    check(replay.capacity == 1 << 20 and storage["obs"].shape[1] == 28288,
+          f"replay {replay.capacity} x {tuple(storage['obs'].shape)}")
+    ring_gb = sum(v.numel() * v.element_size()
+                  for v in storage.values()) / 1e9
+    items_k, idx_k, _, _ = learner.sample_k(state, k)
+    torch.cuda.synchronize()
+    idx = idx_k.reshape(-1)
+    for key in ("obs", "next_obs"):
+        want = fg.gather_rows_reference(storage[key], idx)
+        want = want[:, :84 * 84 * 4].reshape(-1, 84, 84, 4)
+        got = items_k[key].reshape(-1, 84, 84, 4)
+        check(torch.equal(got, want), f"sampled {key}: kernel != plain")
+    train_s = t_end - calls["first_s"]
+    log(f"pong-sp: `--config pong --single-process --total-env-frames "
+        f"24000 --set learner.sample_prefetch=True --device cuda`: "
+        f"dueling Nature-CNN bf16, 84x84x4 uint8, "
+        f"{cfg.env.kind}/{atari_backend(cfg.env.kind)} backend, batch {b}, "
+        f"K={k} with prefetch; flat prioritized replay of "
+        f"{replay.capacity} slots = {ring_gb:.2f} GB (obs + next_obs "
+        f"packed rows of 28288 B); summary={json.dumps(out)}; "
+        f"{calls['sample_k']} sample_k (1 prologue) + {calls['learn_k']} "
+        f"learn_k calls; launches={launches}; frames/s="
+        f"{out['frames'] / wall:.1f} grad-steps/s="
+        f"{out['grad_steps'] / wall:.2f} over the whole run; training "
+        f"window (first sample_k to the end, {train_s:.2f} s): "
+        f"grad-steps/s={out['grad_steps'] / train_s:.2f}; "
+        f"peak_mem_gb={peak_gb:.2f}; one drawn sample's obs/next_obs "
+        f"bitwise equal to plain; {wall:.2f} s")
+    del learner, state, replay, storage, items_k
+    gc.collect()
+    torch.cuda.empty_cache()
     return launches
 
 
@@ -418,20 +583,37 @@ def main() -> int:
     build_s = fg.build()
     log(f"build: frame_gather.cu with nvcc for sm_90a in {build_s:.2f} s")
 
-    # 3. kernel vs plain
-    kernels = [phase_kernel(dev, args.seed)]
+    # 3. kernel vs plain, at both call sites' shapes
+    sites = phase_kernel(dev, args.seed)
     # 4. small reference: card vs cpu
+    t0 = time.perf_counter()
     phase_reference(dev, args.seed)
-    # 5. main path
-    launches = phase_main(dev, args.seed)
-    for kern in kernels:
-        kern["launches"] = launches[kern["name"]]
-        check(kern["launches"] > 0, f"{kern['name']} never launched")
+    log(f"reference: {time.perf_counter() - t0:.2f} s")
+    # 5. the frame-ring learner
+    t0 = time.perf_counter()
+    ring = phase_main(dev, args.seed)
+    log(f"main: {time.perf_counter() - t0:.2f} s")
+    # 6. the single-process trainer learns cartpole on the card
+    phase_cartpole()
+    # 7. the single-process trainer at the pong preset's full size
+    flat = phase_pong_single_process(args.seed)
 
-    keys = ("name", "route", "source", "replaces", "launches", "max_abs_err",
-            "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")
-    log(json.dumps({"kernels": [{k: kern[k] for k in keys}
-                                for kern in kernels]}))
+    # one entry per kernel; its top-level numbers are this slice's main
+    # path (the flat replay's call site), `sites` has both
+    sites[0]["launches"] = ring["gather_rows"]
+    sites[1]["launches"] = flat["gather_rows"]
+    for site in sites:
+        check(site["launches"] > 0, f"gather_rows never launched on the "
+              f"{site['site']} path")
+    kern = {"name": "gather_rows", "route": "cuda",
+            "source": "ape_x_dqn_tpu_torch/csrc/frame_gather.cu",
+            "replaces": "ape_x_dqn_tpu/ops/frame_gather.py:46",
+            "launches": sites[1]["launches"],
+            "max_abs_err": max(s_["max_abs_err"] for s_ in sites),
+            "ms": sites[1]["ms"], "plain_ms": sites[1]["plain_ms"],
+            "bound_ms": sites[1]["bound_ms"], "bound_by": "bytes",
+            "library_ms": sites[1]["library_ms"], "sites": sites}
+    log(json.dumps({"kernels": [kern]}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -1,7 +1,8 @@
 """The PyTorch package stands alone: no module of ape_x_dqn_tpu_torch/,
 and not chip_smoke.py, imports jax, flax, optax or anything of the JAX
-package, and importing the port's main path loads no JAX. Its copy of
-configs.py must not drift from the original."""
+package, and importing the port's main path loads no JAX. Its copies of
+configs.py and of the Atari score table must not drift from the
+originals."""
 
 import ast
 import dataclasses
@@ -12,7 +13,9 @@ from pathlib import Path
 import pytest
 
 from ape_x_dqn_tpu import configs as jax_configs
+from ape_x_dqn_tpu.utils import metrics as jax_metrics
 from ape_x_dqn_tpu_torch import configs as torch_configs
+from ape_x_dqn_tpu_torch.utils import metrics as torch_metrics
 
 ROOT = Path(__file__).resolve().parent.parent
 FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ape_x_dqn_tpu")
@@ -46,6 +49,8 @@ def test_main_path_import_loads_no_jax():
     code = (
         "import sys; sys.path.insert(0, %r)\n"
         "import ape_x_dqn_tpu_torch.runtime.build\n"
+        "import ape_x_dqn_tpu_torch.runtime.single_process\n"
+        "import ape_x_dqn_tpu_torch.runtime.train\n"
         "import ape_x_dqn_tpu_torch.models.convert\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
         "assert not bad, bad\n" % (str(ROOT), FORBIDDEN))
@@ -61,3 +66,11 @@ def test_config_copy_matches_original(name):
     assert sorted(torch_configs.PRESETS) == sorted(jax_configs.PRESETS)
     assert dataclasses.asdict(torch_configs.get_config(name)) \
         == dataclasses.asdict(jax_configs.get_config(name))
+
+
+def test_atari_score_table_copy_matches_original():
+    assert torch_metrics.ATARI_HUMAN_RANDOM == jax_metrics.ATARI_HUMAN_RANDOM
+    scores = {"pong": 10.0, "breakout": 12.0, "alien": 900.0}
+    assert torch_metrics.median_hns(scores) == jax_metrics.median_hns(scores)
+    with pytest.raises(ValueError, match="space_invaders"):
+        torch_metrics.human_normalized_score("spaceinvaders", 1.0)

@@ -27,11 +27,12 @@ def cuda_device():
 @pytest.mark.cuda
 def test_kernel_matches_plain_on_card(cuda_device):
     """Kernel vs plain version on the card, bitwise: the 16-byte path
-    (7168-byte rows) and the byte path (36-byte rows), int32 and int64
+    (the frame ring's 7168-byte rows and flat replay's 28,288-byte
+    packed stacks) and the byte path (36-byte rows), int32 and int64
     indices, duplicates and both ends."""
     g = torch.Generator(device=cuda_device)
     g.manual_seed(0)
-    for n, shape in [(4096, (7168,)), (8, (6, 6))]:
+    for n, shape in [(4096, (7168,)), (2048, (28288,)), (8, (6, 6))]:
         src = torch.randint(0, 256, (n, *shape), dtype=torch.uint8,
                             device=cuda_device, generator=g)
         for idt in (torch.int32, torch.int64):
