@@ -126,15 +126,46 @@ def segments(replay, spec, g_outer: int, g: int, rng) -> tuple[dict, object]:
         rng.uniform(0.1, 2.0, shape).astype(np.float32))
 
 
+def design_launcher(name: str):
+    """A candidate design's C entry point, for the design comparison
+    only: fn(src, idx) -> out, never counted as a launch."""
+    import ctypes
+
+    from ape_x_dqn_tpu_torch.ops import frame_gather as fg
+
+    fg.build()
+    fn = getattr(fg._lib, name)
+    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
+                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+
+    def run(src, idx):
+        out = torch.empty((idx.shape[0], *src.shape[1:]), dtype=src.dtype,
+                          device=src.device)
+        rc = fn(src.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64),
+                out.data_ptr(), src.shape[0], idx.shape[0],
+                src[0].numel() * src.element_size(),
+                torch.cuda.current_stream().cuda_stream)
+        check(rc == 0, f"{name} failed: CUDA error {rc}")
+        return out
+    return run
+
+
+DESIGNS = {"regs_ms": "gather_rows_launch_regs"}
+
+
 def kernel_site(dev, seed: int, site: str, n_rows: int, row: int,
                 m: int) -> dict:
     """gather_rows vs plain on the card at one call site's shape: m
     indices into a [n_rows, row] uint8 buffer, bitwise on 8 random
     index sets and on sets with duplicates and both ends, int64 and
-    int32; then kernel / plain / index_select times (CUDA events, median
-    of 3 rounds of 50 launches in turns, the 8 index sets cycled so the
-    rows a call reads are not all served from the 50 MB L2 by the
-    previous call) and the byte bound."""
+    int32; then kernel / plain / index_select / contiguous-copy times
+    (CUDA events, median of 3 rounds of 50 launches in turns, the 8
+    index sets cycled so the rows a call reads are not all served from
+    the 50 MB L2 by the previous call; the copy moves the same m * row
+    bytes from 8 contiguous slices of the source in turn) and the byte
+    bound."""
     from ape_x_dqn_tpu_torch.ops import frame_gather as fg
 
     t0 = time.perf_counter()
@@ -147,6 +178,7 @@ def kernel_site(dev, seed: int, site: str, n_rows: int, row: int,
     edge = idx_sets[0].clone()
     edge[:6] = torch.tensor([0, n_rows - 1, n_rows - 1, 0, 0, 7],
                             device=dev)
+    designs = {k: design_launcher(v) for k, v in DESIGNS.items()}
     max_err = 0
     for idx in [*idx_sets, edge, edge.to(torch.int32)]:
         out = fg.gather_rows(src, idx)
@@ -157,15 +189,24 @@ def kernel_site(dev, seed: int, site: str, n_rows: int, row: int,
         max_err = max(max_err, int((out.int() - ref.int()).abs().max()))
         check(torch.equal(out, ref),
               f"gather_rows != plain (bitwise) at the {site} shape")
+        for k, fn in designs.items():
+            check(torch.equal(fn(src, idx), ref),
+                  f"design {k} != plain (bitwise) at the {site} shape")
 
     def cycle(fn):
         it = iter(range(1 << 30))
         return lambda: fn(src, idx_sets[next(it) % len(idx_sets)])
 
+    copy_out = torch.empty((m, row), dtype=torch.uint8, device=dev)
+    slices = [src[j * m:(j + 1) * m] for j in range(8)]
+    check(n_rows >= 8 * m, f"{site}: too few rows for 8 copy slices")
+    copy_it = iter(range(1 << 30))
     versions = {
         "ms": cycle(fg.gather_rows),
         "plain_ms": cycle(fg.gather_rows_reference),
         "library_ms": cycle(lambda s_, i: s_.index_select(0, i)),
+        "copy_ms": lambda: copy_out.copy_(slices[next(copy_it) % 8]),
+        **{k: cycle(fn) for k, fn in designs.items()},
     }
     rounds = {k: [] for k in versions}
     for _ in range(3):  # in turns, so drift hits every version alike
@@ -176,12 +217,16 @@ def kernel_site(dev, seed: int, site: str, n_rows: int, row: int,
     bound_ms = nbytes / PEAK_BYTES_PER_S * 1e3
     log(f"kernel gather_rows [{site}]: bitwise equal to plain on "
         f"{len(idx_sets) + 2} index sets of {m} rows x {row} B from "
-        f"{n_rows} rows (dups and both ends incl.); ms={times['ms']:.5f} "
-        f"plain_ms={times['plain_ms']:.5f} "
+        f"{n_rows} rows = {n_rows * row / 1e9:.2f} GB (dups and both ends "
+        f"incl.); ms={times['ms']:.5f} plain_ms={times['plain_ms']:.5f} "
         f"library_ms={times['library_ms']:.5f} (index_select) "
-        f"bound_ms={bound_ms:.5f} ({nbytes} B at 3.35 TB/s); "
-        f"rounds={json.dumps(rounds)}; {time.perf_counter() - t0:.2f} s")
-    del src, idx_sets, edge
+        f"copy_ms={times['copy_ms']:.5f} (contiguous copy of the same "
+        f"bytes) bound_ms={bound_ms:.5f} ({nbytes} B at 3.35 TB/s); "
+        f"designs: "
+        + " ".join(f"{k}={times[k]:.5f}" for k in designs)
+        + f"; rounds={json.dumps(rounds)}; "
+        f"{time.perf_counter() - t0:.2f} s")
+    del src, idx_sets, edge, slices, copy_out
     torch.cuda.empty_cache()
     return {"site": site, "shape": [n_rows, row], "indices": m,
             "max_abs_err": max_err, "bound_ms": bound_ms, **times}
@@ -191,23 +236,27 @@ def phase_kernel(dev, seed: int) -> list[dict]:
     """The gather at both main paths' shapes: one side of a K=4 x B=512
     frame-ring draw (8192 frame rows of 7168 B from a ring of the pong
     preset's full row count), and one side of the same draw from flat
-    replay (2048 packed 84x84x4 stacks of 28,288 B, from 32,768 rows)."""
+    replay (2048 packed 84x84x4 stacks of 28,288 B), timed from 32,768
+    rows (as in earlier runs) and from the 2^20 rows of one leaf of the
+    pong preset's flat replay (29.66 GB, freed after)."""
     from ape_x_dqn_tpu_torch.replay.packing import pad128
     from ape_x_dqn_tpu_torch.runtime.build import build_prioritized_replay
     from ape_x_dqn_tpu_torch.utils.misc import next_pow2
 
     cfg, spec = pong_setup(dev)
-    geo = build_prioritized_replay(cfg, spec,
-                                   next_pow2(cfg.replay.capacity), dev)
+    capacity = next_pow2(cfg.replay.capacity)
+    geo = build_prioritized_replay(cfg, spec, capacity, dev)
     kb = cfg.learner.sample_chunk * cfg.learner.batch_size
     n_rows, row, m = geo.S * geo.F, geo.frame_row, kb * geo.stack
     check(n_rows >= 1_441_792 and row == 7168 and m == 8192,
           f"unexpected frame-ring shape {n_rows}x{row}, m={m}")
     flat_row = pad128(int(np.prod(spec.obs_shape)))
-    check(flat_row == 28288 and kb == 2048,
-          f"unexpected flat shape: row {flat_row}, m={kb}")
+    check(flat_row == 28288 and kb == 2048 and capacity == 1 << 20,
+          f"unexpected flat shape: row {flat_row}, m={kb}, "
+          f"capacity {capacity}")
     return [kernel_site(dev, seed, "frame_ring", n_rows, row, m),
-            kernel_site(dev, seed, "flat", 32768, flat_row, kb)]
+            kernel_site(dev, seed, "flat", 32768, flat_row, kb),
+            kernel_site(dev, seed, "flat_full", capacity, flat_row, kb)]
 
 
 def phase_reference(dev, seed: int) -> None:
@@ -583,7 +632,7 @@ def main() -> int:
     build_s = fg.build()
     log(f"build: frame_gather.cu with nvcc for sm_90a in {build_s:.2f} s")
 
-    # 3. kernel vs plain, at both call sites' shapes
+    # 3. kernel vs plain, at both call sites' shapes (three sites)
     sites = phase_kernel(dev, args.seed)
     # 4. small reference: card vs cpu
     t0 = time.perf_counter()
@@ -598,21 +647,23 @@ def main() -> int:
     # 7. the single-process trainer at the pong preset's full size
     flat = phase_pong_single_process(args.seed)
 
-    # one entry per kernel; its top-level numbers are this slice's main
-    # path (the flat replay's call site), `sites` has both
+    # one entry per kernel; its top-level numbers are the flat replay's
+    # call site at its real size (flat_full), `sites` has all three
     sites[0]["launches"] = ring["gather_rows"]
-    sites[1]["launches"] = flat["gather_rows"]
+    sites[1]["launches"] = sites[2]["launches"] = flat["gather_rows"]
     for site in sites:
         check(site["launches"] > 0, f"gather_rows never launched on the "
               f"{site['site']} path")
+    top = sites[2]
     kern = {"name": "gather_rows", "route": "cuda",
             "source": "ape_x_dqn_tpu_torch/csrc/frame_gather.cu",
             "replaces": "ape_x_dqn_tpu/ops/frame_gather.py:46",
-            "launches": sites[1]["launches"],
+            "launches": top["launches"],
             "max_abs_err": max(s_["max_abs_err"] for s_ in sites),
-            "ms": sites[1]["ms"], "plain_ms": sites[1]["plain_ms"],
-            "bound_ms": sites[1]["bound_ms"], "bound_by": "bytes",
-            "library_ms": sites[1]["library_ms"], "sites": sites}
+            "ms": top["ms"], "plain_ms": top["plain_ms"],
+            "bound_ms": top["bound_ms"], "bound_by": "bytes",
+            "library_ms": top["library_ms"], "copy_ms": top["copy_ms"],
+            "sites": sites}
     log(json.dumps({"kernels": [kern]}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

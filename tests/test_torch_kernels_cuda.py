@@ -24,23 +24,71 @@ def cuda_device():
     return torch.device("cuda")
 
 
+# (rows in src, trailing shape, indices, byte offset of src's base
+# pointer, top end: draw the indices from the last 1000 rows only)
+CASES = {
+    # the frame ring's 7168-byte rows: one chunk a row
+    "frame_ring": (4096, (7168,), 1000, 0, False),
+    # flat replay's 28,288-byte packed stacks: four chunks a row
+    "flat": (2048, (28288,), 1000, 0, False),
+    # a 16-byte multiple that is not a 128-byte multiple
+    "rows_7056": (1024, (7056,), 1000, 0, False),
+    # fewer indices than the card has SMs, and a single one
+    "m_1": (4096, (7168,), 1, 0, False),
+    "m_below_sms": (4096, (7168,), 100, 0, False),
+    # a source of 4.3 GB: row offsets past 2^32 bytes
+    "over_4gb": (600_000, (7168,), 1000, 0, True),
+    # a base pointer 16-byte aligned but not 128-byte aligned
+    "base_16": (2048, (28288,), 1000, 16, False),
+    # the byte path: 36-byte rows, and a base pointer off 16 bytes
+    "bytes_36": (8, (6, 6), 1000, 0, False),
+    "base_1": (1024, (7168,), 1000, 1, False),
+}
+
+
 @pytest.mark.cuda
-def test_kernel_matches_plain_on_card(cuda_device):
-    """Kernel vs plain version on the card, bitwise: the 16-byte path
-    (the frame ring's 7168-byte rows and flat replay's 28,288-byte
-    packed stacks) and the byte path (36-byte rows), int32 and int64
-    indices, duplicates and both ends."""
+@pytest.mark.parametrize("idx_dtype", [torch.int32, torch.int64],
+                         ids=["int32", "int64"])
+@pytest.mark.parametrize("case", list(CASES))
+def test_kernel_matches_plain_on_card(cuda_device, case, idx_dtype):
+    """Kernel vs plain version on the card, bitwise, with duplicate
+    indices and both ends of the source; one launch per call."""
+    n, shape, m, offset, top = CASES[case]
+    row = 1
+    for d in shape:
+        row *= d
     g = torch.Generator(device=cuda_device)
     g.manual_seed(0)
-    for n, shape in [(4096, (7168,)), (2048, (28288,)), (8, (6, 6))]:
-        src = torch.randint(0, 256, (n, *shape), dtype=torch.uint8,
-                            device=cuda_device, generator=g)
-        for idt in (torch.int32, torch.int64):
-            idx = torch.randint(0, n, (1000,), dtype=idt,
-                                device=cuda_device, generator=g)
-            idx[:4] = torch.tensor([0, n - 1, n - 1, 0], dtype=idt)
-            before = tfg.gather_rows.launches
-            out = tfg.gather_rows(src, idx)
-            torch.cuda.synchronize()
-            assert tfg.gather_rows.launches == before + 1
-            assert torch.equal(out, tfg.gather_rows_reference(src, idx))
+    base = torch.randint(0, 256, (n * row + offset,), dtype=torch.uint8,
+                         device=cuda_device, generator=g)
+    src = base[offset:].view(n, *shape)
+    assert src.is_contiguous() and src.data_ptr() % 16 == offset % 16
+    low = n - 1000 if top else 0
+    idx = torch.randint(low, n, (m,), dtype=idx_dtype, device=cuda_device,
+                        generator=g)
+    ends = torch.tensor([n - 1, 0, n - 1, low, n - 1, 0], dtype=idx_dtype,
+                        device=cuda_device)[:m]
+    idx[:ends.numel()] = ends
+    if m > 8:
+        idx[-2:] = idx[:2]            # duplicates, wherever the set lies
+    before = tfg.gather_rows.launches
+    out = tfg.gather_rows(src, idx)
+    torch.cuda.synchronize()
+    assert tfg.gather_rows.launches == before + 1
+    assert out.shape == (m, *shape)
+    assert torch.equal(out, tfg.gather_rows_reference(src, idx))
+
+
+@pytest.mark.cuda
+def test_kernel_clamps_out_of_range_indices(cuda_device):
+    """An index outside [0, N) reads the nearest end row, as JAX's
+    gather clamps (the plain version raises on it instead)."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(1)
+    src = torch.randint(0, 256, (64, 28288), dtype=torch.uint8,
+                        device=cuda_device, generator=g)
+    idx = torch.tensor([-5, 70, 3, 64, -1], device=cuda_device)
+    out = tfg.gather_rows(src, idx)
+    torch.cuda.synchronize()
+    assert torch.equal(out, tfg.gather_rows_reference(src,
+                                                      idx.clamp(0, 63)))
