@@ -5,28 +5,64 @@
 // the indices into its BlockSpec index map and copied one row per grid
 // step.
 //
-// DESIGN COMPARISON BUILD: besides the bulk-copy design that
-// gather_rows_launch runs, this file holds a register design
-// (gather_rows_launch_regs) so that one chip run times both at the main
-// path's shapes; the loser is removed afterwards.
-//
 // Rows are treated as `row_bytes` contiguous bytes, so any trailing
 // shape and any dtype work. Indices are expected in [0, n_rows);
 // anything else is clamped into range, as JAX's gather clamps, so the
-// kernel never reads out of bounds.
+// kernel never reads out of bounds. Offsets are 64-bit: the sources
+// (a 10.3 GB frame ring, 29.7 GB flat replay leaves) pass 2^32 bytes.
+//
+// What bounds it: bytes. A call reads M * row_bytes and writes as much
+// (plus the M indices), with no arithmetic: on the frame-ring path
+// M = K * B * stack = 4 * 512 * 4 = 8192 rows of 7168 B, on the flat
+// path 2048 rows of 28,288 B, about 116 MB either way, 35 us at the
+// H100 SXM's published 3.35 TB/s. The card's own contiguous copy of the
+// same bytes takes about 41.6 us, and this kernel on sequential indices
+// about as long, so the aim is copy speed; random rows cost 1-2% more.
+//
+// The design (rows a multiple of 16 bytes, both base pointers 16-byte
+// aligned):
+// - Work units of at most 7168 bytes: a row is cut into the fewest
+//   chunks of equal size (16-byte multiples), so the 7168-byte frame
+//   rows are one unit and the 28,288-byte stacks four of 7072; both
+//   paths give 8192 units.
+// - A persistent grid of as many blocks as the card holds at once (the
+//   SM count times the blocks an SM's shared memory allows: 2 of
+//   112 KB on an H100), each walking units with a stride of the grid.
+// - One thread per block drives a ring of 16 chunk buffers in shared
+//   memory with TMA bulk copies (cp.async.bulk): a load completes on
+//   its stage's mbarrier, a store goes back as a bulk group, and a
+//   stage is refilled once its store has read it (wait_group.read), so
+//   15 loads stay in flight per block, about 28 MB over the card (more
+//   blocks with 4 or 8 stages ran 1-3% slower; one block of 31 stages
+//   per SM 3-12% slower, paced by its one thread's serial ring).
+// - Both copies carry an L2 evict_first policy: every byte passes once,
+//   and without it the gather ran 3-6% slower.
+// - The block reads its own indices, one unit ahead of their use.
+// Other rows, or pointers that are not 16-byte aligned, take a
+// byte-wise path: one block per row, one byte a thread (36-byte rows).
+//
+// What lost (one H100 80GB HBM3 at 700 W, one run of chip_smoke.py and
+// tools/gather_sweep.py as of commit 0d21cab; numbers in PERF.md): a
+// register design on the same persistent grid (a warp per unit, each
+// thread issuing 8 uint4 loads before its stores) was 2.0% slower at
+// the frame ring and 5.9-6.5% slower at the flat sites; the one block
+// per row it replaced ran level with index_select, which this design
+// beat in that run by about 2% at the frame ring and 2-4% at the flat
+// sites (in a later run: level at the frame ring, 2-3% at the flat).
+//
+// Built with nvcc into a shared library with a plain C interface and
+// loaded through ctypes (ape_x_dqn_tpu_torch/ops/frame_gather.py). The
+// launch goes onto the caller's stream and reports its error to the
+// caller.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
-
-#include <mutex>
 
 namespace {
 
 constexpr int kByteThreads = 128;  // byte path: one block per row
 constexpr int kMaxChunk = 7168;    // bytes one work unit moves at most
 constexpr int kStages = 16;        // chunks a block keeps in flight
-constexpr int kRegThreads = 256;   // register design: 8 warps a block
-constexpr int kRegVecs = 8;        // uint4 loads a thread has in flight
 
 template <typename Idx>
 __device__ __forceinline__ int64_t clamped_row(const Idx* __restrict__ idx,
@@ -158,36 +194,6 @@ gather_rows_bulk(const uint8_t* __restrict__ src, const Idx* __restrict__ idx,
   asm volatile("cp.async.bulk.wait_group 0;\n" ::: "memory");
 }
 
-template <typename Idx>
-__global__ void __launch_bounds__(kRegThreads)
-gather_rows_regs(const uint4* __restrict__ src, const Idx* __restrict__ idx,
-                 uint4* __restrict__ out, int64_t n_rows, int64_t row_vecs,
-                 int64_t units, int64_t chunk_vecs, int64_t chunks_per_row) {
-  constexpr int kWarps = kRegThreads / 32;
-  const int lane = threadIdx.x & 31;
-  const int64_t warps = static_cast<int64_t>(gridDim.x) * kWarps;
-  for (int64_t u = static_cast<int64_t>(blockIdx.x) * kWarps + threadIdx.x / 32;
-       u < units; u += warps) {
-    const int64_t i = u / chunks_per_row;
-    const int64_t beg = (u - i * chunks_per_row) * chunk_vecs;
-    const int64_t left = row_vecs - beg;
-    const int64_t n = left < chunk_vecs ? left : chunk_vecs;
-    const uint4* s = src + clamped_row(idx, i, n_rows) * row_vecs + beg;
-    uint4* d = out + i * row_vecs + beg;
-    for (int64_t base = lane; base < n; base += 32 * kRegVecs) {
-      uint4 v[kRegVecs];
-#pragma unroll
-      for (int j = 0; j < kRegVecs; ++j) {
-        if (base + j * 32 < n) v[j] = __ldcs(s + base + j * 32);
-      }
-#pragma unroll
-      for (int j = 0; j < kRegVecs; ++j) {
-        if (base + j * 32 < n) __stcs(d + base + j * 32, v[j]);
-      }
-    }
-  }
-}
-
 // One block per output row; each thread copies single bytes.
 template <typename Idx>
 __global__ void __launch_bounds__(kByteThreads)
@@ -211,49 +217,29 @@ void chunk_plan(int64_t row_bytes, int64_t* chunk, int64_t* chunks) {
   *chunks = (row_bytes + *chunk - 1) / *chunk;
 }
 
-// The blocks of `kernel` the card holds at once (SMs times the blocks
-// an SM holds), cached per device, kernel and shared-memory size.
-cudaError_t resident_blocks(const void* kernel, int threads, size_t smem,
+// The blocks of `kernel` the card holds at once with `smem` bytes of
+// ring each: the SM count times the blocks an SM's shared memory
+// allows. Above 48 KB a kernel needs an opt-in; it is always set to the
+// largest ring, so no row size lowers the limit another launches with.
+cudaError_t resident_blocks(const void* kernel, size_t smem,
                             int64_t* blocks) {
-  struct Entry {
-    int dev;
-    const void* kernel;
-    size_t smem;
-    int64_t blocks;
-  };
-  static std::mutex mu;
-  static Entry cache[16];
-  static int used = 0;
-  int dev = 0;
+  int dev = 0, sms = 0, per_sm = 0;
   cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return err;
-  {
-    std::lock_guard<std::mutex> lock(mu);
-    for (int e = 0; e < used; ++e) {
-      if (cache[e].dev == dev && cache[e].kernel == kernel &&
-          cache[e].smem == smem) {
-        *blocks = cache[e].blocks;
-        return cudaSuccess;
-      }
-    }
-  }
-  if (smem > 48 * 1024) {
+  if (err == cudaSuccess) {
     err = cudaFuncSetAttribute(kernel,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(smem));
-    if (err != cudaSuccess) return err;
+                               kStages * kMaxChunk);
   }
-  int sms = 0, per_sm = 0;
-  err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err != cudaSuccess) return err;
-  err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel,
-                                                      threads, smem);
-  if (err != cudaSuccess) return err;
-  if (per_sm < 1) return cudaErrorInvalidConfiguration;
+  if (err == cudaSuccess) {
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  }
+  if (err == cudaSuccess) {
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, kernel, 32,
+                                                        smem);
+  }
+  if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
   *blocks = static_cast<int64_t>(sms) * per_sm;
-  std::lock_guard<std::mutex> lock(mu);
-  if (used < 16) cache[used++] = {dev, kernel, smem, *blocks};
-  return cudaSuccess;
+  return err;
 }
 
 template <typename Idx>
@@ -266,7 +252,7 @@ cudaError_t launch_bulk(const void* src, const void* idx, void* out,
   const size_t smem = static_cast<size_t>(kStages * chunk);
   const void* kernel = reinterpret_cast<const void*>(&gather_rows_bulk<Idx>);
   int64_t blocks = 0;
-  const cudaError_t err = resident_blocks(kernel, 32, smem, &blocks);
+  const cudaError_t err = resident_blocks(kernel, smem, &blocks);
   if (err != cudaSuccess) return err;
   const unsigned int grid =
       static_cast<unsigned int>(units < blocks ? units : blocks);
@@ -277,28 +263,7 @@ cudaError_t launch_bulk(const void* src, const void* idx, void* out,
 }
 
 template <typename Idx>
-cudaError_t launch_regs(const void* src, const void* idx, void* out,
-                        int64_t n_rows, int64_t m, int64_t row_bytes,
-                        cudaStream_t stream) {
-  int64_t chunk = 0, chunks = 0;
-  chunk_plan(row_bytes, &chunk, &chunks);
-  const int64_t units = m * chunks;
-  const void* kernel = reinterpret_cast<const void*>(&gather_rows_regs<Idx>);
-  int64_t blocks = 0;
-  const cudaError_t err = resident_blocks(kernel, kRegThreads, 0, &blocks);
-  if (err != cudaSuccess) return err;
-  const int64_t need = (units + kRegThreads / 32 - 1) / (kRegThreads / 32);
-  const unsigned int grid =
-      static_cast<unsigned int>(need < blocks ? need : blocks);
-  gather_rows_regs<Idx><<<grid, kRegThreads, 0, stream>>>(
-      static_cast<const uint4*>(src), static_cast<const Idx*>(idx),
-      static_cast<uint4*>(out), n_rows, row_bytes / 16, units, chunk / 16,
-      chunks);
-  return cudaGetLastError();
-}
-
-template <typename Idx>
-cudaError_t launch(bool regs, const void* src, const void* idx, void* out,
+cudaError_t launch(const void* src, const void* idx, void* out,
                    int64_t n_rows, int64_t m, int64_t row_bytes,
                    cudaStream_t stream) {
   const bool vec = row_bytes % 16 == 0 &&
@@ -311,7 +276,6 @@ cudaError_t launch(bool regs, const void* src, const void* idx, void* out,
         static_cast<uint8_t*>(out), n_rows, row_bytes);
     return cudaGetLastError();
   }
-  if (regs) return launch_regs<Idx>(src, idx, out, n_rows, m, row_bytes, stream);
   return launch_bulk<Idx>(src, idx, out, n_rows, m, row_bytes, stream);
 }
 
@@ -327,18 +291,6 @@ extern "C" int gather_rows_launch(const void* src, const void* idx,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      idx_is_64 ? launch<int64_t>(false, src, idx, out, n_rows, m, row_bytes, s)
-                : launch<int32_t>(false, src, idx, out, n_rows, m, row_bytes,
-                                  s));
-}
-
-extern "C" int gather_rows_launch_regs(const void* src, const void* idx,
-                                       int idx_is_64, void* out,
-                                       int64_t n_rows, int64_t m,
-                                       int64_t row_bytes, void* stream) {
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  return static_cast<int>(
-      idx_is_64 ? launch<int64_t>(true, src, idx, out, n_rows, m, row_bytes, s)
-                : launch<int32_t>(true, src, idx, out, n_rows, m, row_bytes,
-                                  s));
+      idx_is_64 ? launch<int64_t>(src, idx, out, n_rows, m, row_bytes, s)
+                : launch<int32_t>(src, idx, out, n_rows, m, row_bytes, s));
 }

@@ -12,8 +12,10 @@ non-zero:
 3. kernel    each kernel against its plain PyTorch version on the card at
              each main path's shapes (bitwise for the gather: the frame
              ring's 7168-byte frame rows and flat replay's 28,288-byte
-             packed 84x84x4 stacks), with its time, the plain
-             version's, one library call's, and its bound
+             packed 84x84x4 stacks, the latter from 32,768 rows and from
+             a full 2^20-row leaf of 29.66 GB), with its time, the plain
+             version's, one library call's, a contiguous copy of the
+             same bytes, and its bound
 4. reference one K=4 macro-step of a small float32 learner on the
              card and on the CPU from the same weights, replay and
              noise: the kernel path agrees with the plain one
@@ -126,42 +128,13 @@ def segments(replay, spec, g_outer: int, g: int, rng) -> tuple[dict, object]:
         rng.uniform(0.1, 2.0, shape).astype(np.float32))
 
 
-def design_launcher(name: str):
-    """A candidate design's C entry point, for the design comparison
-    only: fn(src, idx) -> out, never counted as a launch."""
-    import ctypes
-
-    from ape_x_dqn_tpu_torch.ops import frame_gather as fg
-
-    fg.build()
-    fn = getattr(fg._lib, name)
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-
-    def run(src, idx):
-        out = torch.empty((idx.shape[0], *src.shape[1:]), dtype=src.dtype,
-                          device=src.device)
-        rc = fn(src.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64),
-                out.data_ptr(), src.shape[0], idx.shape[0],
-                src[0].numel() * src.element_size(),
-                torch.cuda.current_stream().cuda_stream)
-        check(rc == 0, f"{name} failed: CUDA error {rc}")
-        return out
-    return run
-
-
-DESIGNS = {"regs_ms": "gather_rows_launch_regs"}
-
-
 def kernel_site(dev, seed: int, site: str, n_rows: int, row: int,
                 m: int) -> dict:
     """gather_rows vs plain on the card at one call site's shape: m
     indices into a [n_rows, row] uint8 buffer, bitwise on 8 random
     index sets and on sets with duplicates and both ends, int64 and
     int32; then kernel / plain / index_select / contiguous-copy times
-    (CUDA events, median of 3 rounds of 50 launches in turns, the 8
+    (CUDA events, median of 5 rounds of 50 launches in turns, the 8
     index sets cycled so the rows a call reads are not all served from
     the 50 MB L2 by the previous call; the copy moves the same m * row
     bytes from 8 contiguous slices of the source in turn) and the byte
@@ -178,7 +151,6 @@ def kernel_site(dev, seed: int, site: str, n_rows: int, row: int,
     edge = idx_sets[0].clone()
     edge[:6] = torch.tensor([0, n_rows - 1, n_rows - 1, 0, 0, 7],
                             device=dev)
-    designs = {k: design_launcher(v) for k, v in DESIGNS.items()}
     max_err = 0
     for idx in [*idx_sets, edge, edge.to(torch.int32)]:
         out = fg.gather_rows(src, idx)
@@ -189,9 +161,6 @@ def kernel_site(dev, seed: int, site: str, n_rows: int, row: int,
         max_err = max(max_err, int((out.int() - ref.int()).abs().max()))
         check(torch.equal(out, ref),
               f"gather_rows != plain (bitwise) at the {site} shape")
-        for k, fn in designs.items():
-            check(torch.equal(fn(src, idx), ref),
-                  f"design {k} != plain (bitwise) at the {site} shape")
 
     def cycle(fn):
         it = iter(range(1 << 30))
@@ -206,10 +175,9 @@ def kernel_site(dev, seed: int, site: str, n_rows: int, row: int,
         "plain_ms": cycle(fg.gather_rows_reference),
         "library_ms": cycle(lambda s_, i: s_.index_select(0, i)),
         "copy_ms": lambda: copy_out.copy_(slices[next(copy_it) % 8]),
-        **{k: cycle(fn) for k, fn in designs.items()},
     }
     rounds = {k: [] for k in versions}
-    for _ in range(3):  # in turns, so drift hits every version alike
+    for _ in range(5):  # in turns, so drift hits every version alike
         for k, fn in versions.items():
             rounds[k].append(cuda_ms(fn, iters=50))
     times = {k: float(np.median(v)) for k, v in rounds.items()}
@@ -222,10 +190,7 @@ def kernel_site(dev, seed: int, site: str, n_rows: int, row: int,
         f"library_ms={times['library_ms']:.5f} (index_select) "
         f"copy_ms={times['copy_ms']:.5f} (contiguous copy of the same "
         f"bytes) bound_ms={bound_ms:.5f} ({nbytes} B at 3.35 TB/s); "
-        f"designs: "
-        + " ".join(f"{k}={times[k]:.5f}" for k in designs)
-        + f"; rounds={json.dumps(rounds)}; "
-        f"{time.perf_counter() - t0:.2f} s")
+        f"rounds={json.dumps(rounds)}; {time.perf_counter() - t0:.2f} s")
     del src, idx_sets, edge, slices, copy_out
     torch.cuda.empty_cache()
     return {"site": site, "shape": [n_rows, row], "indices": m,
@@ -632,7 +597,7 @@ def main() -> int:
     build_s = fg.build()
     log(f"build: frame_gather.cu with nvcc for sm_90a in {build_s:.2f} s")
 
-    # 3. kernel vs plain, at both call sites' shapes (three sites)
+    # 3. kernel vs plain at both call sites' shapes (three sites)
     sites = phase_kernel(dev, args.seed)
     # 4. small reference: card vs cpu
     t0 = time.perf_counter()

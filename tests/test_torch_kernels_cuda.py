@@ -92,3 +92,20 @@ def test_kernel_clamps_out_of_range_indices(cuda_device):
     torch.cuda.synchronize()
     assert torch.equal(out, tfg.gather_rows_reference(src,
                                                       idx.clamp(0, 63)))
+
+
+@pytest.mark.cuda
+def test_kernel_alternating_row_sizes(cuda_device):
+    """Row sizes whose shared-memory rings differ, in turns: a launch
+    with a smaller ring must not lower the limit a later, larger one
+    needs."""
+    g = torch.Generator(device=cuda_device)
+    g.manual_seed(2)
+    srcs = [torch.randint(0, 256, (256, row), dtype=torch.uint8,
+                          device=cuda_device, generator=g)
+            for row in (7168, 28288, 7056, 7168, 28288)]
+    for src in srcs:
+        idx = torch.randint(0, 256, (300,), device=cuda_device, generator=g)
+        out = tfg.gather_rows(src, idx)
+        torch.cuda.synchronize()
+        assert torch.equal(out, tfg.gather_rows_reference(src, idx))
