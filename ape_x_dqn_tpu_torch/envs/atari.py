@@ -14,16 +14,16 @@ Counterpart of ``ape_x_dqn_tpu/envs/atari.py``, in two halves:
    84x84 bilinear resize, episodic life, reward clipping, frame-stack 4 —
    producing (84, 84, 4) uint8 observations.
 
-The frame preprocessing takes the numpy path. The JAX package also has
-a fused C++ version of it (``cpp/preproc.cpp``), host code its tests
-hold bit-equal to this numpy path; its port waits for the actor slice,
-where env throughput matters (ROADMAP Queue A item 10).
+The frame preprocessing runs the fused C++ host kernel
+(``cpp/preproc.cpp`` through envs/native.py) when g++ can build it, and
+the numpy path otherwise; the two are bit-identical.
 """
 
 from __future__ import annotations
 
 import numpy as np
 
+from ape_x_dqn_tpu_torch.envs import native
 from ape_x_dqn_tpu_torch.envs.base import Env, EnvSpec
 
 try:  # real ALE if the user's environment has it
@@ -250,12 +250,16 @@ class AtariPreprocessing(Env):
 
     def _observe(self, f0: np.ndarray,
                  f1: np.ndarray | None = None) -> np.ndarray:
-        """max(f0, f1) -> gray -> resize -> stack shift (the numpy path;
-        see the module docstring)."""
-        fm = f0 if f1 is None else np.maximum(f0, f1)
-        g = grayscale(fm)
-        small = np.clip(bilinear_resize(g, self._size, self._size),
-                        0, 255).astype(np.uint8)
+        """max(f0, f1) -> gray -> resize -> stack shift. The fused C++
+        kernel (cpp/preproc.cpp via envs/native.py) and the numpy path
+        are bit-identical; the native one skips the per-frame float
+        intermediates that dominate an actor's env-step cost."""
+        small = native.preproc(f0, f1, self._size, self._size)
+        if small is None:
+            fm = f0 if f1 is None else np.maximum(f0, f1)
+            g = grayscale(fm)
+            small = np.clip(bilinear_resize(g, self._size, self._size),
+                            0, 255).astype(np.uint8)
         self._frames = np.concatenate(
             [self._frames[..., 1:], small[..., None]], axis=-1)
         return self._frames.copy()

@@ -19,13 +19,25 @@ from typing import Any
 
 
 class NullBlackBox:
-    """Disabled flight recorder: installs no crash hooks (counterpart of
-    ``obs/blackbox.py: NullBlackBox``; the rest of its surface arrives
-    with the recorder)."""
+    """Disabled flight recorder: installs no crash hooks and records
+    nothing (counterpart of ``obs/blackbox.py: NullBlackBox``, with the
+    methods the ported runtime calls)."""
 
     enabled = False
 
     def install(self, signals: bool = True) -> None:
+        pass
+
+    def record(self, kind: str, **fields: Any) -> None:
+        pass
+
+    def set_peer(self, peer: str) -> None:
+        pass
+
+    def add_context_provider(self, fn) -> None:
+        pass
+
+    def dump(self, reason: str, **fields: Any) -> None:
         pass
 
 
@@ -39,9 +51,49 @@ class NullObs:
 
     enabled = False
     blackbox = NULL_BLACKBOX
+    watchdog = None   # no stall watchdog: the driver's supervisor idles
+    heartbeats = None
 
     def span(self, name: str, **args: Any):
         return contextlib.nullcontext()
+
+    def stage_window(self, stage: str, steps: int = 1):
+        return contextlib.nullcontext()
+
+    def mark(self, name: str, **args: Any) -> None:
+        pass
+
+    def clear(self, name: str) -> None:
+        pass
+
+    def observe(self, name: str, value: float) -> None:
+        pass
+
+    def stage_attach(self, stage: str, steps: int, compiled=None) -> None:
+        pass
+
+    def log_compiled(self, name: str, compiled) -> None:
+        pass
+
+    def on_server_batch(self, items: int, params_version: int,
+                        queue_depth: int) -> None:
+        pass
+
+    def set_learner_step(self, step: int) -> None:
+        pass
+
+    def maybe_profile(self, step: int) -> None:
+        pass
+
+    def perf_rate(self, name: str, value: float, step: int = 0) -> None:
+        pass
+
+    def publish(self, step: int) -> None:
+        pass
+
+    def learn_health(self, diag, loss: float, step: int = 0,
+                     tenant: str = "") -> None:
+        pass
 
     def register(self, name: str) -> None:
         pass

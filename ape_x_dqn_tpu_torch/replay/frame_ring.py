@@ -20,6 +20,10 @@ sampled, and get IS weight 0 if a clamp-landed draw hits one.
 
 Writes are IN PLACE on the state (the JAX version returns new arrays);
 the lockstep, evict and `add_at` forms wait for their slices.
+
+The actor side (`FrameSegmentBuilder`, `frame_segment_spec`) cuts each
+env's transition stream into the segments this replay stores; it is
+host numpy, the original's code line for line.
 """
 
 from __future__ import annotations
@@ -32,12 +36,127 @@ import torch.nn.functional as F
 
 from ape_x_dqn_tpu_torch.ops import sum_tree
 from ape_x_dqn_tpu_torch.ops.frame_gather import gather_rows
-from ape_x_dqn_tpu_torch.replay.packing import dus_rows, pad128
+from ape_x_dqn_tpu_torch.replay.packing import (ItemSpec, dus_rows,
+                                                frame_mode, pad128,
+                                                torch_dtype)
 from ape_x_dqn_tpu_torch.replay.prioritized import (PrioritizedReplay,
                                                     ReplayState, ring_cursor,
                                                     ring_finish)
 
 FIELDS = ("action", "reward", "discount", "next_off")
+
+# the predicate for frame-segment storage in the flat-DQN family (an
+# alias of replay/packing.py's, as in the original)
+frame_ring_mode = frame_mode
+
+
+def frame_segment_spec(seg_transitions: int, n_step: int,
+                       obs_shape: tuple[int, ...], obs_dtype) -> dict:
+    """Item spec for ONE shipped segment (the ingest staging adds the
+    leading axis, as for every other item spec)."""
+    h, w, stack = obs_shape
+    f = seg_transitions + n_step + stack - 1
+    return {
+        "seg_frames": ItemSpec((f, h, w), torch_dtype(obs_dtype)),
+        "action": ItemSpec((seg_transitions,), torch.int32),
+        "reward": ItemSpec((seg_transitions,), torch.float32),
+        "discount": ItemSpec((seg_transitions,), torch.float32),
+        "next_off": ItemSpec((seg_transitions,), torch.int32),
+    }
+
+
+class FrameSegmentBuilder:
+    """Actor-side segment assembly (host numpy; one per actor env).
+
+    Call order per actor loop (runtime/actor.py):
+      on_reset(obs)            after every env.reset()
+      on_step(next_obs)        after every env.step()
+      add(action, reward, discount, span, priority)
+                               for each emitted n-step transition, in
+                               start-step order
+      take_ready() -> [segment dicts] ready to ship
+      flush()                  at shutdown: pad + emit the partial tail
+
+    Per episode it keeps a frame log P where P[0:stack] are the reset
+    observation's channels and each env step appends one new frame, so
+    the step-t observation stack is the slice P[t:t+stack]. on_reset
+    flushes the open partial segment first, so segments never span
+    episodes.
+    """
+
+    def __init__(self, seg_transitions: int, n_step: int, stack: int):
+        self.B = seg_transitions
+        self.n = n_step
+        self.stack = stack
+        self.F = self.B + self.n + self.stack - 1
+        self._frames: list[np.ndarray] = []  # P[base:], trimmed left
+        self._base = 0          # P-index of self._frames[0]
+        self._t = 0             # next transition start step (per episode)
+        self._t0: int | None = None  # open segment's first start step
+        self._fields: list[tuple] = []
+        self._ready: list[dict] = []
+
+    def on_reset(self, obs: np.ndarray) -> None:
+        self._flush_partial()
+        # seed from ALL channels: a full reset gives the wrapper's
+        # zero-padded stack, an episodic-life pseudo-reset gives the
+        # carried-over frames; both reconstruct exactly
+        self._frames = [np.ascontiguousarray(obs[..., c])
+                        for c in range(self.stack)]
+        self._base = 0
+        self._t = 0
+        self._t0 = None
+
+    def on_step(self, next_obs: np.ndarray) -> None:
+        self._frames.append(np.ascontiguousarray(next_obs[..., -1]))
+
+    def add(self, action, reward: float, discount: float, span: int,
+            priority: float) -> None:
+        assert 1 <= span <= self.n, span
+        if self._t0 is None:
+            self._t0 = self._t
+            drop = self._t0 - self._base  # frames left of P[t0]: done with
+            if drop:
+                del self._frames[:drop]
+                self._base = self._t0
+        self._t += 1
+        self._fields.append((action, float(reward), float(discount),
+                             int(span), float(priority)))
+        if len(self._fields) == self.B:
+            self._emit()
+
+    def _emit(self) -> None:
+        s = self._t0 - self._base
+        frames = self._frames[s:s + self.F]
+        while len(frames) < self.F:      # episode ended early: repeat tail
+            frames.append(frames[-1])
+        pad = self.B - len(self._fields)
+        # dead slots: priority 0 AND next_off 0 (the replay masks the
+        # tree priority on next_off > 0, so eps^alpha never leaks in)
+        fields = self._fields + [(0, 0.0, 0.0, 0, 0.0)] * pad
+        acts, rews, discs, offs, pris = zip(*fields)
+        self._ready.append({
+            "seg_frames": np.stack(frames)[None],
+            "action": np.asarray(acts, np.int32).reshape(1, self.B),
+            "reward": np.asarray(rews, np.float32).reshape(1, self.B),
+            "discount": np.asarray(discs, np.float32).reshape(1, self.B),
+            "next_off": np.asarray(offs, np.int32).reshape(1, self.B),
+            "priorities": np.asarray(pris, np.float32).reshape(1, self.B),
+        })
+        self._t0 = None
+        self._fields = []
+
+    def _flush_partial(self) -> None:
+        if self._fields:
+            self._emit()
+
+    def flush(self) -> list[dict]:
+        self._flush_partial()
+        return self.take_ready()
+
+    def take_ready(self) -> list[dict]:
+        out, self._ready = self._ready, []
+        return out
 
 
 class FrameRingReplay(PrioritizedReplay):

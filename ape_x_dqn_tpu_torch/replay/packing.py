@@ -52,6 +52,13 @@ def pad128(n: int) -> int:
     return -(-int(n) // LANE) * LANE
 
 
+def frame_mode(storage: str, obs_shape: tuple[int, ...]) -> bool:
+    """The single-frame-storage predicate: frame mode applies to
+    [H, W, stack] pixel observations under frame_ring storage
+    (replay/frame_ring.py aliases it as `frame_ring_mode`)."""
+    return storage == "frame_ring" and len(obs_shape) == 3
+
+
 def ring_write_start(pos: int, block: int, capacity: int) -> int:
     """Start slot for a contiguous ring write (skip-to-head)."""
     if block > capacity:

@@ -1,5 +1,4 @@
-"""Entry point: build the prioritized frame-ring DQN learner for a
-RunConfig.
+"""Entry point: build the prioritized DQN learner for a RunConfig.
 
 The counterpart of ``ape_x_dqn_tpu/runtime/driver.py``'s
 ``build_prioritized_replay`` together with ``bench.py``'s
@@ -23,40 +22,43 @@ from __future__ import annotations
 import torch
 
 from ape_x_dqn_tpu_torch.models import build_network, init_params
-from ape_x_dqn_tpu_torch.replay.frame_ring import FrameRingReplay
-from ape_x_dqn_tpu_torch.runtime.learner import DQNLearner, TrainState
+from ape_x_dqn_tpu_torch.replay.frame_ring import (FrameRingReplay,
+                                                   frame_ring_mode)
+from ape_x_dqn_tpu_torch.replay.prioritized import PrioritizedReplay
+from ape_x_dqn_tpu_torch.runtime.learner import (DQNLearner, TrainState,
+                                                 transition_item_spec)
 from ape_x_dqn_tpu_torch.utils.misc import next_pow2, resolve_device
 from ape_x_dqn_tpu_torch.utils.rng import component_generator
 
 
 def build_prioritized_replay(cfg, spec, capacity: int,
-                             device: str | torch.device) -> FrameRingReplay:
-    """Prioritized replay at `capacity` in the configured layout. Only
-    the frame ring is built here so far: the driver's flat layout waits
-    for the driver slice (the single-process trainer builds its own flat
-    replay, runtime/single_process.py: build_replay)."""
+                             device: str | torch.device,
+                             frame_mode: bool | None = None):
+    """Prioritized replay at `capacity` in the configured storage
+    layout, as the JAX driver's ``build_prioritized_replay`` builds it:
+    the frame ring in frame mode (frame_ring storage over [H, W, stack]
+    pixels; `frame_mode` None reads it from the config), flat
+    `PrioritizedReplay` otherwise."""
     r = cfg.replay
-    if r.kind != "prioritized" or r.storage != "frame_ring" \
-            or len(spec.obs_shape) != 3:
-        raise NotImplementedError(
-            f"build_learner builds prioritized frame-ring replay over "
-            f"[H, W, stack] pixels only (got kind={r.kind!r}, "
-            f"storage={r.storage!r}, obs_shape={spec.obs_shape}); "
-            f"flat and uniform replay train through "
-            f"runtime/single_process.py")
-    return FrameRingReplay(
-        capacity=capacity, seg_transitions=r.seg_transitions,
-        n_step=cfg.learner.n_step, obs_shape=spec.obs_shape,
-        obs_dtype=spec.obs_dtype, alpha=r.alpha, beta=r.beta, eps=r.eps,
-        device=device)
+    if frame_mode is None:
+        frame_mode = frame_ring_mode(r.storage, spec.obs_shape)
+    if frame_mode:
+        return FrameRingReplay(
+            capacity=capacity, seg_transitions=r.seg_transitions,
+            n_step=cfg.learner.n_step, obs_shape=spec.obs_shape,
+            obs_dtype=spec.obs_dtype, alpha=r.alpha, beta=r.beta, eps=r.eps,
+            device=device)
+    return PrioritizedReplay(capacity=capacity, alpha=r.alpha, beta=r.beta,
+                             eps=r.eps, device=device)
 
 
 def build_learner(cfg, spec, device: str | torch.device = "cuda"
                   ) -> tuple[DQNLearner, TrainState]:
     """-> (learner, state): the network drawn from ``cfg.seed`` (flax's
     default init), its target copy, the optimizer state, an empty
-    replay at ``next_pow2(cfg.replay.capacity)`` and the learner's
-    generator, all on `device`. Raises if `device` is CUDA and CUDA is
+    prioritized replay (frame ring or flat, by the config) at
+    ``next_pow2(cfg.replay.capacity)`` and the learner's generator, all
+    on `device`. Raises if `device` is CUDA and CUDA is
     unavailable."""
     dev = resolve_device(device)
     replay = build_prioritized_replay(
@@ -65,7 +67,10 @@ def build_learner(cfg, spec, device: str | torch.device = "cuda"
     init_params(net, component_generator(cfg.seed, "net_init"))
     net.to(dev)
     learner = DQNLearner(replay, cfg.learner)
-    state = learner.init(net, replay.init(),
+    replay_state = (replay.init() if isinstance(replay, FrameRingReplay)
+                    else replay.init(transition_item_spec(spec.obs_shape,
+                                                          spec.obs_dtype)))
+    state = learner.init(net, replay_state,
                          component_generator(cfg.seed, "learner",
                                              device=dev))
     return learner, state

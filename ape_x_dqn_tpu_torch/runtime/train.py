@@ -3,16 +3,22 @@
 Counterpart of ``ape_x_dqn_tpu/runtime/train.py``. One CLI selects a
 preset and overrides any field:
 
+    python -m ape_x_dqn_tpu_torch.runtime.train --config pong  # on cuda
+    python -m ape_x_dqn_tpu_torch.runtime.train --config cartpole_smoke \\
+        --device cpu --total-env-frames 1200 --max-grad-steps 50 \\
+        --wall-clock-limit 120
     python -m ape_x_dqn_tpu_torch.runtime.train --config cartpole_smoke \\
         --single-process --device cpu
-    python -m ape_x_dqn_tpu_torch.runtime.train --config pong \\
-        --single-process --set learner.sample_prefetch=True   # on cuda
 
-`--single-process` runs `train_single_process` and prints one summary
-JSON line on stdout when the run ends. `--device` (default cuda) is the
-device it runs on. The original's other modes are not ported yet; each
-exits non-zero naming the ROADMAP Queue A item it waits for, rather than
-running without what it asked for.
+The default mode runs the threaded Ape-X driver (`ApexDriver`: actors,
+the batched inference server, ingest staging and the learner);
+`--single-process` runs `train_single_process`. Either prints one
+summary JSON line on stdout when the run ends; the driver's carries
+`actor_errors` and `loop_errors` as strings, and the CLI exits 1 when
+either is non-empty. `--device` (default cuda) is the device it runs
+on. The original's other modes are not ported yet; each exits 2 naming
+the ROADMAP Queue A item it waits for, rather than running without what
+it asked for.
 """
 
 from __future__ import annotations
@@ -86,13 +92,12 @@ _NOT_PORTED = (
     ("coordinator", "--coordinator (the multi-host learner)", 14),
     ("num_processes", "--num-processes (the multi-host learner)", 14),
     ("process_id", "--process-id (the multi-host learner)", 14),
-    ("eval_only", "--eval-only (greedy suite evaluation)", 10),
-    ("games", "--games (greedy suite evaluation)", 10),
+    ("eval_only", "--eval-only (greedy suite evaluation from a "
+                  "checkpoint)", 11),
+    ("games", "--games (greedy suite evaluation from a checkpoint)", 11),
     ("checkpoint_dir", "--checkpoint-dir (utils/checkpoint.py)", 11),
     ("profile_dir", "--profile-dir (the profiler capture)", 17),
     ("compilation_cache_dir", "--compilation-cache-dir", 17),
-    ("wall_clock_limit", "--wall-clock-limit (the threaded driver)", 11),
-    ("max_grad_steps", "--max-grad-steps (the threaded driver)", 11),
     ("param_wire_dtype", "--param-wire-dtype (the param broadcast)", 11),
 )
 
@@ -117,10 +122,12 @@ def build_parser() -> argparse.ArgumentParser:
                          "(JSONL stays canonical)")
     ap.add_argument("--single-process", action="store_true",
                     help="config-1 style in-process loop (no threads)")
-    # not ported yet: accepted so that a request for them fails loudly
-    ap.add_argument("--max-grad-steps", type=int, default=None)
+    ap.add_argument("--max-grad-steps", type=int, default=10**9,
+                    help="stop the driver at this many grad-steps")
     ap.add_argument("--wall-clock-limit", type=float, default=None,
-                    metavar="SECONDS")
+                    metavar="SECONDS",
+                    help="stop the driver after this many seconds")
+    # not ported yet: accepted so that a request for them fails loudly
     ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--profile-dir", default=None)
     ap.add_argument("--eval-only", action="store_true")
@@ -148,12 +155,6 @@ def main(argv: list[str] | None = None) -> int:
                   f"waits for ROADMAP Queue A item {item}",
                   file=sys.stderr)
             return 2
-    if not args.single_process:
-        print("the threaded ApexDriver (actors, ingest, inference server) "
-              "is not ported to the PyTorch package yet: it waits for "
-              "ROADMAP Queue A items 10-11; pass --single-process",
-              file=sys.stderr)
-        return 2
     cfg = get_config(args.config)
     if args.seed is not None:
         cfg = cfg.replace(seed=args.seed)
@@ -164,16 +165,29 @@ def main(argv: list[str] | None = None) -> int:
         cfg = cfg.replace(total_env_frames=args.total_env_frames)
     cfg = apply_overrides(cfg, args.set)
 
-    from ape_x_dqn_tpu_torch.runtime.single_process import (
-        train_single_process)
     metrics = Metrics(log_path=args.metrics_file,
                       tensorboard_dir=args.tensorboard_dir)
     try:
-        out = train_single_process(cfg, metrics=metrics, device=args.device)
+        if args.single_process:
+            from ape_x_dqn_tpu_torch.runtime.single_process import (
+                train_single_process)
+            out = train_single_process(cfg, metrics=metrics,
+                                       device=args.device)
+        else:
+            from ape_x_dqn_tpu_torch.runtime.driver import ApexDriver
+            driver = ApexDriver(cfg, metrics=metrics, device=args.device)
+            out = dict(driver.run(max_grad_steps=args.max_grad_steps,
+                                  wall_clock_limit_s=args.wall_clock_limit))
+            # the summary stays one parseable JSON line
+            out["actor_errors"] = [f"{i}: {e!r}"
+                                   for i, e in out["actor_errors"]]
+            out["loop_errors"] = [f"{which}: {e!r}"
+                                  for which, e in out["loop_errors"]]
     finally:
         metrics.close()
     print(json.dumps(out))
-    return 0
+    failed = bool(out.get("actor_errors") or out.get("loop_errors"))
+    return 1 if failed else 0
 
 
 if __name__ == "__main__":

@@ -25,17 +25,27 @@ non-zero:
              counts are zeroed just before and read just after; then a
              torch.profiler pass: device busy share and top kernels.
              Its 10.3 GB ring is freed before the next phases.
-6. cartpole  `python -m ape_x_dqn_tpu_torch.runtime.train --config
+6. apex      `python -m ape_x_dqn_tpu_torch.runtime.train --config pong
+             --total-env-frames 60000 --wall-clock-limit 180`, the
+             default CLI mode: the Ape-X driver with 8 vector actors x 16
+             synthetic-Atari envs (native preprocessing), the batched
+             inference server on the card, the pinned ingest stager and
+             the frame-ring learner at full width and 2^20 capacity,
+             paced at 1.6e-3 grad-steps per frame; launch counts zeroed
+             just before and read just after (two gather launches per
+             K=4 macro-step); publications counted; one shipped segment
+             read back from the ring bitwise; the driver freed after
+7. cartpole  `python -m ape_x_dqn_tpu_torch.runtime.train --config
              cartpole_smoke --single-process` for 9,000 frames on the
              card: the repo's quick learning bar (last20 > 60)
-7. pong-sp   the same CLI with `--config pong --set
+8. pong-sp   the same CLI with `--config pong --set
              learner.sample_prefetch=True` for 24,000 frames: the
              dueling Nature-CNN at full width over a 2^20-slot flat
              prioritized replay (59.3 GB of packed pixel rows), K=4 with
              the double-buffered sampler; launch counts zeroed just
              before and read just after; two gather launches per
              sample_k call; one drawn sample bitwise vs plain
-8. the kernels line, the card line, and the contract's last line.
+9. the kernels line, the card line, and the contract's last line.
 
 It imports torch and the port only: no JAX, nothing of ape_x_dqn_tpu.
 """
@@ -50,6 +60,7 @@ import json
 import math
 import subprocess
 import sys
+import threading
 import time
 
 import numpy as np
@@ -483,6 +494,147 @@ def phase_cartpole() -> None:
         f"training); summary={json.dumps(out)}; {wall:.2f} s")
 
 
+def phase_apex(seed: int) -> dict:
+    """The Ape-X driver through the default CLI mode at the pong preset:
+    actors and the inference server share the card with the frame-ring
+    learner. BatchedInferenceServer.update_params is wrapped to count
+    publications, DQNLearner.train_many to stamp the training window
+    and count macro-steps, LoopbackTransport.send_experience to keep a
+    copy of the first segment an actor ships, and ApexDriver.__init__ to
+    keep the driver for the read-back after the run. -> the launch
+    counts of this run."""
+    from ape_x_dqn_tpu_torch.comm.transport import LoopbackTransport
+    from ape_x_dqn_tpu_torch.configs import get_config
+    from ape_x_dqn_tpu_torch.envs import native
+    from ape_x_dqn_tpu_torch.ops import frame_gather as fg
+    from ape_x_dqn_tpu_torch.parallel.inference_server import (
+        BatchedInferenceServer)
+    from ape_x_dqn_tpu_torch.runtime.driver import ApexDriver
+    from ape_x_dqn_tpu_torch.runtime.learner import DQNLearner
+
+    cfg = get_config("pong")
+    k = cfg.learner.sample_chunk
+    check(k == 4 and cfg.actors.num_actors == 8
+          and cfg.actors.envs_per_actor == 16
+          and cfg.replay.storage == "frame_ring"
+          and cfg.learner.steps_per_frame_cap == 1.6e-3, "pong preset drift")
+    check(native.available(), "the native frame preprocessing did not "
+          "build: the apex phase must run the native path")
+    calls = {"publications": 0, "train_many": 0, "macro": 0, "singles": 0,
+             "first_s": None, "last_s": None}
+    seen: dict = {}
+    first_seg: list[dict] = []
+    send_lock = threading.Lock()
+    orig = (BatchedInferenceServer.update_params, DQNLearner.train_many,
+            LoopbackTransport.send_experience, ApexDriver.__init__)
+
+    def update_params(self, params, version):
+        calls["publications"] += 1
+        return orig[0](self, params, version)
+
+    def train_many(self, state, n, noise=None):
+        if calls["first_s"] is None:
+            calls["first_s"] = time.perf_counter()
+        out = orig[1](self, state, n, noise)
+        calls["last_s"] = time.perf_counter()
+        calls["train_many"] += 1
+        calls["macro"] += n // k
+        calls["singles"] += n % k
+        return out
+
+    def send_experience(self, batch):
+        # the first segment enqueued lands in the ring's segment slot 0
+        # (FIFO queue and stager, a fresh ring)
+        with send_lock:
+            if not first_seg:
+                first_seg.append({key: np.array(v, copy=True)
+                                  for key, v in batch.items()})
+            return orig[2](self, batch)
+
+    def driver_init(self, *a, **kw):
+        orig[3](self, *a, **kw)
+        seen["driver"] = self
+
+    threads_before = {t.ident for t in threading.enumerate()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (BatchedInferenceServer.update_params, DQNLearner.train_many,
+     LoopbackTransport.send_experience, ApexDriver.__init__) = (
+        update_params, train_many, send_experience, driver_init)
+    fg.gather_rows.launches = 0       # count the main path's run only
+    try:
+        out, wall = run_cli([
+            "--config", "pong", "--seed", str(seed),
+            "--total-env-frames", "60000", "--wall-clock-limit", "180",
+            "--device", "cuda"])
+    finally:
+        (BatchedInferenceServer.update_params, DQNLearner.train_many,
+         LoopbackTransport.send_experience, ApexDriver.__init__) = orig
+    launches = {"gather_rows": fg.gather_rows.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    left = [t.name for t in threading.enumerate()
+            if t.ident not in threads_before]
+
+    driver = seen.pop("driver")
+    replay, st = driver.replay, driver.state.replay.storage
+    server = out["server"]
+    train_s = (calls["last_s"] - calls["first_s"]
+               if calls["first_s"] is not None else 0.0)
+    ev = out["eval"] or {}
+    log(f"apex: `--config pong --total-env-frames 60000 "
+        f"--wall-clock-limit 180 --device cuda`: {cfg.actors.num_actors} "
+        f"vector actors x {cfg.actors.envs_per_actor} "
+        f"{cfg.env.kind} envs ({'native' if native.available() else 'numpy'}"
+        f" preprocessing), server max_batch {cfg.inference.max_batch} "
+        f"deadline {cfg.inference.deadline_ms} ms, frame ring of "
+        f"{replay.capacity} transitions; frames={out['frames']} "
+        f"frames/s={out['frames'] / wall:.1f} over the run; "
+        f"grad_steps={out['grad_steps']} in {calls['train_many']} "
+        f"train_many calls ({calls['macro']} macro-steps), "
+        f"grad-steps/s={out['grad_steps'] / max(train_s, 1e-9):.2f} over "
+        f"the training window ({train_s:.2f} s); server "
+        f"batches={server['batches']} items={server['items']} "
+        f"avg_batch={server['avg_batch']:.2f} "
+        f"items/s={server['items'] / wall:.1f}; ingest_dropped="
+        f"{out['ingest_dropped']}; publications={calls['publications']}; "
+        f"launches={launches}; peak_mem_gb={peak_gb:.2f}; episodes="
+        f"{out['episodes']} avg_return={out['avg_return']:.3f}; "
+        f"eval={json.dumps(ev)}; summary={json.dumps(out)}; {wall:.2f} s")
+    check(out["actor_errors"] == [] and out["loop_errors"] == [],
+          f"actor_errors {out['actor_errors']}, loop_errors "
+          f"{out['loop_errors']}")
+    check(not left, f"driver threads still running after the run: {left}")
+    check(out["grad_steps"] >= 32, f"grad_steps {out['grad_steps']} < 32")
+    check(out["grad_steps"] == k * calls["macro"] + calls["singles"],
+          f"grad_steps {out['grad_steps']} != the train_many calls' "
+          f"{calls['macro']} macro-steps + {calls['singles']} singles")
+    want = 2 * (calls["macro"] + calls["singles"])
+    check(launches["gather_rows"] == want,
+          f"gather_rows launched {launches['gather_rows']} times, expected "
+          f"{want} (2 per draw: {calls['macro']} macro-steps, "
+          f"{calls['singles']} singles)")
+    check(calls["publications"] >= 1, "no param publication reached the "
+          "inference server")
+    check(server["avg_batch"] >= 8, f"server avg_batch {server}")
+
+    # the first shipped segment, read back from the ring's slot 0
+    check(first_seg and "seg_frames" in first_seg[0], "no segment shipped")
+    seg = first_seg.pop()
+    f, b = replay.F, replay.B
+    got_frames = st["frames"][:f, :replay.frame_bytes].reshape(f, 84, 84)
+    check(torch.equal(got_frames.cpu(), torch.from_numpy(
+        seg["seg_frames"][0])), "ring slot 0 frames != the shipped segment")
+    for key in ("action", "reward", "discount", "next_off"):
+        check(torch.equal(st[key][:b].cpu(), torch.from_numpy(seg[key][0])),
+              f"ring slot 0 {key} != the shipped segment")
+    log("apex: the first shipped segment read back from ring slot 0 "
+        "bitwise (frames and fields)")
+    del driver, replay, st, got_frames, seg
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_pong_single_process(seed: int) -> dict:
     """The pong preset through the CLI with the double-buffered sampler,
     at full width over a 2^20-slot flat prioritized replay. sample_k and
@@ -607,23 +759,31 @@ def main() -> int:
     t0 = time.perf_counter()
     ring = phase_main(dev, args.seed)
     log(f"main: {time.perf_counter() - t0:.2f} s")
-    # 6. the single-process trainer learns cartpole on the card
+    # 6. the Ape-X driver through the default CLI mode
+    apex = phase_apex(args.seed)
+    # 7. the single-process trainer learns cartpole on the card
     phase_cartpole()
-    # 7. the single-process trainer at the pong preset's full size
+    # 8. the single-process trainer at the pong preset's full size
     flat = phase_pong_single_process(args.seed)
 
     # one entry per kernel; its top-level numbers are the flat replay's
     # call site at its real size (flat_full), `sites` has all three
     sites[0]["launches"] = ring["gather_rows"]
+    sites[0]["apex_launches"] = apex["gather_rows"]
     sites[1]["launches"] = sites[2]["launches"] = flat["gather_rows"]
     for site in sites:
         check(site["launches"] > 0, f"gather_rows never launched on the "
               f"{site['site']} path")
+    check(apex["gather_rows"] > 0, "gather_rows never launched on the apex "
+          "path")
     top = sites[2]
     kern = {"name": "gather_rows", "route": "cuda",
             "source": "ape_x_dqn_tpu_torch/csrc/frame_gather.cu",
             "replaces": "ape_x_dqn_tpu/ops/frame_gather.py:46",
             "launches": top["launches"],
+            "launches_by_path": {"main": ring["gather_rows"],
+                                 "apex": apex["gather_rows"],
+                                 "pong-sp": flat["gather_rows"]},
             "max_abs_err": max(s_["max_abs_err"] for s_ in sites),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": "bytes",

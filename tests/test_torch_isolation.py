@@ -51,6 +51,7 @@ def test_main_path_import_loads_no_jax():
         "import ape_x_dqn_tpu_torch.runtime.build\n"
         "import ape_x_dqn_tpu_torch.runtime.single_process\n"
         "import ape_x_dqn_tpu_torch.runtime.train\n"
+        "import ape_x_dqn_tpu_torch.runtime.driver\n"
         "import ape_x_dqn_tpu_torch.models.convert\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
         "assert not bad, bad\n" % (str(ROOT), FORBIDDEN))

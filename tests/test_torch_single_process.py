@@ -93,10 +93,10 @@ def test_throughput_matches_jax():
 
 
 @pytest.mark.parametrize("argv,waits_for", [
-    ([], "items 10-11"),                                  # ApexDriver
+    (["--listen", "0.0.0.0:0"], "item 11"),              # remote actors
     (["--single-process", "--listen", "0.0.0.0:0"], "item 11"),
     (["--single-process", "--checkpoint-dir", "ck"], "item 11"),
-    (["--eval-only"], "item 10"),
+    (["--eval-only"], "item 11"),
     (["--coordinator", "h:1", "--num-processes", "2", "--process-id", "0"],
      "item 14"),
 ])
