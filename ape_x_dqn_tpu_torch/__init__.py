@@ -19,7 +19,13 @@ Ported so far:
   train_single_process`` and ``python -m
   ape_x_dqn_tpu_torch.runtime.train --single-process``): environments,
   n-step folding, flat prioritized and uniform replay (packed pixel rows
-  gathered by the same kernel), the K-batch and prefetch learner paths.
+  gathered by the same kernel), the K-batch and prefetch learner paths;
+- the Ape-X driver (``runtime/driver.py: ApexDriver``, the CLI's default
+  mode) on one card: actors in threads, the batched inference server,
+  ingest staging and the learner;
+- the R2D2 family through that driver: the LSTM Q-net, stored-state
+  sequence replay, the burn-in sequence loss and ``SequenceLearner``,
+  recurrent actors and the recurrent eval.
 """
 
 # the version log_run_header stamps into every run's JSONL (the JAX

@@ -32,22 +32,37 @@ def preprocess_obs(obs: torch.Tensor, compute_dtype: torch.dtype
     return obs.to(compute_dtype)
 
 
+def _lecun_normal(shape, fan_in: int,
+                  generator: torch.Generator) -> torch.Tensor:
+    """A normal truncated at two standard deviations, with variance
+    1/fan_in (flax's variance_scaling)."""
+    # std of a unit normal truncated to [-2, 2]
+    trunc_std = 0.87962566103423978
+    w = torch.empty(shape)
+    nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0, generator=generator)
+    return w * (math.sqrt(1.0 / fan_in) / trunc_std)
+
+
 def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
     """Flax's default initialisation, drawn from `generator`: LeCun
-    normal weights (a normal truncated at two standard deviations, with
-    variance 1/fan_in) and zero biases. In place; returns `module`."""
-    # std of a unit normal truncated to [-2, 2] (flax's variance_scaling)
-    trunc_std = 0.87962566103423978
+    normal weights and zero biases; an LSTM's recurrent kernels are
+    orthogonal per gate, as flax's ``OptimizedLSTMCell`` draws them. In
+    place; returns `module`."""
+    from ape_x_dqn_tpu_torch.models.lstm_q import LSTMCell
+
     with torch.no_grad():
         for m in module.modules():
             if isinstance(m, (nn.Linear, nn.Conv2d)):
-                fan_in = m.weight[0].numel()
-                std = math.sqrt(1.0 / fan_in) / trunc_std
-                w = torch.empty(m.weight.shape, dtype=m.weight.dtype)
-                nn.init.trunc_normal_(w, 0.0, 1.0, -2.0, 2.0,
-                                      generator=generator)
-                m.weight.copy_(w * std)
+                m.weight.copy_(_lecun_normal(m.weight.shape,
+                                             m.weight[0].numel(), generator))
                 m.bias.zero_()
+            elif isinstance(m, LSTMCell):
+                m.weight_ih.copy_(_lecun_normal(
+                    m.weight_ih.shape, m.weight_ih.shape[1], generator))
+                for gate in m.weight_hh.view(4, m.hidden, m.hidden):
+                    w = torch.empty(m.hidden, m.hidden)
+                    gate.copy_(nn.init.orthogonal_(w, generator=generator))
+                m.bias_hh.zero_()
     return module
 
 

@@ -1,9 +1,9 @@
 """The n-step double-DQN Huber loss with importance-sampling weights.
 
-Counterpart of the DQN part of ``ape_x_dqn_tpu/ops/losses.py``; the
-R2D2 and DPG losses wait for their slices. The loss returns
-(scalar_loss, aux) where aux carries the |TD| priorities the learner
-writes back into the sum-tree and the learning-health scalars.
+Counterpart of the DQN and R2D2 parts of ``ape_x_dqn_tpu/ops/losses.py``
+(the DPG losses wait for their slice). Each loss returns (scalar_loss,
+aux) where aux carries the |TD| priorities the learner writes back into
+the sum-tree and the learning-health scalars.
 """
 
 from __future__ import annotations
@@ -97,6 +97,129 @@ def make_dqn_loss(double: bool = True, huber_delta: float = 1.0,
                    "target_q_mean": boot_t.mean(),
                    "q_gap": (torch.amax(q_sp_online, dim=-1)
                              - boot_t).mean()}
+        return loss, aux
+
+    return loss_fn
+
+
+# ---------------------------------------------------------------------------
+# R2D2 sequence loss
+
+
+class SequenceBatch(NamedTuple):
+    """Fixed-length sequences with stored recurrent state."""
+
+    obs: torch.Tensor        # [B, L, ...]
+    actions: torch.Tensor    # [B, L] int32
+    rewards: torch.Tensor    # [B, L] f32 (per-step, undiscounted)
+    terminals: torch.Tensor  # [B, L] f32 (1 at true terminal steps)
+    mask: torch.Tensor       # [B, L] f32 (1 on valid steps; 0 on padding)
+    init_state: tuple        # (c, h) each [B, H]: state before obs[:, 0]
+
+
+def nstep_targets_in_sequence(rewards: torch.Tensor,
+                              terminals: torch.Tensor,
+                              bootstrap: torch.Tensor, mask: torch.Tensor,
+                              n_step: int, gamma: float, rescale: bool
+                              ) -> tuple[torch.Tensor, torch.Tensor]:
+    """n-step targets at every t using values bootstrap[t+n] within
+    [0, L) -> (target, valid).
+
+    bootstrap[t] is the (already action-selected) bootstrap value at t,
+    in the rescaled space if `rescale`. Rolled quantities wrap, so each
+    is masked to real in-range data: wrapped rewards and terminals from
+    the sequence head never leak into windows hanging off the tail. A
+    position trains iff it is real data and its target is determined:
+    the bootstrap at t+n is real in-range data, or a terminal inside
+    [t, t+n) zeroed it."""
+    b, length = rewards.shape
+    if rescale:
+        bootstrap = value_rescale.h_inv(bootstrap)
+    dev = rewards.device
+    t_idx = torch.arange(length, device=dev)[None, :]
+    ret = torch.zeros((b, length), device=dev)
+    disc = torch.ones((b, length), device=dev)
+    alive = torch.ones((b, length), device=dev)
+    for k in range(n_step):
+        m_k = (torch.roll(mask, -k, dims=1)
+               * (t_idx + k < length).float())
+        ret = ret + disc * alive * torch.roll(rewards, -k, dims=1) * m_k
+        alive = alive * (1.0 - torch.roll(terminals, -k, dims=1) * m_k)
+        disc = disc * gamma
+    target = ret + disc * alive * torch.roll(bootstrap, -n_step, dims=1)
+    if rescale:
+        target = value_rescale.h(target)
+    boot_ok = ((t_idx < length - n_step).float()
+               * torch.roll(mask, -n_step, dims=1))
+    valid = mask * torch.clamp(boot_ok + (1.0 - alive), 0.0, 1.0)
+    return target, valid
+
+
+def make_r2d2_loss(burn_in: int, n_step: int, gamma: float,
+                   huber_delta: float = 1.0, double: bool = True,
+                   rescale: bool = True,
+                   priority_eta: float = 0.9) -> Callable:
+    """Build loss(net, target_net, batch, is_weights) -> (loss, aux)
+    for recurrent nets, ``net(obs [B, T, ...], state) -> (q [B, T, A],
+    final_state)``.
+
+    - The online burn-in unroll runs without autograd: the original
+      stops its gradient, so the state is the same and the backward
+      pass skips it. The target net burns in from the same stored
+      state.
+    - Double-DQN bootstrap; the target carries no gradient.
+    - A per-sequence Huber mean over the valid steps, weighted by IS.
+    - Priorities: eta * max|td| + (1 - eta) * mean|td| per sequence."""
+
+    def loss_fn(net: nn.Module, target_net: nn.Module,
+                batch: SequenceBatch, is_weights: torch.Tensor):
+        state0 = tuple(batch.init_state)
+        obs_b, obs_t = batch.obs[:, :burn_in], batch.obs[:, burn_in:]
+        with torch.no_grad():
+            if burn_in > 0:
+                _, state_b = net(obs_b, state0)
+                _, state_bt = target_net(obs_b, state0)
+            else:
+                state_b = state_bt = state0
+            q_target, _ = target_net(obs_t, state_bt)
+        q_online, _ = net(obs_t, state_b)            # [B, T, A]
+
+        actions = batch.actions[:, burn_in:].long()
+        rewards = batch.rewards[:, burn_in:]
+        terminals = batch.terminals[:, burn_in:]
+        mask = batch.mask[:, burn_in:]
+
+        q_sa = torch.gather(q_online, -1, actions[..., None])[..., 0]
+        with torch.no_grad():
+            q_on = q_online.detach()
+            if double:
+                boot = torch.gather(q_target, -1,
+                                    torch.argmax(q_on, dim=-1)[..., None]
+                                    )[..., 0]
+            else:
+                boot = torch.amax(q_target, dim=-1)
+            target, valid = nstep_targets_in_sequence(
+                rewards, terminals, boot, mask, n_step, gamma, rescale)
+        td = (q_sa - target) * valid
+        per_step = huber(td, huber_delta)
+        denom = torch.clamp(valid.sum(dim=1), min=1.0)
+        per_seq = per_step.sum(dim=1) / denom
+        loss = torch.mean(is_weights * per_seq)
+
+        with torch.no_grad():
+            td_d = td.detach()
+            td_abs = torch.abs(td_d)
+            priorities = (priority_eta * td_abs.amax(dim=1)
+                          + (1 - priority_eta) * td_abs.sum(dim=1) / denom)
+            # valid-masked means: padding never dilutes the statistics
+            vsum = torch.clamp(valid.sum(), min=1.0)
+            aux = {"td_abs": priorities, "q_mean": q_sa.detach().mean(),
+                   "valid_frac": valid.mean(),
+                   "td_mean": td_d.sum() / vsum,
+                   "q_max": q_on.max(),
+                   "target_q_mean": (target * valid).sum() / vsum,
+                   "q_gap": ((torch.amax(q_on, dim=-1) - boot)
+                             * valid).sum() / vsum}
         return loss, aux
 
     return loss_fn

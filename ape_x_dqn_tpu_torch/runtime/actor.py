@@ -17,8 +17,9 @@ terminal observation).
 Everything here is host numpy, and the generators are seeded exactly as
 the original seeds them (env seed*10007 + i, policy seed*7919 + i), so
 a port actor and a JAX actor fed the same Q-values ship bit-identical
-streams. The continuous (DPG) and recurrent (R2D2) actors wait for
-their slices (ROADMAP Queue A items 13 and 12).
+streams. The recurrent (R2D2) actor, `RecurrentActor`, ships
+stored-state sequences instead; the continuous (DPG) actor waits for
+its slice (ROADMAP Queue A item 13).
 """
 
 from __future__ import annotations
@@ -32,6 +33,9 @@ from ape_x_dqn_tpu_torch.envs import make_env
 from ape_x_dqn_tpu_torch.obs.core import NULL_OBS
 from ape_x_dqn_tpu_torch.ops.nstep import NStepBuilder, NStepTransition
 from ape_x_dqn_tpu_torch.replay.frame_ring import FrameSegmentBuilder
+from ape_x_dqn_tpu_torch.replay.sequence import (SequenceBuilder,
+                                                 split_priorities,
+                                                 stack_items)
 
 
 def actor_epsilon(i: int, n: int, base: float = 0.4,
@@ -57,6 +61,49 @@ def flat_transition_batch(ts: list[NStepTransition], pris: np.ndarray,
         "actor": actor_index,
         "frames": frames,
     }
+
+
+def sequence_ship_after(cfg) -> int:
+    """Sequences per shipment: ingest_batch counts TRANSITIONS, so
+    sequences ship in proportionally smaller groups (shared by the
+    scalar and vector recurrent actors)."""
+    return max(1, cfg.actors.ingest_batch // cfg.replay.seq_length)
+
+
+def feed_sequence(outbox: list, builder: SequenceBuilder, rec: dict,
+                  td: float) -> None:
+    """Append one recurrent step record (obs, action, reward, terminal,
+    pre_state, episode_end) to a SequenceBuilder, routing any completed
+    sequence items into the outbox."""
+    outbox.extend(builder.append(
+        rec["obs"], rec["action"], rec["reward"], rec["terminal"],
+        rec["pre_state"], td=td, episode_end=rec["episode_end"]))
+
+
+def ship_sequence_outbox(outbox: list, actor_index: int, frames: int,
+                         transport) -> None:
+    """Stack an outbox of sequence items into the wire batch and send
+    it (one schema for the scalar and vector recurrent actors;
+    sequence_item_spec depends on its keys)."""
+    items, pris = split_priorities(outbox)
+    batch = stack_items(items)
+    batch["priorities"] = pris
+    batch["actor"] = actor_index
+    batch["frames"] = frames
+    transport.send_experience(batch)
+
+
+def sequence_builder(cfg, obs_shape: tuple[int, ...]) -> SequenceBuilder:
+    """One env's SequenceBuilder: single frames per sequence under
+    frame_ring storage, which needs [H, W, stack] pixel obs."""
+    frame_mode = cfg.replay.storage == "frame_ring"
+    if frame_mode:
+        assert len(obs_shape) == 3, \
+            "frame_ring sequence storage needs [H, W, stack] pixel obs"
+    return SequenceBuilder(
+        seq_len=cfg.replay.seq_length, overlap=cfg.replay.seq_overlap,
+        lstm_size=cfg.network.lstm_size,
+        priority_eta=cfg.replay.priority_eta, frame_mode=frame_mode)
 
 
 class DiscretePolicyHooks:
@@ -249,5 +296,119 @@ class Actor(DiscretePolicyHooks):
                 self._resolve_pending(self.query(obs))
             except Exception:
                 self._pending.clear()  # server already down: drop, don't die
+        self._ship(force=True)
+        return self.frames
+
+
+class RecurrentActor(Actor):
+    """R2D2 actor: carries LSTM state, ships stored-state sequences.
+
+    Shares Actor's construction (eps schedule, env and generator
+    seeding, frame accounting) but replaces the flat n-step pipeline
+    with a SequenceBuilder and a stateful loop. Each query sends
+    {"obs", "c", "h"} and gets {"q", "c", "h"} back, so the batched
+    server serves many actors' recurrent steps at once.
+
+    Initial sequence priorities come from 1-step TD estimates. A step's
+    TD needs max_a Q(s_{t+1}), which arrives with the NEXT query, so
+    each step parks for one iteration before entering the builder.
+    Frame-mode shipping (frame_ring storage) happens inside the
+    SequenceBuilder, not through Actor's segment path."""
+
+    _ships_frame_segments = False
+
+    def __init__(self, cfg, actor_index: int,
+                 query_fn: Callable[[dict], dict],
+                 transport, seed: int | None = None,
+                 episode_callback: Callable[[int, dict], None] | None = None,
+                 obs: object | None = None):
+        super().__init__(cfg, actor_index, query_fn, transport, seed=seed,
+                         episode_callback=episode_callback, obs=obs)
+        self.gamma = cfg.learner.gamma
+        self.lstm_size = cfg.network.lstm_size
+        self.builder = sequence_builder(cfg, self.env.spec.obs_shape)
+        self.ship_after = sequence_ship_after(cfg)
+        self._outbox: list[dict] = []  # sequence items, not transitions
+
+    def _zero_state(self) -> tuple[np.ndarray, np.ndarray]:
+        z = np.zeros(self.lstm_size, np.float32)
+        return z, z.copy()
+
+    def _feed(self, rec: dict, td: float) -> None:
+        feed_sequence(self._outbox, self.builder, rec, td)
+
+    def _ship(self, force: bool = False) -> None:
+        if not self._outbox:
+            return
+        if not force and len(self._outbox) < self.ship_after:
+            return
+        rows = len(self._outbox)
+        ship_sequence_outbox(self._outbox, self.index,
+                             self._frames_unshipped, self.transport)
+        self._outbox = []
+        self._frames_unshipped = 0
+        self.obs.mark("actor.ship", sequences=rows)
+
+    def run(self, max_frames: int,
+            stop_event: threading.Event | None = None) -> int:
+        obs = self.env.reset()
+        c, h = self._zero_state()
+        prev: dict | None = None  # step awaiting its 1-step TD bootstrap
+        while self.frames < max_frames and not (
+                stop_event is not None and stop_event.is_set()):
+            self.obs.beat(self._hb)
+            with self.obs.span("actor.inference"):
+                out = self.query({"obs": obs, "c": c, "h": h})
+            q = out["q"]
+            if prev is not None:
+                td = (prev["reward"] + self.gamma * float(np.max(q))
+                      - prev["q_sa"])
+                self._feed(prev, td)
+                prev = None
+            if self.rng.random() < self.eps:
+                action = int(self.rng.integers(self.env.spec.num_actions))
+            else:
+                action = int(np.argmax(q))
+            next_obs, reward, done, info = self.env.step(action)
+            self.frames += 1
+            self._frames_unshipped += 1
+            terminal = info.get("terminal", done)
+            rec = dict(obs=obs, action=action, reward=float(reward),
+                       terminal=terminal, pre_state=(c, h),
+                       q_sa=float(q[action]), episode_end=done)
+            if terminal:
+                # the bootstrap is zero: the TD is determined now
+                self._feed(rec, rec["reward"] - rec["q_sa"])
+            elif done:
+                # truncation: the sequence ends (the state resets) but
+                # the bootstrap survives: one more query on the last obs
+                out2 = self.query({"obs": next_obs,
+                                   "c": out["c"], "h": out["h"]})
+                td = (reward + self.gamma * float(np.max(out2["q"]))
+                      - rec["q_sa"])
+                self._feed(rec, td)
+            else:
+                prev = rec
+            if done:
+                obs = self.env.reset()
+                c, h = self._zero_state()
+                if self.episode_callback and "episode_return" in info:
+                    self.episode_callback(self.index, info)
+            else:
+                obs = next_obs
+                c, h = out["c"], out["h"]
+            self._ship()
+        # shutdown: resolve the parked step with one final forward,
+        # flush the builder's partial tail and ship everything
+        if prev is not None:
+            try:
+                out = self.query({"obs": obs, "c": c, "h": h})
+                td = (prev["reward"] + self.gamma * float(np.max(out["q"]))
+                      - prev["q_sa"])
+            except Exception:
+                td = prev["reward"] - prev["q_sa"]
+            prev["episode_end"] = False
+            self._feed(prev, td)
+        self._outbox.extend(self.builder.flush())
         self._ship(force=True)
         return self.frames

@@ -30,9 +30,11 @@ forward per server bucket (`_warmup`), which changes no learner state.
 What the original builds and the port does not have yet raises, naming
 its ROADMAP Queue A item: the multi-GPU learner (14), the serving tier
 (16), the remediation and operations planes (19), checkpoints and the
-legacy staging path (11), the profiler capture (17) and the R2D2 and
-DPG families (12, 13); the port's config already refuses the cold tier
-(15). With observability off (the
+legacy staging path (11), the profiler capture (17) and the DPG
+family (13); the port's config already refuses the cold tier (15).
+The R2D2 family runs here: recurrent actors, stateful {obs, c, h}
+server queries, whole sequences as staging units and the
+`SequenceLearner` (runtime/sequence_learner.py). With observability off (the
 only ported facade) the supervisor has no watchdog to read, as in the
 original with obs off; the HBM fits-check waits for ``utils/hbm.py``
 (item 17).
@@ -63,6 +65,7 @@ from ape_x_dqn_tpu_torch.runtime.family import (
     actor_class, family_of, family_setup, server_apply_fn, warmup_example)
 from ape_x_dqn_tpu_torch.runtime.ingest import IngestStager
 from ape_x_dqn_tpu_torch.runtime.learner import DQNLearner
+from ape_x_dqn_tpu_torch.runtime.sequence_learner import SequenceLearner
 from ape_x_dqn_tpu_torch.runtime.single_process import build_replay
 from ape_x_dqn_tpu_torch.utils.metrics import (Metrics, Throughput,
                                                log_run_header)
@@ -90,10 +93,8 @@ def _refuse_unported(cfg) -> None:
                       "path)", 11))
     if cfg.profile_dir:
         waits.append(("profile_dir (the profiler capture)", 17))
-    family = family_of(cfg)
-    if family != "dqn":
-        waits.append((f"the {family!r} family",
-                       {"r2d2": 12, "dpg": 13}[family]))
+    if family_of(cfg) == "dpg":
+        waits.append(("the 'dpg' family", 13))
     if waits:
         what, item = waits[0]
         raise NotImplementedError(
@@ -130,7 +131,10 @@ class ApexDriver:
                            self.device, frame_mode=True)
                        if self._frame_mode
                        else build_replay(cfg.replay, self.device))
-        self.learner = DQNLearner(self.replay, cfg.learner)
+        self.learner = (SequenceLearner(self.replay, cfg.learner,
+                                        cfg.replay)
+                        if self.family == "r2d2"
+                        else DQNLearner(self.replay, cfg.learner))
         replay_state = (self.replay.init() if self._frame_mode
                         else self.replay.init(item_spec))
         self.state = self.learner.init(  # guarded-by: _state_lock
@@ -359,8 +363,9 @@ class ApexDriver:
             self.obs.clear("ingest")
 
     def _ingest_one(self, batch: dict, n: int) -> None:
-        # frame segments carry fewer units than env frames: actors ship
-        # the true frame count alongside (flat batches: frames == units)
+        # frame segments and sequences carry fewer units than env
+        # frames: actors ship the true frame count alongside (flat
+        # batches: frames == units)
         frames = int(batch.get("frames", n))
         self._stage_one(batch, n)
         self.frames.add(frames)
@@ -414,10 +419,12 @@ class ApexDriver:
 
     def _flush_stage(self, force: bool = False) -> None:
         """Ship the complete staged blocks; at force-flush the sub-block
-        tail is DROPPED and counted: live transitions (next_off > 0) in
-        frame-ring mode, where env frames ride the ingest messages
-        separately and stay counted; units in flat mode, where one unit
-        is one env frame and the frame count comes off with it."""
+        tail is DROPPED and counted in transitions: live transitions
+        (next_off > 0) in frame-ring mode and seq_length per sequence
+        for r2d2 (an upper bound: overlapping sequences share steps),
+        where env frames ride the ingest messages separately and stay
+        counted; units in flat mode, where one unit is one env frame and
+        the frame count comes off with it."""
         self._stager.drain()
         tail = self._stager.tail_units()
         if force and tail:
@@ -425,6 +432,10 @@ class ApexDriver:
                 live = (self._stager.tail_view("next_off") > 0
                         ).sum(axis=-1)
                 per_shard = self._tail_shard_counts(live)
+            elif self.family == "r2d2":
+                per_shard = np.asarray(
+                    self._stager.tail_shard_units(self.dp),
+                    np.int64) * self.cfg.replay.seq_length
             else:
                 per_shard = np.asarray(
                     self._stager.tail_shard_units(self.dp), np.int64)

@@ -9,8 +9,7 @@ episodic-life pseudo-terminals, no reward clipping, near-greedy policy.
 
 The standalone suite evaluation (``evaluate_suite``, ``run_suite_eval``,
 the CLI's ``--eval-only``) waits for checkpoints (ROADMAP Queue A item
-11); the recurrent and continuous eval policies wait for their families
-(items 12 and 13).
+11); the continuous eval policy waits for its family (item 13).
 """
 
 from __future__ import annotations
@@ -190,12 +189,26 @@ def final_eval_game(cfg) -> str | None:
 
 def make_eval_policy_factory(family: str, lstm_size: int,
                              query_fn: Callable) -> Callable | None:
-    """Per-episode eval policy builder per model family. Plain Q-nets
-    need none (EvalWorker queries directly); the recurrent and
-    continuous policies wait for their families."""
-    if family == "dqn":
+    """Per-episode eval policy builder per model family. Recurrent
+    policies carry a fresh (c, h) across one episode's queries; plain
+    Q-nets need none (EvalWorker queries directly); the continuous
+    policy waits for its family."""
+    if family == "dpg":
+        raise NotImplementedError(
+            "eval policies of the 'dpg' family are not ported to the "
+            "PyTorch package yet: they wait for ROADMAP Queue A item 13")
+    if family != "r2d2":
         return None
-    item = {"r2d2": 12, "dpg": 13}.get(family)
-    raise NotImplementedError(
-        f"eval policies of the {family!r} family are not ported to the "
-        f"PyTorch package yet: they wait for ROADMAP Queue A item {item}")
+
+    def factory():
+        state = {"c": np.zeros(lstm_size, np.float32),
+                 "h": np.zeros(lstm_size, np.float32)}
+
+        def policy(obs):
+            out = query_fn({"obs": obs, "c": state["c"], "h": state["h"]})
+            state["c"], state["h"] = out["c"], out["h"]
+            return out["q"]
+
+        return policy
+
+    return factory

@@ -138,6 +138,23 @@ class SingleChipLearner:
                   is_w: torch.Tensor):
         raise NotImplementedError  # family-specific: batch + loss
 
+    def _optimize(self, state: TrainState, loss: torch.Tensor):
+        """The family-independent half of an SGD step, in place on
+        `state`: the gradients of `loss`, the optimizer update, the step
+        count and the hard target sync every target_sync_every steps (a
+        host branch: the step count lives on the host). -> (grads,
+        updates, the params after the update, detached)."""
+        params = list(state.net.parameters())
+        grads = torch.autograd.grad(loss, params)
+        updates = self.optimizer.update(grads, state.opt_state)
+        with torch.no_grad():
+            for p, u in zip(params, updates):
+                p.add_(u)
+        state.step += 1
+        if state.step % self.lcfg.target_sync_every == 0:
+            hard_update(state.target_net, state.net)
+        return grads, updates, [p.detach() for p in params]
+
     def _train_step(self, state: TrainState,
                     noise: torch.Tensor | None = None):
         items, idx, is_w = self.replay.sample(
@@ -324,24 +341,13 @@ class DQNLearner(SingleChipLearner):
             obs=items["obs"], actions=items["action"],
             rewards=items["reward"], next_obs=items["next_obs"],
             discounts=items["discount"])
-        params = list(state.net.parameters())
         loss, aux = self.loss_fn(state.net, state.target_net, batch, is_w)
-        grads = torch.autograd.grad(loss, params)
-        updates = self.optimizer.update(grads, state.opt_state)
-        with torch.no_grad():
-            for p, u in zip(params, updates):
-                p.add_(u)
-        state.step += 1
-        # hard target sync every target_sync_every steps (a host branch:
-        # the step count lives on the host)
-        if state.step % self.lcfg.target_sync_every == 0:
-            hard_update(state.target_net, state.net)
+        grads, updates, params = self._optimize(state, loss)
         metrics = {
             "loss": loss.detach(),
             "q_mean": aux["q_mean"],
             "td_abs_mean": aux["td_abs"].mean(),
             "grad_norm": learn_obs.global_norm(grads),
-            "diag": learn_obs.sgd_diag(aux, is_w, grads, updates,
-                                       [p.detach() for p in params]),
+            "diag": learn_obs.sgd_diag(aux, is_w, grads, updates, params),
         }
         return aux["td_abs"], metrics

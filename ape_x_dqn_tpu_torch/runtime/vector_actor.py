@@ -15,8 +15,8 @@ query per vector step.
 Each env core owns a distinct slot of the global Horgan eps schedule:
 vector actor i's env j is global slot i*K+j of num_actors*K. Seeds
 follow the original exactly (env seed*10007 + slot, policy
-seed*7919 + i). The recurrent and continuous variants wait for their
-slices (ROADMAP Queue A items 12 and 13).
+seed*7919 + i). `RecurrentVectorActor` is the R2D2 variant; the
+continuous one waits for its slice (ROADMAP Queue A item 13).
 """
 
 from __future__ import annotations
@@ -31,8 +31,11 @@ from ape_x_dqn_tpu_torch.envs.vector import SyncVectorEnv
 from ape_x_dqn_tpu_torch.obs.core import NULL_OBS
 from ape_x_dqn_tpu_torch.ops.nstep import NStepBuilder, NStepTransition
 from ape_x_dqn_tpu_torch.replay.frame_ring import FrameSegmentBuilder
+from ape_x_dqn_tpu_torch.replay.sequence import SequenceBuilder
 from ape_x_dqn_tpu_torch.runtime.actor import (
-    DiscretePolicyHooks, actor_epsilon, resolve_pending, ship_flat_outbox)
+    DiscretePolicyHooks, actor_epsilon, feed_sequence, resolve_pending,
+    sequence_builder, sequence_ship_after, ship_flat_outbox,
+    ship_sequence_outbox)
 
 
 class _EnvCore:
@@ -221,5 +224,187 @@ class VectorActor(DiscretePolicyHooks):
             except Exception:
                 for core in self.cores:
                     core.pending.clear()  # server down: drop, don't die
+        self._ship(force=True)
+        return self.frames
+
+
+class _RecurrentEnvCore:
+    """Per-env recurrent actor state: eps slot, sequence builder,
+    carried LSTM state, and the one-step-parked record awaiting its
+    1-step TD bootstrap (as in runtime.actor.RecurrentActor)."""
+
+    __slots__ = ("eps", "builder", "c", "h", "prev")
+
+    def __init__(self, eps: float, builder: SequenceBuilder,
+                 lstm_size: int):
+        self.eps = eps
+        self.builder = builder
+        self.c = np.zeros(lstm_size, np.float32)
+        self.h = np.zeros(lstm_size, np.float32)
+        self.prev: dict | None = None
+
+    def zero_state(self) -> None:
+        self.c = np.zeros_like(self.c)
+        self.h = np.zeros_like(self.h)
+
+
+class RecurrentVectorActor:
+    """R2D2 vector actor: K envs per thread, one batched stateful query
+    per vector step ({obs, c, h}, each with a leading [K] axis), per-env
+    SequenceBuilders shipping stored-state sequences.
+
+    Per env core the semantics are runtime.actor.RecurrentActor's (the
+    parked record, the terminal and truncation TD seeds, the state
+    zeroed at episode end), with the truncation bootstrap queries of
+    all truncated envs batched into one extra query per vector step."""
+
+    def __init__(self, cfg, actor_index: int, query_fn, transport,
+                 seed: int | None = None, episode_callback=None,
+                 obs: object | None = None):
+        self.cfg = cfg
+        self.index = actor_index
+        self.query = query_fn
+        self.transport = transport
+        self.obs = obs if obs is not None else NULL_OBS
+        self._hb = f"actor-{actor_index}"
+        seed = cfg.seed if seed is None else seed
+        self.K = max(cfg.actors.envs_per_actor, 1)
+        self.gamma = cfg.learner.gamma
+        self.lstm_size = cfg.network.lstm_size
+        total_slots = cfg.actors.num_actors * self.K
+        envs, self.cores = [], []
+        for j in range(self.K):
+            g = actor_index * self.K + j
+            envs.append(make_env(cfg.env, seed=seed * 10_007 + g,
+                                 actor_index=g))
+            self.cores.append(_RecurrentEnvCore(
+                actor_epsilon(g, total_slots, cfg.actors.base_eps,
+                              cfg.actors.eps_alpha),
+                sequence_builder(cfg, envs[-1].spec.obs_shape),
+                self.lstm_size))
+        self.venv = SyncVectorEnv(envs)
+        self.spec = self.venv.spec
+        self.rng = np.random.default_rng(seed * 7919 + actor_index)
+        self.episode_callback = episode_callback
+        self.frames = 0
+        self._frames_unshipped = 0
+        self.ship_after = sequence_ship_after(cfg)
+        self._outbox: list[dict] = []
+
+    def _feed(self, core: _RecurrentEnvCore, rec: dict, td: float) -> None:
+        feed_sequence(self._outbox, core.builder, rec, td)
+
+    def _resolve_prev(self, core: _RecurrentEnvCore, q_next) -> None:
+        """The parked record's 1-step TD bootstrap arrives with the next
+        query's Q-values for this env."""
+        if core.prev is None:
+            return
+        td = (core.prev["reward"] + self.gamma * float(np.max(q_next))
+              - core.prev["q_sa"])
+        self._feed(core, core.prev, td)
+        core.prev = None
+
+    def _ship(self, force: bool = False) -> None:
+        if not self._outbox:
+            return
+        if not force and len(self._outbox) < self.ship_after:
+            return
+        ship_sequence_outbox(self._outbox, self.index,
+                             self._frames_unshipped, self.transport)
+        self._outbox = []
+        self._frames_unshipped = 0
+
+    def _query_all(self, obs) -> dict:
+        return self.query({
+            "obs": obs,
+            "c": np.stack([core.c for core in self.cores]),
+            "h": np.stack([core.h for core in self.cores])}, self.K)
+
+    def run(self, max_frames: int,
+            stop_event: threading.Event | None = None) -> int:
+        obs = self.venv.reset()
+        while self.frames < max_frames and not (
+                stop_event is not None and stop_event.is_set()):
+            self.obs.beat(self._hb)
+            with self.obs.span("actor.inference", k=self.K):
+                out = self._query_all(obs)
+            q, cs, hs = (np.asarray(out["q"]), np.asarray(out["c"]),
+                         np.asarray(out["h"]))
+            actions = []
+            for j, core in enumerate(self.cores):
+                self._resolve_prev(core, q[j])
+                if self.rng.random() < core.eps:
+                    actions.append(int(self.rng.integers(
+                        self.spec.num_actions)))
+                else:
+                    actions.append(int(np.argmax(q[j])))
+            next_obs, rewards, dones, infos = self.venv.step(actions)
+            self.frames += self.K
+            self._frames_unshipped += self.K
+            # first pass: build the records, collect truncations
+            recs, trunc_j = [], []
+            for j, core in enumerate(self.cores):
+                info = infos[j]
+                done = bool(dones[j])
+                terminal = bool(info.get("terminal", done))
+                recs.append(dict(
+                    obs=obs[j], action=actions[j],
+                    reward=float(rewards[j]), terminal=terminal,
+                    pre_state=(core.c, core.h),
+                    q_sa=float(q[j][actions[j]]), episode_end=done))
+                if done and not terminal:
+                    trunc_j.append(j)
+            # truncation: the sequence ends (the state resets) but the
+            # bootstrap survives: one batched query on the truncated
+            # envs' final observations with their post-step states
+            v_term: dict[int, float] = {}
+            if trunc_j:
+                tout = self.query({
+                    "obs": np.stack([infos[j]["terminal_obs"]
+                                     for j in trunc_j]),
+                    "c": np.stack([cs[j] for j in trunc_j]),
+                    "h": np.stack([hs[j] for j in trunc_j])},
+                    len(trunc_j))
+                tq = np.asarray(tout["q"])
+                for i, j in enumerate(trunc_j):
+                    v_term[j] = float(np.max(tq[i]))
+            # second pass: route the records, advance or reset the state
+            for j, core in enumerate(self.cores):
+                rec = recs[j]
+                if rec["terminal"]:
+                    self._feed(core, rec, rec["reward"] - rec["q_sa"])
+                elif j in v_term:
+                    td = (rec["reward"] + self.gamma * v_term[j]
+                          - rec["q_sa"])
+                    self._feed(core, rec, td)
+                else:
+                    core.prev = rec
+                if dones[j]:
+                    core.zero_state()
+                    if (self.episode_callback
+                            and "episode_return" in infos[j]):
+                        self.episode_callback(self.index, infos[j])
+                else:
+                    core.c, core.h = cs[j], hs[j]
+            obs = next_obs
+            self._ship()
+        # shutdown: resolve the parked records with one final batched
+        # forward, flush the partial sequence tails, ship everything
+        if any(core.prev is not None for core in self.cores):
+            try:
+                q = np.asarray(self._query_all(obs)["q"])
+                for j, core in enumerate(self.cores):
+                    if core.prev is not None:
+                        core.prev["episode_end"] = False
+                        self._resolve_prev(core, q[j])
+            except Exception:  # server down: seed without the bootstrap
+                for core in self.cores:
+                    if core.prev is not None:
+                        core.prev["episode_end"] = False
+                        self._feed(core, core.prev,
+                                   core.prev["reward"] - core.prev["q_sa"])
+                        core.prev = None
+        for core in self.cores:
+            self._outbox.extend(core.builder.flush())
         self._ship(force=True)
         return self.frames

@@ -13,7 +13,9 @@ non-zero:
              each main path's shapes (bitwise for the gather: the frame
              ring's 7168-byte frame rows and flat replay's 28,288-byte
              packed 84x84x4 stacks, the latter from 32,768 rows and from
-             a full 2^20-row leaf of 29.66 GB), with its time, the plain
+             a full 2^20-row leaf of 29.66 GB; the r2d2 replay's
+             585,728-byte packed single-frame sequences, 256 rows from a
+             full 65,536-row leaf of 38.39 GB), with its time, the plain
              version's, one library call's, a contiguous copy of the
              same bytes, and its bound
 4. reference one K=4 macro-step of a small float32 learner on the
@@ -35,17 +37,33 @@ non-zero:
              just before and read just after (two gather launches per
              K=4 macro-step); publications counted; one shipped segment
              read back from the ring bitwise; the driver freed after
-7. cartpole  `python -m ape_x_dqn_tpu_torch.runtime.train --config
+7. r2d2      `python -m ape_x_dqn_tpu_torch.runtime.train --config r2d2
+             --set parallel.dp=1 --set parallel.tp=1 --actors 8 --set
+             replay.min_fill=256 --total-env-frames 30000
+             --wall-clock-limit 180`: the R2D2 preset at full width
+             (Nature-CNN torso, LSTM 512, dueling, bf16, sequences of 80
+             with burn-in 40, batch 64, K=4) through the default CLI
+             mode: 8 recurrent vector actors x 16 envs, stateful
+             {obs, c, h} queries to the inference server, a 65,536-
+             sequence frame-mode prioritized replay (38.39 GB of packed
+             rows) and the SequenceLearner; launch counts zeroed just
+             before and read just after (one gather launch per draw);
+             publications counted; frames/s before and after min_fill;
+             the first shipped sequence read back from replay slot 0
+             bitwise; the final eval through the recurrent policy; then
+             the learner alone on the run's replay (host clock, and a
+             torch.profiler pass); the driver freed after
+8. cartpole  `python -m ape_x_dqn_tpu_torch.runtime.train --config
              cartpole_smoke --single-process` for 9,000 frames on the
              card: the repo's quick learning bar (last20 > 60)
-8. pong-sp   the same CLI with `--config pong --set
+9. pong-sp   the same CLI with `--config pong --set
              learner.sample_prefetch=True` for 24,000 frames: the
              dueling Nature-CNN at full width over a 2^20-slot flat
              prioritized replay (59.3 GB of packed pixel rows), K=4 with
              the double-buffered sampler; launch counts zeroed just
              before and read just after; two gather launches per
              sample_k call; one drawn sample bitwise vs plain
-9. the kernels line, the card line, and the contract's last line.
+10. the kernels line, the card line, and the contract's last line.
 
 It imports torch and the port only: no JAX, nothing of ape_x_dqn_tpu.
 """
@@ -74,6 +92,8 @@ PEAK_BYTES_PER_S = 3.35e12
 MACRO_STEPS = 10
 STAGED_STEPS = 3
 PROFILE_STEPS = 3
+# r2d2: macro-steps of the learner alone after the driver's run
+R2D2_ALONE = 4
 
 
 def log(msg: str) -> None:
@@ -209,13 +229,18 @@ def kernel_site(dev, seed: int, site: str, n_rows: int, row: int,
 
 
 def phase_kernel(dev, seed: int) -> list[dict]:
-    """The gather at both main paths' shapes: one side of a K=4 x B=512
+    """The gather at every main path's shapes: one side of a K=4 x B=512
     frame-ring draw (8192 frame rows of 7168 B from a ring of the pong
-    preset's full row count), and one side of the same draw from flat
+    preset's full row count), one side of the same draw from flat
     replay (2048 packed 84x84x4 stacks of 28,288 B), timed from 32,768
     rows (as in earlier runs) and from the 2^20 rows of one leaf of the
-    pong preset's flat replay (29.66 GB, freed after)."""
-    from ape_x_dqn_tpu_torch.replay.packing import pad128
+    pong preset's flat replay (29.66 GB, freed after), and one K=4 x
+    B=64 draw of the r2d2 preset's packed single-frame sequences
+    (585,728 B rows) from its full 65,536-sequence leaf (38.39 GB,
+    freed after)."""
+    from ape_x_dqn_tpu_torch.configs import get_config
+    from ape_x_dqn_tpu_torch.replay.packing import PixelPacker, pad128
+    from ape_x_dqn_tpu_torch.replay.sequence import sequence_item_spec
     from ape_x_dqn_tpu_torch.runtime.build import build_prioritized_replay
     from ape_x_dqn_tpu_torch.utils.misc import next_pow2
 
@@ -230,9 +255,19 @@ def phase_kernel(dev, seed: int) -> list[dict]:
     check(flat_row == 28288 and kb == 2048 and capacity == 1 << 20,
           f"unexpected flat shape: row {flat_row}, m={kb}, "
           f"capacity {capacity}")
+    r2 = get_config("r2d2")
+    spec = sequence_item_spec((84, 84, 4), np.uint8, r2.replay.seq_length,
+                              r2.network.lstm_size, frame_mode=True)
+    seq_row = PixelPacker(spec).storage_spec(spec)["seq_frames"].shape[0]
+    seq_cap = next_pow2(r2.replay.capacity)
+    seq_m = r2.learner.sample_chunk * r2.learner.batch_size
+    check(seq_row == 585_728 and seq_cap == 65_536 and seq_m == 256,
+          f"unexpected sequence shape: row {seq_row}, capacity {seq_cap}, "
+          f"m={seq_m}")
     return [kernel_site(dev, seed, "frame_ring", n_rows, row, m),
             kernel_site(dev, seed, "flat", 32768, flat_row, kb),
-            kernel_site(dev, seed, "flat_full", capacity, flat_row, kb)]
+            kernel_site(dev, seed, "flat_full", capacity, flat_row, kb),
+            kernel_site(dev, seed, "sequence", seq_cap, seq_row, seq_m)]
 
 
 def phase_reference(dev, seed: int) -> None:
@@ -635,6 +670,204 @@ def phase_apex(seed: int) -> dict:
     return launches
 
 
+def phase_r2d2(seed: int) -> dict:
+    """The r2d2 preset through the CLI's default mode on one card, at
+    full width. Wrapped for the checks after the run:
+    BatchedInferenceServer.update_params counts publications,
+    SequenceLearner.train_many stamps the training window, counts
+    macro-steps and keeps the last loss, ApexDriver.run stamps the
+    run's start, LoopbackTransport.send_experience keeps a copy of the
+    first batch an actor ships, ApexDriver.__init__ keeps the driver,
+    and the driver's eval-policy factory counts the recurrent policy's
+    queries. -> the launch counts of this run."""
+    from ape_x_dqn_tpu_torch.comm.transport import LoopbackTransport
+    from ape_x_dqn_tpu_torch.configs import get_config
+    from ape_x_dqn_tpu_torch.ops import frame_gather as fg
+    from ape_x_dqn_tpu_torch.parallel.inference_server import (
+        BatchedInferenceServer)
+    from ape_x_dqn_tpu_torch.runtime import driver as driver_mod
+    from ape_x_dqn_tpu_torch.runtime.driver import ApexDriver
+    from ape_x_dqn_tpu_torch.runtime.sequence_learner import SequenceLearner
+
+    cfg = get_config("r2d2")
+    net, rep, ln = cfg.network, cfg.replay, cfg.learner
+    k = ln.sample_chunk
+    check(net.kind == "lstm_q" and net.lstm_size == 512
+          and net.torso_dense == 512 and net.dueling
+          and net.compute_dtype == "bfloat16" and rep.seq_length == 80
+          and rep.seq_overlap == 40 and rep.burn_in == 40
+          and rep.capacity == 65_536 and rep.storage == "frame_ring"
+          and ln.batch_size == 64 and k == 4 and ln.n_step == 5
+          and ln.value_rescale and ln.target_sync_every == 2500
+          and cfg.actors.envs_per_actor == 16, "r2d2 preset drift")
+    calls = {"publications": 0, "train_many": 0, "macro": 0, "singles": 0,
+             "first_s": None, "last_s": None, "run_s": None,
+             "frames_at_first": 0, "frames_at_last": 0,
+             "policy_queries": 0, "loss": None}
+    seen: dict = {}
+    first: list[dict] = []
+    send_lock = threading.Lock()
+    orig = (BatchedInferenceServer.update_params,
+            SequenceLearner.train_many, LoopbackTransport.send_experience,
+            ApexDriver.__init__, ApexDriver.run,
+            driver_mod.make_eval_policy_factory)
+
+    def update_params(self, params, version):
+        calls["publications"] += 1
+        return orig[0](self, params, version)
+
+    def train_many(self, state, n, noise=None):
+        frames = seen["driver"]._frames_total
+        if calls["first_s"] is None:
+            calls["first_s"] = time.perf_counter()
+            calls["frames_at_first"] = frames
+        calls["frames_at_last"] = frames
+        out = orig[1](self, state, n, noise)
+        calls["last_s"] = time.perf_counter()
+        calls["train_many"] += 1
+        calls["macro"] += n // k
+        calls["singles"] += n % k
+        calls["loss"] = out[1]["loss"]     # read after the run
+        return out
+
+    def send_experience(self, batch):
+        # the first batch enqueued lands first in replay slot 0 (FIFO
+        # queue and stager, one sequence a block, a fresh ring)
+        with send_lock:
+            if not first:
+                first.append({key: np.array(v, copy=True)
+                              for key, v in batch.items()})
+            return orig[2](self, batch)
+
+    def driver_init(self, *a, **kw):
+        orig[3](self, *a, **kw)
+        seen["driver"] = self
+
+    def driver_run(self, *a, **kw):
+        calls["run_s"] = time.perf_counter()
+        return orig[4](self, *a, **kw)
+
+    def policy_factory(family, lstm_size, query_fn):
+        def counted(inp):
+            calls["policy_queries"] += 1
+            return query_fn(inp)
+        return orig[5](family, lstm_size, counted)
+
+    threads_before = {t.ident for t in threading.enumerate()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (BatchedInferenceServer.update_params, SequenceLearner.train_many,
+     LoopbackTransport.send_experience, ApexDriver.__init__,
+     ApexDriver.run, driver_mod.make_eval_policy_factory) = (
+        update_params, train_many, send_experience, driver_init,
+        driver_run, policy_factory)
+    fg.gather_rows.launches = 0       # count the main path's run only
+    try:
+        out, wall = run_cli([
+            "--config", "r2d2", "--seed", str(seed),
+            "--set", "parallel.dp=1", "--set", "parallel.tp=1",
+            "--actors", "8", "--set", "replay.min_fill=256",
+            "--total-env-frames", "30000", "--wall-clock-limit", "180",
+            "--device", "cuda"])
+    finally:
+        (BatchedInferenceServer.update_params, SequenceLearner.train_many,
+         LoopbackTransport.send_experience, ApexDriver.__init__,
+         ApexDriver.run, driver_mod.make_eval_policy_factory) = orig
+    t_end = time.perf_counter()
+    launches = {"gather_rows": fg.gather_rows.launches}
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    left = [t.name for t in threading.enumerate()
+            if t.ident not in threads_before]
+
+    driver = seen.pop("driver")
+    storage = driver.state.replay.storage
+    replay_gb = sum(v.numel() * v.element_size()
+                    for v in storage.values()) / 1e9
+    server = out["server"]
+    trained = calls["first_s"] is not None
+    train_s = calls["last_s"] - calls["first_s"] if trained else 0.0
+    fill_s = (calls["first_s"] if trained else t_end) - calls["run_s"]
+    f0 = calls["frames_at_first"]
+    f1 = calls["frames_at_last"] - f0
+    loss = calls["loss"].item() if calls["loss"] is not None else math.nan
+    ev = out["eval"] or {}
+    log(f"r2d2: `--config r2d2 --set parallel.dp=1 --set parallel.tp=1 "
+        f"--actors 8 --set replay.min_fill=256 --total-env-frames 30000 "
+        f"--wall-clock-limit 180 --device cuda`: LSTM {net.lstm_size} over "
+        f"the Nature-CNN torso, dueling, bf16, sequences of "
+        f"{rep.seq_length} (burn-in {rep.burn_in}), batch {ln.batch_size}, "
+        f"K={k}; 8 recurrent vector actors x {cfg.actors.envs_per_actor} "
+        f"{cfg.env.kind} envs; frame-mode prioritized replay of "
+        f"{driver.replay.capacity} sequences = {replay_gb:.2f} GB; "
+        f"frames={out['frames']} frames/s={out['frames'] / wall:.1f} over "
+        f"the run, {f0 / max(fill_s, 1e-9):.1f} before min_fill "
+        f"({f0} frames in {fill_s:.2f} s) and {f1 / max(train_s, 1e-9):.1f} "
+        f"in the training window ({f1} frames); "
+        f"grad_steps={out['grad_steps']} in {calls['train_many']} "
+        f"train_many calls ({calls['macro']} macro-steps), "
+        f"grad-steps/s={out['grad_steps'] / max(train_s, 1e-9):.2f} over "
+        f"the training window ({train_s:.2f} s); last loss {loss:.6f}; "
+        f"server batches={server['batches']} items={server['items']} "
+        f"avg_batch={server['avg_batch']:.2f}; ingest_dropped="
+        f"{out['ingest_dropped']}; publications={calls['publications']}; "
+        f"launches={launches}; peak_mem_gb={peak_gb:.2f}; episodes="
+        f"{out['episodes']} avg_return={out['avg_return']:.3f}; eval="
+        f"{json.dumps(ev)} ({calls['policy_queries']} recurrent policy "
+        f"queries); summary={json.dumps(out)}; {wall:.2f} s")
+    check(out["actor_errors"] == [] and out["loop_errors"] == [],
+          f"actor_errors {out['actor_errors']}, loop_errors "
+          f"{out['loop_errors']}")
+    check(not left, f"driver threads still running after the run: {left}")
+    check(out["grad_steps"] > 0 and math.isfinite(loss),
+          f"grad_steps {out['grad_steps']}, last loss {loss}")
+    check(out["grad_steps"] == k * calls["macro"] + calls["singles"],
+          f"grad_steps {out['grad_steps']} != the train_many calls' "
+          f"{calls['macro']} macro-steps + {calls['singles']} singles")
+    want = calls["macro"] + calls["singles"]
+    check(launches["gather_rows"] == want,
+          f"gather_rows launched {launches['gather_rows']} times, expected "
+          f"{want} (1 per draw: {calls['macro']} macro-steps, "
+          f"{calls['singles']} singles)")
+    check(calls["publications"] >= 1, "no param publication reached the "
+          "inference server")
+    check(ev.get("episodes", 0) > 0 and calls["policy_queries"] > 0,
+          f"the final eval did not run the recurrent policy: {ev}, "
+          f"{calls['policy_queries']} queries")
+
+    # the first shipped sequence, read back from replay slot 0
+    check(first and "seq_frames" in first[0], "no sequence shipped")
+    seq = first.pop()
+    frames = seq["seq_frames"][0]
+    got = storage["seq_frames"][0, :frames.size].reshape(frames.shape)
+    check(torch.equal(got.cpu(), torch.from_numpy(frames)),
+          "replay slot 0 frames != the shipped sequence")
+    for key in ("actions", "rewards", "terminals", "mask", "init_c",
+                "init_h"):
+        check(torch.equal(storage[key][0].cpu(),
+                          torch.from_numpy(seq[key][0])),
+              f"replay slot 0 {key} != the shipped sequence")
+    log("r2d2: the first shipped sequence read back from replay slot 0 "
+        "bitwise (single frames and fields)")
+    # the learner alone on the run's replay (outside the counted run):
+    # host clock over R2D2_ALONE macro-steps after one warm-up, then the
+    # profiler's device busy share and launches per macro-step
+    learner, state = driver.learner, driver.state
+    state, _ = learner.train_step_k(state, k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(R2D2_ALONE):
+        state, _ = learner.train_step_k(state, k)
+    torch.cuda.synchronize()
+    alone = R2D2_ALONE * k / (time.perf_counter() - t0)
+    log(f"r2d2: the learner alone after the run: grad-steps/s={alone:.2f} "
+        f"(host clock over {R2D2_ALONE} train_step_k after 1 warm-up)")
+    log(profile_macro_steps(learner, state, k, PROFILE_STEPS))
+    del driver, storage, got, seq, learner, state
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def phase_pong_single_process(seed: int) -> dict:
     """The pong preset through the CLI with the double-buffered sampler,
     at full width over a 2^20-slot flat prioritized replay. sample_k and
@@ -749,7 +982,7 @@ def main() -> int:
     build_s = fg.build()
     log(f"build: frame_gather.cu with nvcc for sm_90a in {build_s:.2f} s")
 
-    # 3. kernel vs plain at both call sites' shapes (three sites)
+    # 3. kernel vs plain at every call site's shape (four sites)
     sites = phase_kernel(dev, args.seed)
     # 4. small reference: card vs cpu
     t0 = time.perf_counter()
@@ -761,16 +994,21 @@ def main() -> int:
     log(f"main: {time.perf_counter() - t0:.2f} s")
     # 6. the Ape-X driver through the default CLI mode
     apex = phase_apex(args.seed)
-    # 7. the single-process trainer learns cartpole on the card
+    # 7. the R2D2 preset through the same driver
+    t0 = time.perf_counter()
+    r2d2 = phase_r2d2(args.seed)
+    log(f"r2d2: {time.perf_counter() - t0:.2f} s")
+    # 8. the single-process trainer learns cartpole on the card
     phase_cartpole()
-    # 8. the single-process trainer at the pong preset's full size
+    # 9. the single-process trainer at the pong preset's full size
     flat = phase_pong_single_process(args.seed)
 
     # one entry per kernel; its top-level numbers are the flat replay's
-    # call site at its real size (flat_full), `sites` has all three
+    # call site at its real size (flat_full), `sites` has all four
     sites[0]["launches"] = ring["gather_rows"]
     sites[0]["apex_launches"] = apex["gather_rows"]
     sites[1]["launches"] = sites[2]["launches"] = flat["gather_rows"]
+    sites[3]["launches"] = r2d2["gather_rows"]
     for site in sites:
         check(site["launches"] > 0, f"gather_rows never launched on the "
               f"{site['site']} path")
@@ -783,6 +1021,7 @@ def main() -> int:
             "launches": top["launches"],
             "launches_by_path": {"main": ring["gather_rows"],
                                  "apex": apex["gather_rows"],
+                                 "r2d2": r2d2["gather_rows"],
                                  "pong-sp": flat["gather_rows"]},
             "max_abs_err": max(s_["max_abs_err"] for s_ in sites),
             "ms": top["ms"], "plain_ms": top["plain_ms"],

@@ -216,8 +216,7 @@ def test_driver_refuses_what_is_not_ported():
                 mode="observe")), 19),
             (base.replace(serving=type(base.serving)(multi_tenant=True)),
              16),
-            (get_config("r2d2").replace(
-                parallel=ParallelConfig(dp=1, tp=1)), 12)):
+            (get_config("apex_dpg"), 13)):
         with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
             ApexDriver(cfg, device="cpu")
 

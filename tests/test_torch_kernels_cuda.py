@@ -40,6 +40,11 @@ CASES = {
     "over_4gb": (600_000, (7168,), 1000, 0, True),
     # a base pointer 16-byte aligned but not 128-byte aligned
     "base_16": (2048, (28288,), 1000, 16, False),
+    # the r2d2 preset's packed single-frame sequences (83 x 84 x 84,
+    # padded to 585,728 B: 82 chunks a row), one K=4 x B=64 draw, and
+    # the same draw from the top of a 4.8 GB source
+    "sequence": (1024, (585728,), 256, 0, False),
+    "sequence_top": (8192, (585728,), 256, 0, True),
     # the byte path: 36-byte rows, and a base pointer off 16 bytes
     "bytes_36": (8, (6, 6), 1000, 0, False),
     "base_1": (1024, (7168,), 1000, 1, False),
