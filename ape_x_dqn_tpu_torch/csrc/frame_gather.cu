@@ -53,10 +53,15 @@
 // Built with nvcc into a shared library with a plain C interface and
 // loaded through ctypes (ape_x_dqn_tpu_torch/ops/frame_gather.py). The
 // launch goes onto the caller's stream and reports its error to the
-// caller.
+// caller. The launch geometry (the shared-memory opt-in, the SM count
+// and the occupancy) is queried once per device, kernel and ring size
+// and cached, so a launch makes no CUDA runtime query: it costs the
+// same host time inside a CUDA graph capture as outside one.
 
 #include <cuda_runtime.h>
 #include <stdint.h>
+
+#include <mutex>
 
 namespace {
 
@@ -221,15 +226,33 @@ void chunk_plan(int64_t row_bytes, int64_t* chunk, int64_t* chunks) {
 // ring each: the SM count times the blocks an SM's shared memory
 // allows. Above 48 KB a kernel needs an opt-in; it is always set to the
 // largest ring, so no row size lowers the limit another launches with.
-cudaError_t resident_blocks(const void* kernel, size_t smem,
+// Queried on the first launch of each (device, kernel, ring size) and
+// cached (a few entries: two index types times the row sizes in use).
+struct Geometry {
+  int dev;
+  const void* kernel;
+  size_t smem;
+  int64_t blocks;
+};
+constexpr int kGeometrySlots = 64;
+Geometry g_geometry[kGeometrySlots];
+int g_geometry_used = 0;
+std::mutex g_geometry_mu;
+
+cudaError_t resident_blocks(int dev, const void* kernel, size_t smem,
                             int64_t* blocks) {
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess) {
-    err = cudaFuncSetAttribute(kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               kStages * kMaxChunk);
+  std::lock_guard<std::mutex> lock(g_geometry_mu);
+  for (int i = 0; i < g_geometry_used; ++i) {
+    const Geometry& g = g_geometry[i];
+    if (g.dev == dev && g.kernel == kernel && g.smem == smem) {
+      *blocks = g.blocks;
+      return cudaSuccess;
+    }
   }
+  int sms = 0, per_sm = 0;
+  cudaError_t err = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      kStages * kMaxChunk);
   if (err == cudaSuccess) {
     err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
   }
@@ -239,11 +262,14 @@ cudaError_t resident_blocks(const void* kernel, size_t smem,
   }
   if (err == cudaSuccess && per_sm < 1) err = cudaErrorInvalidConfiguration;
   *blocks = static_cast<int64_t>(sms) * per_sm;
+  if (err == cudaSuccess && g_geometry_used < kGeometrySlots) {
+    g_geometry[g_geometry_used++] = {dev, kernel, smem, *blocks};
+  }
   return err;
 }
 
 template <typename Idx>
-cudaError_t launch_bulk(const void* src, const void* idx, void* out,
+cudaError_t launch_bulk(int dev, const void* src, const void* idx, void* out,
                         int64_t n_rows, int64_t m, int64_t row_bytes,
                         cudaStream_t stream) {
   int64_t chunk = 0, chunks = 0;
@@ -252,7 +278,7 @@ cudaError_t launch_bulk(const void* src, const void* idx, void* out,
   const size_t smem = static_cast<size_t>(kStages * chunk);
   const void* kernel = reinterpret_cast<const void*>(&gather_rows_bulk<Idx>);
   int64_t blocks = 0;
-  const cudaError_t err = resident_blocks(kernel, smem, &blocks);
+  const cudaError_t err = resident_blocks(dev, kernel, smem, &blocks);
   if (err != cudaSuccess) return err;
   const unsigned int grid =
       static_cast<unsigned int>(units < blocks ? units : blocks);
@@ -263,7 +289,7 @@ cudaError_t launch_bulk(const void* src, const void* idx, void* out,
 }
 
 template <typename Idx>
-cudaError_t launch(const void* src, const void* idx, void* out,
+cudaError_t launch(int dev, const void* src, const void* idx, void* out,
                    int64_t n_rows, int64_t m, int64_t row_bytes,
                    cudaStream_t stream) {
   const bool vec = row_bytes % 16 == 0 &&
@@ -276,21 +302,24 @@ cudaError_t launch(const void* src, const void* idx, void* out,
         static_cast<uint8_t*>(out), n_rows, row_bytes);
     return cudaGetLastError();
   }
-  return launch_bulk<Idx>(src, idx, out, n_rows, m, row_bytes, stream);
+  return launch_bulk<Idx>(dev, src, idx, out, n_rows, m, row_bytes,
+                          stream);
 }
 
 }  // namespace
 
-// src [n_rows, row_bytes] bytes, idx [m] int32 (idx_is_64 = 0) or int64
-// (idx_is_64 = 1), out [m, row_bytes] bytes. m must be in
-// [1, 2^31 - 1] and n_rows >= 1 (the wrapper checks both). Returns a
-// cudaError_t: a refused launch is reported to the caller.
-extern "C" int gather_rows_launch(const void* src, const void* idx,
+// On device `dev` (the current device, whose stream `stream` is): src
+// [n_rows, row_bytes] bytes, idx [m] int32 (idx_is_64 = 0) or int64
+// (idx_is_64 = 1), out [m, row_bytes] bytes. m must be in [1, 2^31 - 1]
+// and n_rows >= 1 (the wrapper checks both). Returns a cudaError_t: a
+// refused launch is reported to the caller.
+extern "C" int gather_rows_launch(int dev, const void* src, const void* idx,
                                   int idx_is_64, void* out, int64_t n_rows,
                                   int64_t m, int64_t row_bytes,
                                   void* stream) {
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   return static_cast<int>(
-      idx_is_64 ? launch<int64_t>(src, idx, out, n_rows, m, row_bytes, s)
-                : launch<int32_t>(src, idx, out, n_rows, m, row_bytes, s));
+      idx_is_64
+          ? launch<int64_t>(dev, src, idx, out, n_rows, m, row_bytes, s)
+          : launch<int32_t>(dev, src, idx, out, n_rows, m, row_bytes, s));
 }

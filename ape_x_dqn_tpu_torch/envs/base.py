@@ -3,9 +3,9 @@
 Counterpart of ``ape_x_dqn_tpu/envs/base.py``: a host-side (numpy)
 environment API for the trainer's acting loop. The environments are
 native implementations (CartPole physics, a synthetic ALE-compatible
-game), with the real ALE behind an import, exactly as in the JAX
-package; their steps are bitwise equal to the originals'
-(tests/test_torch_envs.py).
+game, a pendulum swing-up), with the real ALE and dm_control behind an
+import, exactly as in the JAX package; their steps are bitwise equal to
+the originals' (tests/test_torch_envs.py, tests/test_torch_dpg_env.py).
 """
 
 from __future__ import annotations
@@ -52,8 +52,7 @@ class Env(abc.ABC):
 
 
 def make_env(cfg, seed: int = 0, actor_index: int = 0) -> Env:
-    """Factory from an EnvConfig (ape_x_dqn_tpu_torch.configs.EnvConfig).
-    The continuous-control kind waits for the DPG slice."""
+    """Factory from an EnvConfig (ape_x_dqn_tpu_torch.configs.EnvConfig)."""
     from ape_x_dqn_tpu_torch.envs import atari, cartpole
 
     kind = cfg.kind
@@ -64,7 +63,6 @@ def make_env(cfg, seed: int = 0, actor_index: int = 0) -> Env:
     if kind in ("atari", "synthetic_atari"):
         return atari.make_atari(cfg, seed=seed, actor_index=actor_index)
     if kind == "control":
-        raise NotImplementedError(
-            "env kind 'control' (the DM Control stand-ins) is not ported "
-            "yet: it waits for the DPG slice (ROADMAP Queue A item 13)")
+        from ape_x_dqn_tpu_torch.envs import control
+        return control.make_control(cfg, seed=seed)
     raise ValueError(f"unknown env kind {kind!r}")

@@ -3,21 +3,23 @@
 import math
 
 from ape_x_dqn_tpu_torch.models.base import (
-    hard_update, init_params, param_count, preprocess_obs)
+    hard_update, init_params, param_count, preprocess_obs, soft_update)
+from ape_x_dqn_tpu_torch.models.dpg import DPGActor, DPGCritic
 from ape_x_dqn_tpu_torch.models.lstm_q import ApeXLSTMQNet, LSTMState
 from ape_x_dqn_tpu_torch.models.qnets import DuelingHead, MLPQNet, NatureDQN
 
-__all__ = ["ApeXLSTMQNet", "DuelingHead", "LSTMState", "MLPQNet",
-           "NatureDQN", "build_network", "hard_update", "init_params",
-           "param_count", "preprocess_obs"]
+__all__ = ["ApeXLSTMQNet", "DPGActor", "DPGCritic", "DuelingHead",
+           "LSTMState", "MLPQNet", "NatureDQN", "build_network",
+           "hard_update", "init_params", "param_count", "preprocess_obs",
+           "soft_update"]
 
 
 def build_network(net_cfg, spec):
-    """Build the module matching a NetworkConfig for an EnvSpec (the
-    ``mlp``, ``nature_cnn`` and ``lstm_q`` kinds; ``dpg`` waits for its
-    slice). Parameters are float32 on the CPU with torch's default
-    init: move the module and draw seeded weights with ``init_params``
-    or load converted ones."""
+    """Build the module matching a NetworkConfig for an EnvSpec; for
+    kind ``dpg`` the pair (actor, critic), as the original returns.
+    Parameters are float32 on the CPU with torch's default init: move
+    the module and draw seeded weights with ``init_params`` or load
+    converted ones."""
     if net_cfg.kind == "mlp":
         return MLPQNet(in_features=math.prod(spec.obs_shape),
                        num_actions=spec.num_actions,
@@ -41,6 +43,15 @@ def build_network(net_cfg, spec):
                             dueling=net_cfg.dueling,
                             compute_dtype=net_cfg.compute_dtype,
                             mlp_torso=len(spec.obs_shape) == 1)
-    raise ValueError(
-        f"network kind {net_cfg.kind!r} is not ported to the PyTorch "
-        f"package yet (ported: 'mlp', 'nature_cnn', 'lstm_q')")
+    if net_cfg.kind == "dpg":
+        obs_dim = math.prod(spec.obs_shape)
+        actor = DPGActor(obs_dim, spec.action_dim,
+                         action_low=spec.action_low,
+                         action_high=spec.action_high,
+                         hidden=tuple(net_cfg.dpg_hidden),
+                         compute_dtype=net_cfg.compute_dtype)
+        critic = DPGCritic(obs_dim, spec.action_dim,
+                           hidden=tuple(net_cfg.dpg_hidden),
+                           compute_dtype=net_cfg.compute_dtype)
+        return actor, critic
+    raise ValueError(f"unknown network kind {net_cfg.kind!r}")

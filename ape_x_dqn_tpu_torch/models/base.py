@@ -24,11 +24,13 @@ def preprocess_obs(obs: torch.Tensor, compute_dtype: torch.dtype
                    ) -> torch.Tensor:
     """uint8 image obs -> scaled float in compute dtype; float obs -> cast.
 
-    Scaling to [0,1] happens on the device so replay stores uint8.
+    Scaling to [0,1] happens on the device so replay stores uint8. The
+    divisor is made by a fill on the device, not copied from the host,
+    so a captured CUDA graph can replay this.
     """
     if obs.dtype == torch.uint8:
-        return obs.to(compute_dtype) / torch.tensor(
-            255.0, dtype=compute_dtype, device=obs.device)
+        return obs.to(compute_dtype) / torch.full(
+            (), 255.0, dtype=compute_dtype, device=obs.device)
     return obs.to(compute_dtype)
 
 
@@ -66,12 +68,28 @@ def init_params(module: nn.Module, generator: torch.Generator) -> nn.Module:
     return module
 
 
-def hard_update(target: nn.Module, online: nn.Module) -> nn.Module:
+def hard_update(target: nn.Module, online: nn.Module,
+                where: torch.Tensor | None = None) -> nn.Module:
     """Target-network hard sync (every K learner steps). In place on
-    `target`'s parameters; returns `target`."""
+    `target`'s parameters; returns `target`. `where`, a 0-dim bool
+    tensor, makes it a masked copy that keeps the target unless it is
+    true: the decision stays on the device, so a captured CUDA graph
+    can replay it."""
     with torch.no_grad():
         for t, p in zip(target.parameters(), online.parameters()):
-            t.copy_(p)
+            t.copy_(p if where is None else torch.where(where, p, t))
+    return target
+
+
+def soft_update(target: nn.Module, online: nn.Module,
+                tau: float) -> nn.Module:
+    """Polyak averaging for the DPG target nets, t <- t + tau (p - t),
+    in place on `target`'s parameters (``lerp_``; the original computes
+    (1 - tau) t + tau p, the same up to float32 rounding); returns
+    `target`."""
+    with torch.no_grad():
+        for t, p in zip(target.parameters(), online.parameters()):
+            t.lerp_(p, tau)
     return target
 
 

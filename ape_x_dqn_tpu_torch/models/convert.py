@@ -2,7 +2,9 @@
 
 `from_flax` takes the tree as nested dicts of numpy arrays (so nothing
 here touches a JAX array) and returns the ``state_dict`` of the matching
-``models/qnets.py`` or ``models/lstm_q.py`` module:
+``models/qnets.py``, ``models/lstm_q.py`` or ``models/dpg.py`` module
+(the DPG actor and critic are MLPs of ``Dense_{i}`` layers, converted
+like ``MLPQNet``):
 - a Conv kernel goes from HWIO to OIHW;
 - a Dense kernel ``[in, out]`` becomes a Linear weight ``[out, in]``;
 - biases carry over as they are;
@@ -92,9 +94,9 @@ def _lstm_q(sd: dict, p: dict) -> None:
 
 
 def from_flax(params: Any) -> dict[str, torch.Tensor]:
-    """Flax params of ``NatureDQN``, ``MLPQNet`` or ``ApeXLSTMQNet``
-    (with or without the top-level "params" collection) -> state_dict
-    for the same net."""
+    """Flax params of ``NatureDQN``, ``MLPQNet``, ``ApeXLSTMQNet``,
+    ``DPGActor`` or ``DPGCritic`` (with or without the top-level
+    "params" collection) -> state_dict for the same net."""
     p = params.get("params", params)
     sd: dict[str, torch.Tensor] = {}
     if "lstm" in p:

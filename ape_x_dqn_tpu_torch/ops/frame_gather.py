@@ -15,7 +15,11 @@ stacks through it (replay/frame_ring.py ``_gather``).
 - On CPU tensors, and only there, it runs `gather_rows_reference`.
 
 `gather_rows.launches` counts kernel launches (and nothing else), so a
-run can show that its main path went through the kernel.
+run can show that its main path went through the kernel. A call made
+while its stream is capturing a CUDA graph launches nothing: it counts
+in `gather_rows.captured` instead, and whoever replays the graph adds
+the launches it carries to `gather_rows.launches` at each replay
+(runtime/step_graph.py).
 
 Bound: pure memory traffic, ``M * row_bytes`` read plus as much written;
 see the note in the CUDA source.
@@ -84,9 +88,9 @@ def build() -> float:
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
     fn = lib.gather_rows_launch
-    fn.argtypes = [ctypes.c_void_p, ctypes.c_void_p, ctypes.c_int,
-                   ctypes.c_void_p, ctypes.c_int64, ctypes.c_int64,
-                   ctypes.c_int64, ctypes.c_void_p]
+    fn.argtypes = [ctypes.c_int, ctypes.c_void_p, ctypes.c_void_p,
+                   ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
+                   ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
     _lib = lib
     return time.perf_counter() - t0
@@ -120,16 +124,22 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         return out
     row_bytes = src[0].numel() * src.element_size()
     build()
-    with torch.cuda.device(src.device):
+    dev = src.device.index
+    with torch.cuda.device(dev):
         rc = _lib.gather_rows_launch(
-            src.data_ptr(), idx.data_ptr(), int(idx.dtype == torch.int64),
-            out.data_ptr(), src.shape[0], m, row_bytes,
-            torch.cuda.current_stream(src.device).cuda_stream)
+            dev, src.data_ptr(), idx.data_ptr(),
+            int(idx.dtype == torch.int64), out.data_ptr(), src.shape[0], m,
+            row_bytes, torch.cuda.current_stream(dev).cuda_stream)
+        capturing = torch.cuda.is_current_stream_capturing()
     if rc != 0:
         raise RuntimeError(f"gather_rows kernel launch failed: CUDA error "
                            f"{rc}")
-    gather_rows.launches += 1
+    if capturing:
+        gather_rows.captured += 1
+    else:
+        gather_rows.launches += 1
     return out
 
 
-gather_rows.launches = 0
+gather_rows.launches = 0   # kernel launches, graph replays included
+gather_rows.captured = 0   # launches recorded into CUDA graphs

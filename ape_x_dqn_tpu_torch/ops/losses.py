@@ -1,9 +1,10 @@
-"""The n-step double-DQN Huber loss with importance-sampling weights.
+"""The learner losses, with importance-sampling weights.
 
-Counterpart of the DQN and R2D2 parts of ``ape_x_dqn_tpu/ops/losses.py``
-(the DPG losses wait for their slice). Each loss returns (scalar_loss,
-aux) where aux carries the |TD| priorities the learner writes back into
-the sum-tree and the learning-health scalars.
+Counterpart of ``ape_x_dqn_tpu/ops/losses.py``: the n-step double-DQN
+Huber loss, the R2D2 sequence loss and the Ape-X DPG critic and policy
+losses. Each loss returns (scalar_loss, aux) where aux carries the |TD|
+priorities the learner writes back into the sum-tree (the critic's, for
+DPG) and the learning-health scalars.
 """
 
 from __future__ import annotations
@@ -223,3 +224,53 @@ def make_r2d2_loss(burn_in: int, n_step: int, gamma: float,
         return loss, aux
 
     return loss_fn
+
+
+# ---------------------------------------------------------------------------
+# Ape-X DPG losses
+
+
+class ContinuousBatch(NamedTuple):
+    obs: torch.Tensor        # [B, D]
+    actions: torch.Tensor    # [B, A] f32
+    rewards: torch.Tensor    # [B] f32 (n-step return)
+    next_obs: torch.Tensor   # [B, D]
+    discounts: torch.Tensor  # [B] f32
+
+
+def make_dpg_losses() -> tuple[Callable, Callable]:
+    """Build (critic_loss, policy_loss) for Ape-X DPG.
+
+    critic_loss(critic, target_critic, target_actor, batch, is_weights)
+    -> (loss, aux): the IS-weighted half squared TD error of Q(s, a)
+    against r + discount * Q'(s', mu'(s')); the target networks run
+    without autograd (the original stops the target's gradient).
+    policy_loss(actor, critic, batch) -> (loss, aux): -mean Q(s, mu(s)),
+    whose gradient the caller takes with respect to the actor's
+    parameters only."""
+
+    def critic_loss(critic: nn.Module, target_critic: nn.Module,
+                    target_actor: nn.Module, batch: ContinuousBatch,
+                    is_weights: torch.Tensor):
+        with torch.no_grad():
+            a_next = target_actor(batch.next_obs)
+            q_next = target_critic(batch.next_obs, a_next)
+            target = batch.rewards + batch.discounts * q_next
+        q = critic(batch.obs, batch.actions)
+        td = q - target
+        loss = torch.mean(is_weights * 0.5 * td ** 2)
+        td_d, q_d = td.detach(), q.detach()
+        # q_gap here is critic-vs-bootstrap bias (it equals td_mean by
+        # construction: there is no separate online-max estimate)
+        return loss, {"td_abs": td_d.abs(), "q_mean": q_d.mean(),
+                      "td_mean": td_d.mean(), "q_max": q_d.max(),
+                      "target_q_mean": target.mean(),
+                      "q_gap": (q_d - target).mean()}
+
+    def policy_loss(actor: nn.Module, critic: nn.Module,
+                    batch: ContinuousBatch):
+        a = actor(batch.obs)
+        q = critic(batch.obs, a)
+        return -torch.mean(q), {"a_abs_mean": a.detach().abs().mean()}
+
+    return critic_loss, policy_loss

@@ -13,7 +13,9 @@ two so the descent depth is fixed.
   (not delta accumulation) makes duplicate indices in one batch
   harmless for the parents.
 - `sample` is a vectorized stratified prefix-sum descent of
-  log2(capacity) batched gathers.
+  log2(capacity) batched gathers. It reads nothing from the host when
+  `size` is a device tensor and `noise` is given, so a captured CUDA
+  graph can replay it (runtime/step_graph.py).
 """
 
 from __future__ import annotations
@@ -46,7 +48,8 @@ def update(tree: torch.Tensor, leaf_idx: torch.Tensor,
     return tree
 
 
-def sample(tree: torch.Tensor, batch: int, size: int | None = None,
+def sample(tree: torch.Tensor, batch: int,
+           size: int | torch.Tensor | None = None,
            noise: torch.Tensor | None = None,
            generator: torch.Generator | None = None
            ) -> tuple[torch.Tensor, torch.Tensor]:
@@ -60,9 +63,11 @@ def sample(tree: torch.Tensor, batch: int, size: int | None = None,
     test feeds the JAX package's ``jax.random.uniform(key, (batch,))``
     here. Without it the noise is drawn from `generator`.
 
-    `size` (number of live leaves) clamps the descent's landing spot
-    into the filled region, and probs are re-gathered at the clamped
-    leaf so IS weights always describe the leaf actually returned.
+    `size` (number of live leaves: a host int, or a 0-dim device
+    tensor such as ``ReplayState.size_dev``) clamps the descent's
+    landing spot into the filled region, and probs are re-gathered at
+    the clamped leaf so IS weights always describe the leaf actually
+    returned.
     """
     cap = capacity_of(tree)
     depth = cap.bit_length() - 1
@@ -79,6 +84,7 @@ def sample(tree: torch.Tensor, batch: int, size: int | None = None,
         idx = 2 * idx + go_right.long()
     leaf = idx - cap
     if size is not None:
-        leaf = torch.clamp(leaf, max=max(int(size), 1) - 1)
+        size = torch.as_tensor(size, device=tree.device)
+        leaf = torch.minimum(leaf, torch.clamp(size, min=1) - 1)
     probs = tree[cap + leaf] / torch.clamp(tot, min=1e-12)
     return leaf, probs

@@ -291,8 +291,9 @@ class FrameRingReplay(PrioritizedReplay):
                      generator: torch.Generator | None = None
                      ) -> tuple[Any, torch.Tensor, torch.Tensor]:
         """-> (flat transition batch, leaf indices [B], probs [B])."""
-        idx, probs = sum_tree.sample(state.tree, batch, size=state.size,
-                                     noise=noise, generator=generator)
+        idx, probs = sum_tree.sample(state.tree, batch,
+                                     size=state.size_dev, noise=noise,
+                                     generator=generator)
         return self._gather(state, idx), idx, probs
 
     def update_priorities(self, state: ReplayState, idx: torch.Tensor,
@@ -311,9 +312,10 @@ class FrameRingReplay(PrioritizedReplay):
         """[B] f32: 1 on live transitions, 0 on dead pad slots."""
         return (state.storage["next_off"][idx] > 0).to(torch.float32)
 
-    def cursor_transitions(self, state: ReplayState) -> int:
-        """Write cursor in transition units (`pos` counts segments)."""
-        return state.pos * self.B
+    def cursor_transitions(self, state: ReplayState) -> torch.Tensor:
+        """Write cursor in transition units (`pos` counts segments; 0-dim,
+        on the device)."""
+        return state.pos_dev * self.B
 
     def live_transitions(self, state: ReplayState) -> torch.Tensor:
         """Count of live (non-pad) transition slots."""

@@ -3,9 +3,13 @@
 Counterpart of ``ape_x_dqn_tpu/replay/prioritized.py``. Storage and the
 sum-tree live on the device; the write cursor `pos` and the filled count
 `size` are host Python ints, advanced only by host calls, so reading
-them costs no device sync. Unlike the JAX version, which returns new
-state, `add` and the priority updates write the state IN PLACE and
-return it.
+them costs no device sync. Each has a 0-dim device mirror (`pos_dev`,
+`size_dev`) that every assignment refreshes with an in-place `fill_`
+(no sync): the sampling half reads only the mirrors, so a captured CUDA
+graph sees the replay as it is when the graph replays, not as it was
+when the graph was captured. Unlike the JAX version, which returns new
+state, `add` and the priority updates write the state IN PLACE, never
+reallocating storage or tree, and return it.
 
 Conventions (Schaul et al. 2016; Horgan et al. 2018):
 - stored priority = (|td| + eps)^alpha  (alpha applied at write time)
@@ -22,7 +26,6 @@ the same flat storage.
 
 from __future__ import annotations
 
-from dataclasses import dataclass
 from typing import Any
 
 import torch
@@ -36,12 +39,40 @@ from ape_x_dqn_tpu_torch.replay.packing import (PixelPacker, dus_rows,
 from ape_x_dqn_tpu_torch.utils.misc import resolve_device
 
 
-@dataclass
 class ReplayState:
-    storage: dict[str, torch.Tensor]  # per-slot tensors
-    tree: torch.Tensor                # (2*capacity,) sum-tree of p^alpha
-    pos: int                          # next write cursor
-    size: int                         # filled slots
+    """storage: per-slot tensors; tree: the (2*capacity,) sum-tree of
+    p^alpha; pos: the next write cursor; size: the filled slots. `pos`
+    and `size` are host ints whose setters also write their 0-dim int64
+    device mirrors `pos_dev` and `size_dev` in place (the tensors keep
+    their addresses for the life of the state)."""
+
+    def __init__(self, storage: dict[str, torch.Tensor],
+                 tree: torch.Tensor, pos: int = 0, size: int = 0):
+        self.storage = storage
+        self.tree = tree
+        self.pos_dev = torch.zeros((), dtype=torch.int64, device=tree.device)
+        self.size_dev = torch.zeros((), dtype=torch.int64,
+                                    device=tree.device)
+        self.pos = pos
+        self.size = size
+
+    @property
+    def pos(self) -> int:
+        return self._pos
+
+    @pos.setter
+    def pos(self, value: int) -> None:
+        self._pos = int(value)
+        self.pos_dev.fill_(self._pos)
+
+    @property
+    def size(self) -> int:
+        return self._size
+
+    @size.setter
+    def size(self, value: int) -> None:
+        self._size = int(value)
+        self.size_dev.fill_(self._size)
 
 
 def ring_cursor(pos: int, size: int, block: int, capacity: int,
@@ -168,14 +199,22 @@ class PrioritizedReplay(_FlatStorage):
         instead (skip-to-head)."""
         return self._write_block(state, items, td_abs)
 
+    def draw(self, state: ReplayState, batch: int,
+             generator: torch.Generator | None = None) -> torch.Tensor:
+        """The stratification noise of one draw ([batch] uniform), from
+        `generator`: the learner draws it before a step, outside any
+        captured graph, and hands it in as `noise`."""
+        return torch.rand(batch, generator=generator, device=self.device)
+
     def sample_items(self, state: ReplayState, batch: int,
                      noise: torch.Tensor | None = None,
                      generator: torch.Generator | None = None
                      ) -> tuple[Any, torch.Tensor, torch.Tensor]:
         """-> (item batch, leaf indices [B], probs [B]), without IS
         weights (the frame ring shares this calling convention)."""
-        idx, probs = sum_tree.sample(state.tree, batch, size=state.size,
-                                     noise=noise, generator=generator)
+        idx, probs = sum_tree.sample(state.tree, batch,
+                                     size=state.size_dev, noise=noise,
+                                     generator=generator)
         return self._gather(state.storage, idx), idx, probs
 
     def sample(self, state: ReplayState, batch: int,
@@ -190,7 +229,7 @@ class PrioritizedReplay(_FlatStorage):
         `generator`: see ops/sum_tree.py `sample`."""
         items, idx, probs = self.sample_items(state, batch, noise,
                                               generator)
-        n = float(max(state.size, 1))
+        n = torch.clamp(state.size_dev, min=1).to(torch.float32)
         w = (n * torch.clamp(probs, min=1e-12)) ** (-self.beta)
         w = w * self.valid_mask(state, idx)
         w = w / torch.clamp(w.max(), min=1e-12)
@@ -216,9 +255,10 @@ class PrioritizedReplay(_FlatStorage):
         """Stored p^alpha at the given leaf indices (any idx shape)."""
         return state.tree[self.capacity + idx]
 
-    def cursor_transitions(self, state: ReplayState) -> int:
-        """Write cursor in TRANSITION (= leaf-index) units."""
-        return state.pos
+    def cursor_transitions(self, state: ReplayState) -> torch.Tensor:
+        """Write cursor in TRANSITION (= leaf-index) units (0-dim, on
+        the device)."""
+        return state.pos_dev
 
     # -- split entry points of the K-batch learner cycle -------------------
 
@@ -267,6 +307,14 @@ class UniformReplayDevice(_FlatStorage):
         state.size = ring_write_size(state.size, start, b, self.capacity)
         return state
 
+    def draw(self, state: ReplayState, batch: int,
+             generator: torch.Generator | None = None) -> torch.Tensor:
+        """The uniform draw of `batch` filled slots from `generator` (on
+        the host's `size`): what the learner hands to `sample` as
+        `idx`, drawn outside any captured graph."""
+        return torch.randint(0, max(state.size, 1), (batch,),
+                             generator=generator, device=self.device)
+
     def sample(self, state: ReplayState, batch: int,
                idx: torch.Tensor | None = None,
                generator: torch.Generator | None = None):
@@ -276,8 +324,7 @@ class UniformReplayDevice(_FlatStorage):
         prioritized layouts give their stratification noise, so the
         learner's fed draws reach it the same way."""
         if idx is None:
-            idx = torch.randint(0, max(state.size, 1), (batch,),
-                                generator=generator, device=self.device)
+            idx = self.draw(state, batch, generator)
         idx = idx.to(self.device)
         return (self._gather(state.storage, idx), idx,
                 torch.ones(batch, dtype=torch.float32, device=self.device))
@@ -291,8 +338,8 @@ class UniformReplayDevice(_FlatStorage):
         return torch.zeros(idx.shape, dtype=torch.float32,
                            device=idx.device)
 
-    def cursor_transitions(self, state: ReplayState) -> int:
-        return state.pos
+    def cursor_transitions(self, state: ReplayState) -> torch.Tensor:
+        return state.pos_dev
 
     # split entry points (see PrioritizedReplay): sampling is uniform
     # and updates are no-ops, so the commuting contract holds trivially

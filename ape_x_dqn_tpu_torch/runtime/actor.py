@@ -18,8 +18,9 @@ Everything here is host numpy, and the generators are seeded exactly as
 the original seeds them (env seed*10007 + i, policy seed*7919 + i), so
 a port actor and a JAX actor fed the same Q-values ship bit-identical
 streams. The recurrent (R2D2) actor, `RecurrentActor`, ships
-stored-state sequences instead; the continuous (DPG) actor waits for
-its slice (ROADMAP Queue A item 13).
+stored-state sequences instead; the continuous (Ape-X DPG) actor,
+`ContinuousActor`, acts with mu(s) plus Gaussian noise and seeds its
+priorities from the critic's Q(s, mu(s)).
 """
 
 from __future__ import annotations
@@ -123,6 +124,38 @@ class DiscretePolicyHooks:
 
     def _action_array(self, ts: list[NStepTransition]) -> np.ndarray:
         return np.asarray([t.action for t in ts], np.int32)
+
+
+class ContinuousPolicyHooks:
+    """Ape-X DPG policy hooks shared by the scalar and vector actors:
+    deterministic mu(s) plus Gaussian exploration noise (Horgan et al.
+    2018, "Ape-X DPG"), with initial priorities seeded from the
+    critic's Q(s, mu(s)). The host class provides self.spec and
+    self.rng, and calls _init_noise(cfg) once self.spec exists."""
+
+    def _init_noise(self, cfg) -> None:
+        self._noise_scale = (cfg.actors.noise_sigma
+                             * (self.spec.action_high
+                                - self.spec.action_low) / 2.0)
+
+    def _select_action(self, out, eps: float):
+        # eps is unused: continuous exploration is additive noise
+        noise = self.rng.normal(0.0, self._noise_scale,
+                                size=self.spec.action_dim)
+        return np.clip(np.asarray(out["a"], np.float32) + noise,
+                       self.spec.action_low,
+                       self.spec.action_high).astype(np.float32)
+
+    def _bootstrap_value(self, out) -> float:
+        return float(out["q"])
+
+    def _taken_value(self, out, action) -> float:
+        # Q(s, mu(s)) stands in for Q(s, a_taken): the noise is small,
+        # and this only seeds the initial priority
+        return float(out["q"])
+
+    def _action_array(self, ts: list[NStepTransition]) -> np.ndarray:
+        return np.stack([np.asarray(t.action, np.float32) for t in ts])
 
 
 def resolve_pending(pending: list[NStepTransition], v_next: float,
@@ -298,6 +331,26 @@ class Actor(DiscretePolicyHooks):
                 self._pending.clear()  # server already down: drop, don't die
         self._ship(force=True)
         return self.frames
+
+
+class ContinuousActor(ContinuousPolicyHooks, Actor):
+    """Ape-X DPG actor: actions are mu(s) + N(0, sigma^2) clipped to the
+    action box, sigma = ActorConfig.noise_sigma times the box's half
+    range. The inference server answers {"a": mu(s), "q": Q(s, mu(s))}
+    in one batched forward, so initial priorities come from the
+    critic's values through the same one-step pending mechanism as the
+    discrete actor's."""
+
+    _ships_frame_segments = False  # DPG obs are low-dimensional
+
+    def __init__(self, cfg, actor_index: int,
+                 query_fn: Callable[[np.ndarray], dict],
+                 transport, seed: int | None = None,
+                 episode_callback: Callable[[int, dict], None] | None = None,
+                 obs: object | None = None):
+        super().__init__(cfg, actor_index, query_fn, transport, seed=seed,
+                         episode_callback=episode_callback, obs=obs)
+        self._init_noise(cfg)
 
 
 class RecurrentActor(Actor):

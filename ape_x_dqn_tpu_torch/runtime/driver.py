@@ -25,23 +25,41 @@ and the train dispatches) and the param copy taken for publication. The
 inference server holds its own param copy and never reads the
 learner's tensors.
 
+Streams (on CUDA): the learner thread and the ingest thread each work on
+a stream of their own, and the server on the default one, so the
+server's forwards run beside the learner's graphs instead of queueing
+behind them. Under `_state_lock` each train dispatch first waits (on the
+device) for the adds ingest has enqueued, and records an event that the
+next add waits for; the learner keeps at most two dispatches in flight
+and waits for its stream before it hands a publication to the server.
+
+On the card the learner replays captured CUDA graphs (runtime/
+step_graph.py), which release the interpreter lock for a whole
+macro-step as the original's jitted learner does, so actors query the
+server freely. An eager learner (the CPU path, or `learner.capture`
+off) issues thousands of torch calls a macro-step, each retaking the
+interpreter lock; for it alone the driver keeps the learner-priority
+gate (`_gated`): actor queries wait while the learner dispatches.
+
 Nothing compiles in the port, so the original's AOT warm-up becomes one
 forward per server bucket (`_warmup`), which changes no learner state.
 What the original builds and the port does not have yet raises, naming
 its ROADMAP Queue A item: the multi-GPU learner (14), the serving tier
 (16), the remediation and operations planes (19), checkpoints and the
-legacy staging path (11), the profiler capture (17) and the DPG
-family (13); the port's config already refuses the cold tier (15).
-The R2D2 family runs here: recurrent actors, stateful {obs, c, h}
-server queries, whole sequences as staging units and the
-`SequenceLearner` (runtime/sequence_learner.py). With observability off (the
-only ported facade) the supervisor has no watchdog to read, as in the
-original with obs off; the HBM fits-check waits for ``utils/hbm.py``
-(item 17).
+legacy staging path (11) and the profiler capture (17); the port's
+config already refuses the cold tier (15). All three families run
+here: flat DQN, R2D2 (recurrent actors, stateful {obs, c, h} server
+queries, whole sequences as staging units and the `SequenceLearner`,
+runtime/sequence_learner.py) and Ape-X DPG (continuous actors, {a, q}
+server replies and the `DPGLearner`, runtime/dpg_learner.py). With
+observability off (the only ported facade) the supervisor has no
+watchdog to read, as in the original with obs off; the HBM fits-check
+waits for ``utils/hbm.py`` (item 17).
 """
 
 from __future__ import annotations
 
+import contextlib
 import logging
 import os
 import threading
@@ -61,6 +79,7 @@ from ape_x_dqn_tpu_torch.runtime.build import build_prioritized_replay
 from ape_x_dqn_tpu_torch.runtime.evaluation import (
     EvalWorker, RollingSuiteScore, eval_game_rotation, final_eval_game,
     make_eval_policy_factory, run_eval_measured)
+from ape_x_dqn_tpu_torch.runtime.dpg_learner import DPGLearner
 from ape_x_dqn_tpu_torch.runtime.family import (
     actor_class, family_of, family_setup, server_apply_fn, warmup_example)
 from ape_x_dqn_tpu_torch.runtime.ingest import IngestStager
@@ -93,8 +112,6 @@ def _refuse_unported(cfg) -> None:
                       "path)", 11))
     if cfg.profile_dir:
         waits.append(("profile_dir (the profiler capture)", 17))
-    if family_of(cfg) == "dpg":
-        waits.append(("the 'dpg' family", 13))
     if waits:
         what, item = waits[0]
         raise NotImplementedError(
@@ -121,7 +138,8 @@ class ApexDriver:
         obs0 = probe_env.reset()
         self.family = family_of(cfg)
         setup = family_setup(cfg, self.spec, self.net, obs0)
-        self.net.to(self.device)
+        for module in (self.net if self.family == "dpg" else (self.net,)):
+            module.to(self.device)
         item_spec = setup.item_spec
         self._frame_mode = setup.frame_mode
         self._item_keys = tuple(item_spec.keys())
@@ -131,15 +149,20 @@ class ApexDriver:
                            self.device, frame_mode=True)
                        if self._frame_mode
                        else build_replay(cfg.replay, self.device))
-        self.learner = (SequenceLearner(self.replay, cfg.learner,
-                                        cfg.replay)
-                        if self.family == "r2d2"
-                        else DQNLearner(self.replay, cfg.learner))
         replay_state = (self.replay.init() if self._frame_mode
                         else self.replay.init(item_spec))
-        self.state = self.learner.init(  # guarded-by: _state_lock
-            self.net, replay_state,
-            component_generator(cfg.seed, "learner", device=self.device))
+        lgen = component_generator(cfg.seed, "learner", device=self.device)
+        if self.family == "dpg":
+            self.learner = DPGLearner(self.replay, cfg.learner)
+            self.state = self.learner.init(  # guarded-by: _state_lock
+                *self.net, replay_state, lgen)
+        else:
+            self.learner = (SequenceLearner(self.replay, cfg.learner,
+                                            cfg.replay)
+                            if self.family == "r2d2"
+                            else DQNLearner(self.replay, cfg.learner))
+            self.state = self.learner.init(  # guarded-by: _state_lock
+                self.net, replay_state, lgen)
         self.capacity = self.replay.capacity
         # the learner updates its tensors in place: the server gets a
         # copy (publish_params clones) and keeps it to itself
@@ -157,10 +180,21 @@ class ApexDriver:
         # bootstrap before the first publish_every boundary
         self.transport.publish_params(server_params, 0)
         self.stop_event = threading.Event()
-        # learner priority: cleared while the learner dispatches, and
-        # every actor query waits on it (see _gated)
+        # learner priority, for an eager learner only: cleared while it
+        # dispatches, and every actor query waits on it (see _gated)
+        self._gate_actors = not self.learner.graphed
         self._actors_may_run = threading.Event()
         self._actors_may_run.set()
+        # the learner's and ingest's own streams (CUDA), the event of the
+        # last train dispatch that the next add waits for (guarded-by:
+        # _state_lock), and the dispatches still in flight (learner
+        # thread only)
+        cuda = self.device.type == "cuda"
+        self._learn_stream = torch.cuda.Stream(self.device) if cuda else None
+        self._ingest_stream = (torch.cuda.Stream(self.device) if cuda
+                               else None)
+        self._learn_done: torch.cuda.Event | None = None
+        self._in_flight: deque = deque()
         self._lock = threading.Lock()
         self._state_lock = threading.Lock()
         self.episode_returns: deque[float] = deque(maxlen=200)  # guarded-by: _lock
@@ -246,8 +280,9 @@ class ApexDriver:
         stop = slot_stop if slot_stop is not None else self.stop_event
         vector = self.cfg.actors.envs_per_actor > 1
         actor_cls = actor_class(self.family, vector=vector)
-        query = self._gated(self.server.query_batch if vector
-                            else self.server.query)
+        query = self.server.query_batch if vector else self.server.query
+        if self._gate_actors:
+            query = self._gated(query)
         self.obs.register(f"actor-{i}")
         try:
             self._actor_attempts(i, actor_cls, query, max_frames,
@@ -261,17 +296,17 @@ class ApexDriver:
                 self.obs.clear(f"actor-{i}")
 
     def _gated(self, query):
-        """An actor's query that first waits while the learner
-        dispatches. The eager learner issues thousands of torch calls a
-        macro-step, and each call drops and retakes the interpreter
-        lock; beside actor threads that keep the lock busy, every
-        retake waits its turn, and a train_many that takes ~0.07 s alone
-        took ~5 s beside 8 vector actors on the card (PERF.md §6),
-        holding _state_lock so long that ingest stalled and the
-        transport dropped most of the experience. Actors therefore
-        pause at their next query while the learner dispatches (at the
-        pong preset's pacing, a few percent of the time) and run freely
-        otherwise."""
+        """An actor's query that first waits while an EAGER learner
+        dispatches (the CPU path, or `learner.capture` off; a learner
+        that replays CUDA graphs needs no gate). The eager learner
+        issues thousands of torch calls a macro-step, and each call
+        drops and retakes the interpreter lock; beside actor threads
+        that keep the lock busy, every retake waits its turn, and a
+        train_many that takes ~0.07 s alone took ~5 s beside 8 vector
+        actors on the card (PERF.md §6), holding _state_lock so long
+        that ingest stalled and the transport dropped most of the
+        experience. Actors therefore pause at their next query while
+        the learner dispatches and run freely otherwise."""
         gate = self._actors_may_run
 
         def gated(*args, **kwargs):
@@ -337,9 +372,20 @@ class ApexDriver:
 
     # -- ingest ------------------------------------------------------------
 
+    def _on_stream(self, stream):
+        """The calling thread's work goes to `stream` (CUDA), and the
+        stream is drained when the thread leaves."""
+        if stream is None:
+            return contextlib.nullcontext()
+        stack = contextlib.ExitStack()
+        stack.callback(stream.synchronize)
+        stack.enter_context(torch.cuda.stream(stream))
+        return stack
+
     def _ingest_loop(self) -> None:
         try:
-            self._ingest_loop_inner()
+            with self._on_stream(self._ingest_stream):
+                self._ingest_loop_inner()
         except Exception as e:
             with self._lock:
                 self.loop_errors.append(("ingest", e))
@@ -403,6 +449,9 @@ class ApexDriver:
             handles.append(ev)
         pris = staged.pop("priorities")
         with self._state_lock:
+            if self._learn_done is not None:
+                # the add writes what the last train dispatch reads
+                self._ingest_stream.wait_event(self._learn_done)
             with self.obs.span("replay.add", units=count):
                 if g > 1:
                     self.state = self.learner.add_many(self.state, staged,
@@ -471,7 +520,8 @@ class ApexDriver:
     def _learner_loop(self, max_grad_steps: int) -> None:
         self.obs.register("learner")
         try:
-            self._learner_loop_inner(max_grad_steps)
+            with self._on_stream(self._learn_stream):
+                self._learner_loop_inner(max_grad_steps)
         except Exception as e:
             with self._lock:
                 self.loop_errors.append(("learner", e))
@@ -484,6 +534,9 @@ class ApexDriver:
         with self._state_lock:
             with self.obs.span("learner.publish_params"):
                 pub = self.learner.publish_params(self.state)
+        if self._learn_stream is not None:
+            # the server reads the copy on its own stream
+            self._learn_stream.synchronize()
         self.server.update_params(pub, self._grad_steps_total)
         self.transport.publish_params(pub, self._grad_steps_total)
 
@@ -511,9 +564,15 @@ class ApexDriver:
             # (a chunk need not divide publish_every)
             done = self._grad_steps_total
             k = chunk if chunk <= max_grad_steps - done else 1
-            self._actors_may_run.clear()  # learner priority (_gated)
+            while len(self._in_flight) >= 2:
+                self._in_flight.popleft().synchronize()
+            if self._gate_actors:
+                self._actors_may_run.clear()  # learner priority (_gated)
             try:
                 with self._state_lock:
+                    if self._learn_stream is not None:
+                        # after the adds ingest has enqueued so far
+                        self._learn_stream.wait_stream(self._ingest_stream)
                     with self.obs.stage_window("train", k):
                         with self.obs.span("learner.train", k=k):
                             if k > 1:
@@ -522,6 +581,10 @@ class ApexDriver:
                             else:
                                 self.state, m = self.learner.train_step(
                                     self.state)
+                    if self._learn_stream is not None:
+                        self._learn_done = torch.cuda.Event()
+                        self._learn_done.record(self._learn_stream)
+                        self._in_flight.append(self._learn_done)
             finally:
                 self._actors_may_run.set()
             self._grad_steps_total += k
@@ -619,6 +682,10 @@ class ApexDriver:
         per_actor = total // max(self.cfg.actors.num_actors, 1)
         log_run_header(self.metrics, self.cfg, self._grad_steps_total)
         self._warmup()
+        if self.device.type == "cuda":
+            # the state was made on the default stream; the learner and
+            # ingest streams do not wait for it on their own
+            torch.cuda.synchronize(self.device)
         ingest = threading.Thread(target=self._ingest_loop, name="ingest",
                                   daemon=True)
         learner = threading.Thread(target=self._learner_loop,

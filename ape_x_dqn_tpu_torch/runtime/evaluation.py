@@ -9,7 +9,7 @@ episodic-life pseudo-terminals, no reward clipping, near-greedy policy.
 
 The standalone suite evaluation (``evaluate_suite``, ``run_suite_eval``,
 the CLI's ``--eval-only``) waits for checkpoints (ROADMAP Queue A item
-11); the continuous eval policy waits for its family (item 13).
+11).
 """
 
 from __future__ import annotations
@@ -33,7 +33,8 @@ class EvalWorker:
                  policy_factory: Callable[[], Callable] | None = None):
         """query_fn(obs) -> q-values [A] (e.g. the inference server's
         .query). policy_factory, when given, builds a fresh per-episode
-        policy (obs -> q-values)."""
+        policy: obs -> q-values for discrete envs, obs -> the action for
+        continuous ones (the deterministic DPG actor)."""
         self.cfg = cfg
         env_cfg = cfg.env
         if game is not None:
@@ -66,6 +67,7 @@ class EvalWorker:
         fired or the wall-clock deadline passed mid-episode."""
         policy = (self.policy_factory() if self.policy_factory is not None
                   else self.query)
+        discrete = self.env.spec.discrete
         obs = self.env.reset()
         ep_return = 0.0
         for _ in range(max(max_frames // self._frames_per_step, 1)):
@@ -73,12 +75,17 @@ class EvalWorker:
                 return None
             if deadline is not None and time.monotonic() > deadline:
                 return None
-            # always query, then eps-explore on top
-            q = policy(obs)
-            if self.rng.random() < self.eps:
-                action = int(self.rng.integers(self.env.spec.num_actions))
+            if not discrete:
+                action = np.asarray(policy(obs))  # deterministic mu(s)
             else:
-                action = int(np.argmax(q))
+                # always query (a recurrent policy advances its state
+                # every step), then eps-explore on top
+                q = policy(obs)
+                if self.rng.random() < self.eps:
+                    action = int(
+                        self.rng.integers(self.env.spec.num_actions))
+                else:
+                    action = int(np.argmax(q))
             obs, reward, done, info = self.env.step(action)
             ep_return += info.get("raw_reward", reward)
             if done:
@@ -190,13 +197,11 @@ def final_eval_game(cfg) -> str | None:
 def make_eval_policy_factory(family: str, lstm_size: int,
                              query_fn: Callable) -> Callable | None:
     """Per-episode eval policy builder per model family. Recurrent
-    policies carry a fresh (c, h) across one episode's queries; plain
-    Q-nets need none (EvalWorker queries directly); the continuous
-    policy waits for its family."""
+    policies carry a fresh (c, h) across one episode's queries;
+    continuous policies return the deterministic action mu(s); plain
+    Q-nets need none (EvalWorker queries directly)."""
     if family == "dpg":
-        raise NotImplementedError(
-            "eval policies of the 'dpg' family are not ported to the "
-            "PyTorch package yet: they wait for ROADMAP Queue A item 13")
+        return lambda: lambda obs: query_fn(obs)["a"]
     if family != "r2d2":
         return None
 

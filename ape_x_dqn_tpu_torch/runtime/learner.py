@@ -1,14 +1,19 @@
 """The learner: sample -> loss -> update -> priority write-back.
 
 Counterpart of ``ape_x_dqn_tpu/runtime/learner.py`` (``SingleChipLearner``
-and ``DQNLearner``). PyTorch runs eagerly, so where the JAX package
-compiles each endpoint into one donated jit, this learner runs the same
-sequence of device operations from the host and updates its state IN
-PLACE: the network and optimizer tensors, the replay storage and the
-sum-tree. The endpoints return the (same) state object for symmetry
-with the JAX calls. The host never waits for the device inside a step:
-cursors and the step count are host ints, and metrics are device
-tensors read by the caller where it already synchronises.
+and ``DQNLearner``). Where the JAX package compiles each endpoint into
+one donated jit, this learner writes each endpoint as one step body that
+updates its state IN PLACE (the network and optimizer tensors, the
+replay storage and the sum-tree) and reads only device values: the
+replay's cursor and fill mirrors and Adam's count, which is also the
+grad-step count that keys the hard target sync, are device tensors, and
+the stratification
+noise is drawn before the body. On the CPU the body runs eagerly; on
+the card `train_step` and `train_step_k` (and so `train_many`) replay it
+as a captured CUDA graph (runtime/step_graph.py). The endpoints return
+the (same) state object for symmetry with the JAX calls; the host step
+count stays a host int, and metrics are device tensors read by the
+caller where it already synchronises.
 
 The K-batch relaxation (LearnerConfig.sample_chunk = K) keeps the JAX
 package's semantics exactly: one stratified K*B draw whose chunk j takes
@@ -16,8 +21,9 @@ the INTERLEAVED strata {j, j+K, j+2K, ...}, per-chunk IS
 renormalisation, K SGD steps, then ONE priority write-back. The
 double-buffered form (LearnerConfig.sample_prefetch) keeps one
 macro-step's sample in flight: `sample_k` draws the NEXT sample from the
-current tree before `learn_k` trains on the pending one. `evict_region`
-and `add_at` wait for the tiers' slice.
+current tree before `learn_k` trains on the pending one; these two run
+eagerly on every device. `evict_region` and `add_at` wait for the tiers'
+slice.
 """
 
 from __future__ import annotations
@@ -27,7 +33,6 @@ import itertools
 from dataclasses import dataclass
 from typing import Any, Iterable
 
-import numpy as np
 import torch
 from torch import nn
 
@@ -36,11 +41,12 @@ from ape_x_dqn_tpu_torch.obs import learning as learn_obs
 from ape_x_dqn_tpu_torch.ops.losses import TransitionBatch, make_dqn_loss
 from ape_x_dqn_tpu_torch.replay.packing import ItemSpec, torch_dtype
 from ape_x_dqn_tpu_torch.replay.prioritized import ReplayState
+from ape_x_dqn_tpu_torch.runtime.step_graph import GraphedEndpoints
 
 
 @dataclass
 class AdamState:
-    count: int                 # host int, like optax's int32 count
+    count: torch.Tensor        # 0-dim int32 on the device, as optax's
     mu: list[torch.Tensor]
     nu: list[torch.Tensor]
 
@@ -52,7 +58,8 @@ class TrainState:
     opt_state: AdamState
     replay: ReplayState
     generator: torch.Generator
-    step: int                  # grad-step counter
+    step: int                  # grad-step counter (host); on the device,
+                               # opt_state.count holds the same count
 
 
 def transition_item_spec(obs_shape, obs_dtype) -> dict[str, ItemSpec]:
@@ -76,7 +83,9 @@ class ClipAdam:
     (``torch.nn.utils.clip_grad_norm_`` adds 1e-6 to the norm, so it is
     not the same function.) Adam: mu = (1-b1) g + b1 mu, nu = (1-b2) g^2
     + b2 nu, update = -lr * (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t))
-    + eps). The moments update IN PLACE."""
+    + eps). The moments and the count update IN PLACE, on the device:
+    the bias corrections are float32 device values, as optax computes
+    them, so a captured graph replays them."""
 
     def __init__(self, max_norm: float, lr: float, eps: float = 1e-8,
                  b1: float = 0.9, b2: float = 0.999):
@@ -87,7 +96,9 @@ class ClipAdam:
         self.b2 = b2
 
     def init(self, params) -> AdamState:
-        return AdamState(count=0,
+        params = list(params)
+        return AdamState(count=torch.zeros((), dtype=torch.int32,
+                                           device=params[0].device),
                          mu=[torch.zeros_like(p) for p in params],
                          nu=[torch.zeros_like(p) for p in params])
 
@@ -97,11 +108,11 @@ class ClipAdam:
         trigger = g_norm < self.max_norm
         grads = [torch.where(trigger, g, (g / g_norm) * self.max_norm)
                  for g in grads]
-        state.count += 1
+        state.count.add_(1)
         # bias corrections in float32, as optax computes decay**count
-        t = np.float32(state.count)
-        bc1 = float(np.float32(1) - np.float32(self.b1) ** t)
-        bc2 = float(np.float32(1) - np.float32(self.b2) ** t)
+        t = state.count.to(torch.float32)
+        bc1 = 1 - self.b1 ** t
+        bc2 = 1 - self.b2 ** t
         updates = []
         for g, mu, nu in zip(grads, state.mu, state.nu):
             mu.mul_(self.b1).add_((1 - self.b1) * g)
@@ -115,11 +126,13 @@ def make_optimizer(lcfg) -> ClipAdam:
     return ClipAdam(lcfg.max_grad_norm, lcfg.lr, eps=lcfg.adam_eps)
 
 
-class SingleChipLearner:
+class SingleChipLearner(GraphedEndpoints):
     """Shared single-device learner machinery: state init, the exact
     per-step path, the K-batch relaxation, train_many, the ingest add
     and param publication. Subclasses define `_sgd_step(state, items,
-    is_w) -> (td_abs, metrics)`, the family-specific piece."""
+    is_w) -> (td_abs, metrics)`, the family-specific piece; it runs
+    inside the step bodies, so it may not read host state that changes
+    between calls or synchronise with the host."""
 
     # -- state ------------------------------------------------------------
 
@@ -140,9 +153,10 @@ class SingleChipLearner:
 
     def _optimize(self, state: TrainState, loss: torch.Tensor):
         """The family-independent half of an SGD step, in place on
-        `state`: the gradients of `loss`, the optimizer update, the step
-        count and the hard target sync every target_sync_every steps (a
-        host branch: the step count lives on the host). -> (grads,
+        `state`: the gradients of `loss`, the optimizer update and the
+        hard target sync every target_sync_every steps, a masked copy
+        keyed on Adam's device count, which counts the grad-steps (the
+        host step count is the endpoints' to advance). -> (grads,
         updates, the params after the update, detached)."""
         params = list(state.net.parameters())
         grads = torch.autograd.grad(loss, params)
@@ -150,21 +164,28 @@ class SingleChipLearner:
         with torch.no_grad():
             for p, u in zip(params, updates):
                 p.add_(u)
-        state.step += 1
-        if state.step % self.lcfg.target_sync_every == 0:
-            hard_update(state.target_net, state.net)
+        every = self.lcfg.target_sync_every
+        hard_update(state.target_net, state.net,
+                    where=state.opt_state.count % every == 0)
         return grads, updates, [p.detach() for p in params]
 
-    def _train_step(self, state: TrainState,
-                    noise: torch.Tensor | None = None):
+    def _step_body(self, state: TrainState, noise: torch.Tensor) -> dict:
+        """The body of one exact grad-step (captured on the card)."""
         items, idx, is_w = self.replay.sample(
-            state.replay, self.lcfg.batch_size, noise, state.generator)
+            state.replay, self.lcfg.batch_size, noise)
         td_abs, metrics = self._sgd_step(state, items, is_w)
         # draw and write-back see the same tree: staleness is 0
         metrics["diag"] = {**metrics["diag"],
                            **learn_obs.replay_health(
                                self.replay, state.replay, idx, None)}
         self.replay.update_priorities(state.replay, idx, td_abs)
+        return metrics
+
+    def _train_step(self, state: TrainState,
+                    noise: torch.Tensor | None = None):
+        noise = self._draw(state, self.lcfg.batch_size, noise)
+        metrics = self._run("step", self._step_body, state, noise)
+        state.step += 1
         return state, metrics
 
     def _sample_stage(self, replay_state: ReplayState, k: int,
@@ -195,9 +216,11 @@ class SingleChipLearner:
                                       min=1e-12)
         return items_k, chunked(idx), is_w_k, chunked(pri)
 
-    def _learn_stage(self, state: TrainState, sample, k: int):
+    def _learn_stage(self, state: TrainState, sample, k: int) -> dict:
         """LEARN stage: K SGD steps over an already-drawn sample + ONE
-        priority write-back (target sync happens inside the steps)."""
+        priority write-back (target sync happens inside the steps).
+        -> the last step's metrics; the host step count is the
+        caller's to advance."""
         b = self.lcfg.batch_size
         items_k, idx_k, is_w_k, pri_k = sample
         td_parts = []
@@ -214,23 +237,32 @@ class SingleChipLearner:
         # td_parts[j] pairs with idx_k[j] (chunk order)
         self.replay.update_state(state.replay, idx_k.reshape(k * b),
                                  torch.cat(td_parts))
-        return state, metrics
+        return metrics
+
+    def _step_body_k(self, state: TrainState, k: int,
+                     noise: torch.Tensor) -> dict:
+        """The body of one K-batch macro-step (captured on the card)."""
+        return self._learn_stage(
+            state, self._sample_stage(state.replay, k, noise), k)
 
     def _train_step_k(self, state: TrainState, k: int,
                       noise: torch.Tensor | None = None):
         """K grad-steps from ONE stratified sample + ONE priority
         write-back (the K-batch relaxation): chunk j+1 trains on
         priorities that predate chunk j's TD errors."""
-        sample = self._sample_stage(state.replay, k, noise,
-                                    state.generator)
-        return self._learn_stage(state, sample, k)
+        noise = self._draw(state, k * self.lcfg.batch_size, noise)
+        metrics = self._run(
+            ("k", k), lambda s, u: self._step_body_k(s, k, u), state, noise)
+        state.step += k
+        return state, metrics
 
     # -- endpoints ------------------------------------------------------------
 
     def train_step(self, state: TrainState,
                    noise: torch.Tensor | None = None):
         """One exact grad-step. `noise` ([batch_size] uniform) replaces
-        the generator's stratification draw (tests feed JAX's)."""
+        the generator's stratification draw (tests feed JAX's). On the
+        card it replays a captured graph (runtime/step_graph.py)."""
         return self._train_step(state, noise)
 
     def train_step_k(self, state: TrainState, k: int,
@@ -255,7 +287,9 @@ class SingleChipLearner:
         earlier by `sample_k`, possibly against a tree that an `add` or
         a write-back has changed since (the accepted one-dispatch
         staleness). It draws nothing."""
-        return self._learn_stage(state, sample, k)
+        metrics = self._learn_stage(state, sample, k)
+        state.step += k
+        return state, metrics
 
     def train_many(self, state: TrainState, n: int,
                    noise: Iterable[torch.Tensor] | None = None):

@@ -15,8 +15,8 @@ query per vector step.
 Each env core owns a distinct slot of the global Horgan eps schedule:
 vector actor i's env j is global slot i*K+j of num_actors*K. Seeds
 follow the original exactly (env seed*10007 + slot, policy
-seed*7919 + i). `RecurrentVectorActor` is the R2D2 variant; the
-continuous one waits for its slice (ROADMAP Queue A item 13).
+seed*7919 + i). `RecurrentVectorActor` is the R2D2 variant and
+`ContinuousVectorActor` the Ape-X DPG one.
 """
 
 from __future__ import annotations
@@ -33,6 +33,7 @@ from ape_x_dqn_tpu_torch.ops.nstep import NStepBuilder, NStepTransition
 from ape_x_dqn_tpu_torch.replay.frame_ring import FrameSegmentBuilder
 from ape_x_dqn_tpu_torch.replay.sequence import SequenceBuilder
 from ape_x_dqn_tpu_torch.runtime.actor import (
+    ContinuousPolicyHooks,
     DiscretePolicyHooks, actor_epsilon, feed_sequence, resolve_pending,
     sequence_builder, sequence_ship_after, ship_flat_outbox,
     ship_sequence_outbox)
@@ -408,3 +409,17 @@ class RecurrentVectorActor:
             self._outbox.extend(core.builder.flush())
         self._ship(force=True)
         return self.frames
+
+
+class ContinuousVectorActor(ContinuousPolicyHooks, VectorActor):
+    """Ape-X DPG vector actor: the shared deterministic-policy hooks
+    (runtime/actor.py ContinuousPolicyHooks) over the vector loop."""
+
+    _ships_frame_segments = False  # DPG obs are low-dimensional
+
+    def __init__(self, cfg, actor_index: int, query_fn, transport,
+                 seed: int | None = None, episode_callback=None,
+                 obs: object | None = None):
+        super().__init__(cfg, actor_index, query_fn, transport, seed=seed,
+                         episode_callback=episode_callback, obs=obs)
+        self._init_noise(cfg)

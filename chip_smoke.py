@@ -23,12 +23,16 @@ non-zero:
              noise: the kernel path agrees with the plain one
 5. main      the `pong` frame-ring learner at full width and full 2^20
              capacity: prefill >= min_fill transitions through add_many,
-             then K=4 macro-steps through train_step_k; kernel launch
-             counts are zeroed just before and read just after; then a
-             torch.profiler pass: device busy share and top kernels.
-             Its 10.3 GB ring is freed before the next phases.
+             then K=4 macro-steps through train_step_k, which replays a
+             captured CUDA graph after one eager warm-up call and one
+             capture (each replay counts the gather launches it
+             carries); kernel launch counts are zeroed just before and
+             read just after; then the learner's rate eager and as a
+             graph, and a torch.profiler pass of each: device busy
+             share, kernels per macro-step and top kernels. Its 10.3 GB
+             ring is freed before the next phases.
 6. apex      `python -m ape_x_dqn_tpu_torch.runtime.train --config pong
-             --total-env-frames 60000 --wall-clock-limit 180`, the
+             --total-env-frames 60000 --wall-clock-limit 120`, the
              default CLI mode: the Ape-X driver with 8 vector actors x 16
              synthetic-Atari envs (native preprocessing), the batched
              inference server on the card, the pinned ingest stager and
@@ -51,8 +55,9 @@ non-zero:
              publications counted; frames/s before and after min_fill;
              the first shipped sequence read back from replay slot 0
              bitwise; the final eval through the recurrent policy; then
-             the learner alone on the run's replay (host clock, and a
-             torch.profiler pass); the driver freed after
+             the learner alone on the run's replay, eager and as a
+             graph (host clock, and a torch.profiler pass of each); the
+             driver freed after
 8. cartpole  `python -m ape_x_dqn_tpu_torch.runtime.train --config
              cartpole_smoke --single-process` for 9,000 frames on the
              card: the repo's quick learning bar (last20 > 60)
@@ -63,7 +68,20 @@ non-zero:
              the double-buffered sampler; launch counts zeroed just
              before and read just after; two gather launches per
              sample_k call; one drawn sample bitwise vs plain
-10. the kernels line, the card line, and the contract's last line.
+10. dpg      `python -m ape_x_dqn_tpu_torch.runtime.train --config
+             apex_dpg --set env.id=pendulum --actors 8 --set
+             replay.min_fill=5000 --total-env-frames 60000
+             --wall-clock-limit 90`: the Ape-X DPG preset at its width
+             (actor and critic MLPs of 300/200, batch 256, a 2^20-slot
+             prioritized replay) through the default CLI mode, on the
+             native pendulum (no dm_control on the card's machine);
+             frames/s before min_fill and in the training window,
+             grad-steps/s in the window, drops, publications, peak
+             memory, the final greedy eval, and the learner replaying
+             its captured one-step graph; then the learner alone on the
+             run's replay, eager and as a graph. There is no pixel leaf,
+             so no gather site.
+11. the kernels line, the card line, and the contract's last line.
 
 It imports torch and the port only: no JAX, nothing of ape_x_dqn_tpu.
 """
@@ -86,14 +104,18 @@ import torch
 
 # H100 SXM published peak memory rate (NVIDIA data sheet), at 700 W
 PEAK_BYTES_PER_S = 3.35e12
-# main path: 2 warm-up + 8 timed train_step_k calls, then macro-steps
-# split into their two stages for CUDA-event stage times, then a
-# torch.profiler pass (after the launch counts are read)
+# main path: 2 warm-up (the eager warm-up and the capture) + 8 timed
+# train_step_k calls, then macro-steps split into their two stages for
+# CUDA-event stage times, then eager and graph rates and a
+# torch.profiler pass of each (after the launch counts are read)
 MACRO_STEPS = 10
 STAGED_STEPS = 3
 PROFILE_STEPS = 3
+RATE_STEPS = 8
 # r2d2: macro-steps of the learner alone after the driver's run
 R2D2_ALONE = 4
+# dpg: grad-steps of the learner alone after the driver's run
+DPG_ALONE = 64
 
 
 def log(msg: str) -> None:
@@ -346,21 +368,50 @@ def phase_reference(dev, seed: int) -> None:
          torch.backends.cudnn.allow_tf32) = tf32
 
 
-def profile_macro_steps(learner, state, k: int, n: int) -> str:
-    """n train_step_k calls under torch.profiler: device busy share
-    (kernel time over wall time) and the kernels that take the most
-    device time. The profiler's own host cost inflates the wall time,
-    so the busy share is a lower bound."""
+def learner_step(learner, state, k: int):
+    """One macro-step (K > 1) or grad-step of the learner alone."""
+    if k > 1:
+        return learner.train_step_k(state, k)
+    return learner.train_step(state)
+
+
+def learner_rate(learner, state, k: int, n: int, capture: bool) -> float:
+    """Grad-steps/s of the learner alone by the host clock over n calls
+    after one untimed call (the eager warm-up, or with `capture` on and
+    no graph yet, the capture), with its graphs (`capture`) or eager."""
+    learner.capture = capture
+    try:
+        state, _ = learner_step(learner, state, k)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for _ in range(n):
+            state, _ = learner_step(learner, state, k)
+        torch.cuda.synchronize()
+        return n * k / (time.perf_counter() - t0)
+    finally:
+        learner.capture = True
+
+
+def profile_macro_steps(learner, state, k: int, n: int,
+                        capture: bool) -> str:
+    """n learner calls (macro-steps, or grad-steps at K=1) under
+    torch.profiler, as captured graphs or eager: device busy share
+    (kernel time over wall time), kernels per call and the kernels that
+    take the most device time. The profiler's own host cost inflates
+    the wall time, so the busy share is a lower bound."""
     from torch.profiler import ProfilerActivity, profile
 
+    learner.capture = capture
+    state, _ = learner_step(learner, state, k)   # not profiled
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
         for _ in range(n):
-            state, _ = learner.train_step_k(state, k)
+            state, _ = learner_step(learner, state, k)
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
+    learner.capture = True
     kern = [e for e in prof.key_averages()
             if e.device_type == torch.autograd.DeviceType.CUDA]
 
@@ -369,17 +420,20 @@ def profile_macro_steps(learner, state, k: int, n: int) -> str:
             or getattr(e, "self_cuda_time_total", 0.0)
 
     busy_us = sum(dev_us(e) for e in kern)
+    form = "graph" if capture else "eager"
+    unit = "macro-step" if k > 1 else "grad-step"
     if not kern or busy_us <= 0:
-        return "profile: no device time in the trace (not measured)"
+        return (f"profile ({form}): no device time in the trace (not "
+                f"measured)")
     top = sorted(kern, key=dev_us, reverse=True)[:12]
     rows = [{"kernel": e.key[:90], "count": e.count / n,
-             "ms_per_macro": round(dev_us(e) / n / 1e3, 4)} for e in top]
-    return (f"profile: {n} macro-steps, wall {wall_us / n / 1e3:.3f} "
-            f"ms/macro-step under the profiler, device busy "
-            f"{busy_us / n / 1e3:.3f} ms/macro-step = "
+             "ms_per_call": round(dev_us(e) / n / 1e3, 4)} for e in top]
+    return (f"profile ({form}): {n} {unit}s, wall "
+            f"{wall_us / n / 1e3:.3f} ms/{unit} under the profiler, "
+            f"device busy {busy_us / n / 1e3:.3f} ms/{unit} = "
             f"{busy_us / wall_us:.3f} of wall, "
-            f"{sum(e.count for e in kern) / n:.0f} kernel launches per "
-            f"macro-step; top by device time: {json.dumps(rows)}")
+            f"{sum(e.count for e in kern) / n:.0f} kernels per {unit}; "
+            f"top by device time: {json.dumps(rows)}")
 
 
 def phase_main(dev, seed: int) -> dict:
@@ -435,10 +489,9 @@ def phase_main(dev, seed: int) -> dict:
     sample_ms, learn_ms = [], []
     for _ in range(STAGED_STEPS):
         ev[0].record()
-        sample = learner._sample_stage(state.replay, k, None,
-                                       state.generator)
+        sample = learner.sample_k(state, k)
         ev[1].record()
-        state, m = learner._learn_stage(state, sample, k)
+        state, m = learner.learn_k(state, sample, k)
         ev[2].record()
         torch.cuda.synchronize()
         sample_ms.append(ev[0].elapsed_time(ev[1]))
@@ -449,7 +502,13 @@ def phase_main(dev, seed: int) -> dict:
 
     loss_vals = [x.item() for x in losses]
     check(all(math.isfinite(x) for x in loss_vals), f"loss {loss_vals}")
+    check(len(set(loss_vals)) > 1, f"every call returned one loss "
+          f"{loss_vals}: replayed metrics must be fresh copies")
     check(root1 != root0, "tree root unchanged by the write-backs")
+    graph = learner.step_graphs()[("k", k)]
+    check(graph.captured and graph.gathers == 2,
+          f"the macro-step graph: captured {graph.captured}, "
+          f"{graph.gathers} gather launches a replay (expected 2)")
     total = MACRO_STEPS + STAGED_STEPS
     want = 2 * total                  # one launch per side per draw
     check(launches["gather_rows"] == want,
@@ -478,21 +537,73 @@ def phase_main(dev, seed: int) -> dict:
         f"K={k}, ring {replay.S * replay.F} rows = {ring_gb:.2f} GB for "
         f"{replay.capacity} transitions; build {build_s:.2f} s, prefill "
         f"{state.replay.size} transitions in {fill_s:.2f} s; "
-        f"{MACRO_STEPS} train_step_k + {STAGED_STEPS} staged macro-steps; "
-        f"grad-steps/s={grad_steps_s:.2f} (host clock over "
-        f"{MACRO_STEPS - warm} macro-steps after {warm} warm-up); "
+        f"{MACRO_STEPS} train_step_k (a warm-up, a capture, then graph "
+        f"replays) + {STAGED_STEPS} staged macro-steps (sample_k, learn_k: "
+        f"eager); grad-steps/s={grad_steps_s:.2f} (host clock over "
+        f"{MACRO_STEPS - warm} graph replays after the warm-up and the "
+        f"capture); "
         f"sample_stage_ms={float(np.median(sample_ms)):.3f} "
         f"learn_stage_ms={float(np.median(learn_ms)):.3f} (CUDA events, "
         f"median of {STAGED_STEPS}); losses={[round(x, 5) for x in loss_vals]}"
         f"; root {root0:.3f} -> {root1:.3f}; launches={launches}; "
         f"peak_mem_gb={torch.cuda.max_memory_allocated() / 1e9:.2f}; "
         f"gathered obs/next_obs bitwise equal to plain; diag={diag}")
-    log(profile_macro_steps(learner, state, k, PROFILE_STEPS))
+    eager = learner_rate(learner, state, k, RATE_STEPS, capture=False)
+    graphed = learner_rate(learner, state, k, RATE_STEPS, capture=True)
+    log(f"main: the pong learner alone, grad-steps/s eager={eager:.2f} "
+        f"graph={graphed:.2f} (host clock over {RATE_STEPS} macro-steps "
+        f"each, after one untimed call; the same learner and replay)")
+    log(profile_macro_steps(learner, state, k, PROFILE_STEPS, False))
+    log(profile_macro_steps(learner, state, k, PROFILE_STEPS, True))
     # free the 10.3 GB ring before the flat replay's 59.3 GB
     del learner, state, replay, sample, frames, got, items
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+def check_graphed(driver, key, gathers: int) -> None:
+    """The driver's learner replayed its captured graph for `key`
+    (carrying `gathers` gather launches a replay) and its actors ran
+    without the learner-priority gate."""
+    graph = driver.learner.step_graphs().get(key)
+    check(driver.learner.graphed and graph is not None and graph.captured,
+          f"the driver's learner did not replay a captured {key} graph")
+    check(graph.gathers == gathers, f"the {key} graph carries "
+          f"{graph.gathers} gather launches, expected {gathers}")
+    check(not driver._gate_actors, "the actors were gated")
+
+
+@contextlib.contextmanager
+def timed_adds():
+    """ApexDriver._ship_staged timed by the host clock around each call
+    (the ingest thread's add: the host-to-device copies, the wait for
+    _state_lock and the add's dispatch). Yields the list of seconds."""
+    from ape_x_dqn_tpu_torch.runtime.driver import ApexDriver
+
+    orig = ApexDriver._ship_staged
+    secs: list[float] = []
+
+    def ship(self, views, g):
+        t0 = time.perf_counter()
+        out = orig(self, views, g)
+        secs.append(time.perf_counter() - t0)
+        return out
+
+    ApexDriver._ship_staged = ship
+    try:
+        yield secs
+    finally:
+        ApexDriver._ship_staged = orig
+
+
+def adds_summary(secs: list[float]) -> str:
+    if not secs:
+        return "adds: none"
+    ms = np.asarray(secs) * 1e3
+    return (f"adds: {len(ms)} calls, host ms median {np.median(ms):.2f} "
+            f"p90 {np.percentile(ms, 90):.2f} max {ms.max():.2f}, "
+            f"{ms.sum() / 1e3:.2f} s in all")
 
 
 def run_cli(argv: list[str]) -> tuple[dict, float]:
@@ -556,7 +667,7 @@ def phase_apex(seed: int) -> dict:
     check(native.available(), "the native frame preprocessing did not "
           "build: the apex phase must run the native path")
     calls = {"publications": 0, "train_many": 0, "macro": 0, "singles": 0,
-             "first_s": None, "last_s": None}
+             "first_s": None, "last_s": None, "dropped_at_first": 0}
     seen: dict = {}
     first_seg: list[dict] = []
     send_lock = threading.Lock()
@@ -570,6 +681,7 @@ def phase_apex(seed: int) -> dict:
     def train_many(self, state, n, noise=None):
         if calls["first_s"] is None:
             calls["first_s"] = time.perf_counter()
+            calls["dropped_at_first"] = seen["driver"].transport.dropped
         out = orig[1](self, state, n, noise)
         calls["last_s"] = time.perf_counter()
         calls["train_many"] += 1
@@ -598,10 +710,11 @@ def phase_apex(seed: int) -> dict:
         update_params, train_many, send_experience, driver_init)
     fg.gather_rows.launches = 0       # count the main path's run only
     try:
-        out, wall = run_cli([
-            "--config", "pong", "--seed", str(seed),
-            "--total-env-frames", "60000", "--wall-clock-limit", "180",
-            "--device", "cuda"])
+        with timed_adds() as adds:
+            out, wall = run_cli([
+                "--config", "pong", "--seed", str(seed),
+                "--total-env-frames", "60000", "--wall-clock-limit", "120",
+                "--device", "cuda"])
     finally:
         (BatchedInferenceServer.update_params, DQNLearner.train_many,
          LoopbackTransport.send_experience, ApexDriver.__init__) = orig
@@ -617,7 +730,7 @@ def phase_apex(seed: int) -> dict:
                if calls["first_s"] is not None else 0.0)
     ev = out["eval"] or {}
     log(f"apex: `--config pong --total-env-frames 60000 "
-        f"--wall-clock-limit 180 --device cuda`: {cfg.actors.num_actors} "
+        f"--wall-clock-limit 120 --device cuda`: {cfg.actors.num_actors} "
         f"vector actors x {cfg.actors.envs_per_actor} "
         f"{cfg.env.kind} envs ({'native' if native.available() else 'numpy'}"
         f" preprocessing), server max_batch {cfg.inference.max_batch} "
@@ -631,7 +744,9 @@ def phase_apex(seed: int) -> dict:
         f"batches={server['batches']} items={server['items']} "
         f"avg_batch={server['avg_batch']:.2f} "
         f"items/s={server['items'] / wall:.1f}; ingest_dropped="
-        f"{out['ingest_dropped']}; publications={calls['publications']}; "
+        f"{out['ingest_dropped']} ({calls['dropped_at_first']} transport "
+        f"batches before the first train dispatch); {adds_summary(adds)}; "
+        f"publications={calls['publications']}; "
         f"launches={launches}; peak_mem_gb={peak_gb:.2f}; episodes="
         f"{out['episodes']} avg_return={out['avg_return']:.3f}; "
         f"eval={json.dumps(ev)}; summary={json.dumps(out)}; {wall:.2f} s")
@@ -651,6 +766,7 @@ def phase_apex(seed: int) -> dict:
     check(calls["publications"] >= 1, "no param publication reached the "
           "inference server")
     check(server["avg_batch"] >= 8, f"server avg_batch {server}")
+    check_graphed(driver, ("k", k), gathers=2)
 
     # the first shipped segment, read back from the ring's slot 0
     check(first_seg and "seg_frames" in first_seg[0], "no segment shipped")
@@ -663,7 +779,8 @@ def phase_apex(seed: int) -> dict:
         check(torch.equal(st[key][:b].cpu(), torch.from_numpy(seg[key][0])),
               f"ring slot 0 {key} != the shipped segment")
     log("apex: the first shipped segment read back from ring slot 0 "
-        "bitwise (frames and fields)")
+        "bitwise (frames and fields); the learner replayed its captured "
+        "macro-step graph with the actors ungated")
     del driver, replay, st, got_frames, seg
     gc.collect()
     torch.cuda.empty_cache()
@@ -703,7 +820,7 @@ def phase_r2d2(seed: int) -> dict:
     calls = {"publications": 0, "train_many": 0, "macro": 0, "singles": 0,
              "first_s": None, "last_s": None, "run_s": None,
              "frames_at_first": 0, "frames_at_last": 0,
-             "policy_queries": 0, "loss": None}
+             "policy_queries": 0, "loss": None, "dropped_at_first": 0}
     seen: dict = {}
     first: list[dict] = []
     send_lock = threading.Lock()
@@ -721,6 +838,7 @@ def phase_r2d2(seed: int) -> dict:
         if calls["first_s"] is None:
             calls["first_s"] = time.perf_counter()
             calls["frames_at_first"] = frames
+            calls["dropped_at_first"] = seen["driver"].transport.dropped
         calls["frames_at_last"] = frames
         out = orig[1](self, state, n, noise)
         calls["last_s"] = time.perf_counter()
@@ -763,12 +881,13 @@ def phase_r2d2(seed: int) -> dict:
         driver_run, policy_factory)
     fg.gather_rows.launches = 0       # count the main path's run only
     try:
-        out, wall = run_cli([
-            "--config", "r2d2", "--seed", str(seed),
-            "--set", "parallel.dp=1", "--set", "parallel.tp=1",
-            "--actors", "8", "--set", "replay.min_fill=256",
-            "--total-env-frames", "30000", "--wall-clock-limit", "180",
-            "--device", "cuda"])
+        with timed_adds() as adds:
+            out, wall = run_cli([
+                "--config", "r2d2", "--seed", str(seed),
+                "--set", "parallel.dp=1", "--set", "parallel.tp=1",
+                "--actors", "8", "--set", "replay.min_fill=256",
+                "--total-env-frames", "30000", "--wall-clock-limit", "180",
+                "--device", "cuda"])
     finally:
         (BatchedInferenceServer.update_params, SequenceLearner.train_many,
          LoopbackTransport.send_experience, ApexDriver.__init__,
@@ -809,7 +928,9 @@ def phase_r2d2(seed: int) -> dict:
         f"the training window ({train_s:.2f} s); last loss {loss:.6f}; "
         f"server batches={server['batches']} items={server['items']} "
         f"avg_batch={server['avg_batch']:.2f}; ingest_dropped="
-        f"{out['ingest_dropped']}; publications={calls['publications']}; "
+        f"{out['ingest_dropped']} ({calls['dropped_at_first']} transport "
+        f"batches before the first train dispatch); {adds_summary(adds)}; "
+        f"publications={calls['publications']}; "
         f"launches={launches}; peak_mem_gb={peak_gb:.2f}; episodes="
         f"{out['episodes']} avg_return={out['avg_return']:.3f}; eval="
         f"{json.dumps(ev)} ({calls['policy_queries']} recurrent policy "
@@ -833,6 +954,7 @@ def phase_r2d2(seed: int) -> dict:
     check(ev.get("episodes", 0) > 0 and calls["policy_queries"] > 0,
           f"the final eval did not run the recurrent policy: {ev}, "
           f"{calls['policy_queries']} queries")
+    check_graphed(driver, ("k", k), gathers=1)
 
     # the first shipped sequence, read back from replay slot 0
     check(first and "seq_frames" in first[0], "no sequence shipped")
@@ -848,20 +970,18 @@ def phase_r2d2(seed: int) -> dict:
               f"replay slot 0 {key} != the shipped sequence")
     log("r2d2: the first shipped sequence read back from replay slot 0 "
         "bitwise (single frames and fields)")
-    # the learner alone on the run's replay (outside the counted run):
-    # host clock over R2D2_ALONE macro-steps after one warm-up, then the
-    # profiler's device busy share and launches per macro-step
+    # the learner alone on the run's replay (outside the counted run),
+    # eager and as a graph: host clock over R2D2_ALONE macro-steps after
+    # one untimed call, then the profiler's device busy share and
+    # kernels per macro-step
     learner, state = driver.learner, driver.state
-    state, _ = learner.train_step_k(state, k)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    for _ in range(R2D2_ALONE):
-        state, _ = learner.train_step_k(state, k)
-    torch.cuda.synchronize()
-    alone = R2D2_ALONE * k / (time.perf_counter() - t0)
-    log(f"r2d2: the learner alone after the run: grad-steps/s={alone:.2f} "
-        f"(host clock over {R2D2_ALONE} train_step_k after 1 warm-up)")
-    log(profile_macro_steps(learner, state, k, PROFILE_STEPS))
+    eager = learner_rate(learner, state, k, R2D2_ALONE, capture=False)
+    graphed = learner_rate(learner, state, k, R2D2_ALONE, capture=True)
+    log(f"r2d2: the learner alone after the run: grad-steps/s "
+        f"eager={eager:.2f} graph={graphed:.2f} (host clock over "
+        f"{R2D2_ALONE} train_step_k each, after one untimed call)")
+    log(profile_macro_steps(learner, state, k, PROFILE_STEPS, False))
+    log(profile_macro_steps(learner, state, k, PROFILE_STEPS, True))
     del driver, storage, got, seq, learner, state
     gc.collect()
     torch.cuda.empty_cache()
@@ -962,6 +1082,141 @@ def phase_pong_single_process(seed: int) -> dict:
     return launches
 
 
+def phase_dpg(seed: int) -> None:
+    """The apex_dpg preset through the CLI's default mode on one card,
+    at its width, on the native pendulum. Wrapped for the checks after
+    the run: BatchedInferenceServer.update_params counts publications,
+    DPGLearner.train_many stamps the training window, counts grad-steps
+    and keeps the last losses, ApexDriver.run stamps the run's start and
+    ApexDriver.__init__ keeps the driver."""
+    from ape_x_dqn_tpu_torch.configs import get_config
+    from ape_x_dqn_tpu_torch.parallel.inference_server import (
+        BatchedInferenceServer)
+    from ape_x_dqn_tpu_torch.runtime.dpg_learner import DPGLearner
+    from ape_x_dqn_tpu_torch.runtime.driver import ApexDriver
+
+    cfg = get_config("apex_dpg")
+    net, rep, ln = cfg.network, cfg.replay, cfg.learner
+    check(net.kind == "dpg" and tuple(net.dpg_hidden) == (300, 200)
+          and net.compute_dtype == "float32" and rep.kind == "prioritized"
+          and rep.capacity == 1_000_000 and ln.batch_size == 256
+          and ln.n_step == 5 and ln.sample_chunk == 1
+          and ln.steps_per_frame_cap is None
+          and cfg.actors.num_actors == 32, "apex_dpg preset drift")
+    calls = {"publications": 0, "train_many": 0, "grad_steps": 0,
+             "first_s": None, "last_s": None, "run_s": None,
+             "frames_at_first": 0, "frames_at_last": 0, "losses": None,
+             "dropped_at_first": 0}
+    seen: dict = {}
+    orig = (BatchedInferenceServer.update_params, DPGLearner.train_many,
+            ApexDriver.__init__, ApexDriver.run)
+
+    def update_params(self, params, version):
+        calls["publications"] += 1
+        return orig[0](self, params, version)
+
+    def train_many(self, state, n, noise=None):
+        frames = seen["driver"]._frames_total
+        if calls["first_s"] is None:
+            calls["first_s"] = time.perf_counter()
+            calls["frames_at_first"] = frames
+            calls["dropped_at_first"] = seen["driver"].transport.dropped
+        calls["frames_at_last"] = frames
+        out = orig[1](self, state, n, noise)
+        calls["last_s"] = time.perf_counter()
+        calls["train_many"] += 1
+        calls["grad_steps"] += n
+        calls["losses"] = (out[1]["loss"], out[1]["policy_loss"])
+        return out
+
+    def driver_init(self, *a, **kw):
+        orig[2](self, *a, **kw)
+        seen["driver"] = self
+
+    def driver_run(self, *a, **kw):
+        calls["run_s"] = time.perf_counter()
+        return orig[3](self, *a, **kw)
+
+    argv = ["--config", "apex_dpg", "--seed", str(seed),
+            "--set", "env.id=pendulum", "--actors", "8",
+            "--set", "replay.min_fill=5000", "--total-env-frames", "60000",
+            "--wall-clock-limit", "90", "--device", "cuda"]
+    threads_before = {t.ident for t in threading.enumerate()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (BatchedInferenceServer.update_params, DPGLearner.train_many,
+     ApexDriver.__init__, ApexDriver.run) = (
+        update_params, train_many, driver_init, driver_run)
+    try:
+        with timed_adds() as adds:
+            out, wall = run_cli(argv)
+    finally:
+        (BatchedInferenceServer.update_params, DPGLearner.train_many,
+         ApexDriver.__init__, ApexDriver.run) = orig
+    t_end = time.perf_counter()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    left = [t.name for t in threading.enumerate()
+            if t.ident not in threads_before]
+    driver = seen.pop("driver")
+    trained = calls["first_s"] is not None
+    train_s = calls["last_s"] - calls["first_s"] if trained else 0.0
+    fill_s = (calls["first_s"] if trained else t_end) - calls["run_s"]
+    f0 = calls["frames_at_first"]
+    f1 = calls["frames_at_last"] - f0
+    losses = ([x.item() for x in calls["losses"]]
+              if calls["losses"] is not None else [math.nan, math.nan])
+    ev = out["eval"] or {}
+    server = out["server"]
+    log(f"dpg: `{' '.join(argv)}`: actor and critic MLPs "
+        f"{tuple(net.dpg_hidden)} float32, batch {ln.batch_size}, n-step "
+        f"{ln.n_step}, tau {ln.tau}; 8 actors (the preset has "
+        f"{cfg.actors.num_actors}) x {cfg.actors.envs_per_actor} native "
+        f"pendulum env; prioritized replay of {driver.replay.capacity} "
+        f"slots; frames={out['frames']} frames/s="
+        f"{out['frames'] / wall:.1f} over the run, "
+        f"{f0 / max(fill_s, 1e-9):.1f} before min_fill ({f0} frames in "
+        f"{fill_s:.2f} s) and {f1 / max(train_s, 1e-9):.1f} in the "
+        f"training window ({f1} frames); grad_steps={out['grad_steps']} "
+        f"in {calls['train_many']} train_many calls, grad-steps/s="
+        f"{out['grad_steps'] / max(train_s, 1e-9):.2f} over the training "
+        f"window ({train_s:.2f} s); last critic/policy loss "
+        f"{losses[0]:.6f}/{losses[1]:.6f}; server "
+        f"batches={server['batches']} items={server['items']} "
+        f"avg_batch={server['avg_batch']:.2f}; ingest_dropped="
+        f"{out['ingest_dropped']} ({calls['dropped_at_first']} transport "
+        f"batches before the first train dispatch); {adds_summary(adds)}; "
+        f"publications={calls['publications']}; "
+        f"peak_mem_gb={peak_gb:.2f}; episodes={out['episodes']} "
+        f"avg_return={out['avg_return']:.3f}; eval={json.dumps(ev)}; "
+        f"summary={json.dumps(out)}; {wall:.2f} s")
+    check(out["actor_errors"] == [] and out["loop_errors"] == [],
+          f"actor_errors {out['actor_errors']}, loop_errors "
+          f"{out['loop_errors']}")
+    check(not left, f"driver threads still running after the run: {left}")
+    check(out["grad_steps"] > 0 and out["grad_steps"] == calls["grad_steps"]
+          and all(math.isfinite(x) for x in losses),
+          f"grad_steps {out['grad_steps']} ({calls['grad_steps']} through "
+          f"train_many), last losses {losses}")
+    check(calls["publications"] >= 1, "no param publication reached the "
+          "inference server")
+    check(driver.replay.capacity == 1 << 20,
+          f"replay capacity {driver.replay.capacity}")
+    check(ev.get("episodes", 0) > 0 and math.isfinite(ev["mean_return"]),
+          f"the final eval did not run: {ev}")
+    check_graphed(driver, "step", gathers=0)
+    learner, state = driver.learner, driver.state
+    eager = learner_rate(learner, state, 1, DPG_ALONE, capture=False)
+    graphed = learner_rate(learner, state, 1, DPG_ALONE, capture=True)
+    log(f"dpg: the learner alone after the run: grad-steps/s "
+        f"eager={eager:.2f} graph={graphed:.2f} (host clock over "
+        f"{DPG_ALONE} train_step each, after one untimed call)")
+    log(profile_macro_steps(learner, state, 1, DPG_ALONE // 4, False))
+    log(profile_macro_steps(learner, state, 1, DPG_ALONE // 4, True))
+    del driver, learner, state
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -972,6 +1227,7 @@ def main() -> int:
         print("FAIL: torch.cuda.is_available() is False: this smoke needs "
               "an NVIDIA card", file=sys.stderr)
         return 2
+    t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
     card = card_line()
     log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
@@ -1002,6 +1258,10 @@ def main() -> int:
     phase_cartpole()
     # 9. the single-process trainer at the pong preset's full size
     flat = phase_pong_single_process(args.seed)
+    # 10. Ape-X DPG through the driver
+    t0 = time.perf_counter()
+    phase_dpg(args.seed)
+    log(f"dpg: {time.perf_counter() - t0:.2f} s")
 
     # one entry per kernel; its top-level numbers are the flat replay's
     # call site at its real size (flat_full), `sites` has all four
@@ -1028,6 +1288,7 @@ def main() -> int:
             "bound_ms": top["bound_ms"], "bound_by": "bytes",
             "library_ms": top["library_ms"], "copy_ms": top["copy_ms"],
             "sites": sites}
+    log(f"total: {time.perf_counter() - t_start:.2f} s")
     log(json.dumps({"kernels": [kern]}))
     log(card_line())
     log(json.dumps({"ok": True, "device": {

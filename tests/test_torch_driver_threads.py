@@ -215,8 +215,7 @@ def test_driver_refuses_what_is_not_ported():
             (base.replace(remediation=type(base.remediation)(
                 mode="observe")), 19),
             (base.replace(serving=type(base.serving)(multi_tenant=True)),
-             16),
-            (get_config("apex_dpg"), 13)):
+             16)):
         with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
             ApexDriver(cfg, device="cpu")
 

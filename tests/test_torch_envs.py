@@ -57,8 +57,15 @@ def test_catch_env_steps_bitwise_equal_across_life_loss():
 
 
 def test_control_kind_waits_for_its_slice():
-    with pytest.raises(NotImplementedError, match="DPG"):
-        make_env(EnvConfig(id="humanoid_stand", kind="control"))
+    """The control kind, refused until the DPG slice, now builds what
+    the original builds from the same config: the native pendulum, and
+    a dm_control task for an id with an underscore (dm_control imports
+    here), with the same spec and the same first observation."""
+    for env_id in ("pendulum", "humanoid_stand"):
+        t = make_env(EnvConfig(id=env_id, kind="control"), seed=3)
+        j = jax_make_env(JEnvConfig(id=env_id, kind="control"), seed=3)
+        assert dataclasses.asdict(t.spec) == dataclasses.asdict(j.spec)
+        np.testing.assert_array_equal(t.reset(), j.reset())
 
 
 def test_nstep_builder_emits_identical_transitions():

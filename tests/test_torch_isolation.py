@@ -57,6 +57,11 @@ def test_main_path_import_loads_no_jax():
         "import ape_x_dqn_tpu_torch.replay.sequence\n"
         "import ape_x_dqn_tpu_torch.models.lstm_q\n"
         "import ape_x_dqn_tpu_torch.models.convert\n"
+        "import ape_x_dqn_tpu_torch.models.dpg\n"
+        "import ape_x_dqn_tpu_torch.runtime.dpg_learner\n"
+        "import ape_x_dqn_tpu_torch.runtime.step_graph\n"
+        "import ape_x_dqn_tpu_torch.envs.control\n"
+        "import ape_x_dqn_tpu_torch.tools.driver_contention\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
         "assert not bad, bad\n" % (str(ROOT), FORBIDDEN))
     env = {"PATH": "/usr/bin:/bin", "PYTHONNOUSERSITE": "1"}
