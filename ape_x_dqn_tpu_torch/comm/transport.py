@@ -2,9 +2,9 @@
 
 Counterpart of ``ape_x_dqn_tpu/comm/transport.py``. In one process the
 actors, the inference server and the learner talk through thread-safe
-queues (`LoopbackTransport`); the socket transport across hosts waits
-for the remote-actor slice (``--listen``, ROADMAP Queue A item 11),
-and the fleet telemetry path for the operations planes (item 19).
+queues (`LoopbackTransport`); remote actor hosts reach the learner
+through comm/socket_transport.py (``--listen``). The fleet telemetry
+aggregator waits for the operations planes (ROADMAP Queue A item 19).
 
 Messages are dicts of numpy arrays; an ingest message holds stacked
 transition fields (or frame segments) plus "priorities", and the
@@ -18,6 +18,8 @@ import threading
 from typing import Any, Protocol
 
 import numpy as np
+
+from ape_x_dqn_tpu_torch.comm.socket_transport import WireBatch
 
 
 class Transport(Protocol):
@@ -89,8 +91,10 @@ class LoopbackTransport:
             return self._params, self._version
 
 
-def batch_rows(batch: dict) -> int:
-    """Staging units in one ingest message (the length of its
-    priorities). Counterpart of ``comm/socket_transport.py: batch_rows``
-    in its dict form; the wire form arrives with the socket transport."""
+def batch_rows(batch) -> int:
+    """Staging units in one ingest message, cheap for both forms: a
+    WireBatch reads its JSON header, a dict the length of its
+    priorities (``comm/socket_transport.py: batch_rows``)."""
+    if isinstance(batch, WireBatch):
+        return batch.rows
     return int(np.shape(batch["priorities"])[0])

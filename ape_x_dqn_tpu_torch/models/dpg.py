@@ -66,3 +66,25 @@ class DPGCritic(nn.Module):
         for layer in self.hidden:
             x = F.relu(_dense(layer, x, self.dt))
         return _dense(self.out, x, self.dt).squeeze(-1).float()
+
+
+# the inference server runs mu(s) and Q(s, mu(s)) as one module
+# (runtime/family.py) over one dict of "actor.*" and "critic.*" keys
+PARTS = ("actor", "critic")
+
+
+def server_params(parts) -> dict:
+    """{"actor": state dict, "critic": state dict} -> the server's one
+    dict of "actor.*" and "critic.*" keys (the values are not copied)."""
+    return {f"{name}.{k}": v for name in PARTS
+            for k, v in parts[name].items()}
+
+
+def split_server_params(params: dict) -> dict:
+    """The inverse of `server_params`: a key of any other prefix
+    raises."""
+    out: dict = {name: {} for name in PARTS}
+    for key, v in params.items():
+        name, _, k = key.partition(".")
+        out[name][k] = v
+    return out

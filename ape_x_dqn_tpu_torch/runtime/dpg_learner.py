@@ -27,6 +27,7 @@ import torch
 from torch import nn
 
 from ape_x_dqn_tpu_torch.models.base import soft_update
+from ape_x_dqn_tpu_torch.models.dpg import server_params
 from ape_x_dqn_tpu_torch.obs import learning as learn_obs
 from ape_x_dqn_tpu_torch.ops.losses import ContinuousBatch, make_dpg_losses
 from ape_x_dqn_tpu_torch.replay.packing import ItemSpec, torch_dtype
@@ -173,7 +174,6 @@ class DPGLearner(GraphedEndpoints):
     def publish_params(self, state: DPGTrainState) -> dict[str, torch.Tensor]:
         """Independent {actor.*, critic.*} param copies for the inference
         server, which evaluates mu(s) and Q(s, mu(s)) per query."""
-        return {f"{name}.{k}": v.detach().clone()
-                for name, net in (("actor", state.actor),
-                                  ("critic", state.critic))
-                for k, v in net.state_dict().items()}
+        return {k: v.detach().clone() for k, v in server_params(
+            {"actor": state.actor.state_dict(),
+             "critic": state.critic.state_dict()}).items()}

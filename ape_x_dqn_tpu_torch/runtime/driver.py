@@ -41,13 +41,36 @@ off) issues thousands of torch calls a macro-step, each retaking the
 interpreter lock; for it alone the driver keeps the learner-priority
 gate (`_gated`): actor queries wait while the learner dispatches.
 
+Remote actor hosts (runtime/actor_host.py): pass a
+``comm.socket_transport.SocketIngestServer`` as `transport` and the
+learner also ingests what hosts ship over TCP or shared memory; each
+publication then hands the server a numpy copy of the params, made on
+the learner thread and ordered after its stream. With no local actors
+(``actors.num_actors == 0``) the learner waits for the first host
+(``actors.remote_boot_grace_s``) and ends once every host has quiesced
+and the queue has drained. The summary's ``wire`` entry holds the
+transport's byte and shared-memory accounting.
+
+Checkpoints (``checkpoint_dir``, utils/checkpoint.py): params, target
+params, optimizer state, the learner's RNG state and the grad-step
+counter every ``checkpoint_every`` grad-steps and at shutdown (the
+replay too under ``checkpoint_replay``), copied on the device under the
+state lock and written by the manager's thread. A driver built over a
+directory that holds one restores the newest IN PLACE (``copy_`` into
+the tensors the captured graphs read, the replay's cursor through its
+setters, so the device mirrors follow), before any graph is captured.
+The resumed run's grad-step counter goes on from the restored step; its
+pacing (``steps_per_frame_cap``) counts only the steps and frames of
+this run, so a run that resumes without its replay trains at the cap's
+pace once it has refilled ``min_fill``, as a fresh run does.
+
 Nothing compiles in the port, so the original's AOT warm-up becomes one
 forward per server bucket (`_warmup`), which changes no learner state.
 What the original builds and the port does not have yet raises, naming
 its ROADMAP Queue A item: the multi-GPU learner (14), the serving tier
-(16), the remediation and operations planes (19), checkpoints and the
-legacy staging path (11) and the profiler capture (17); the port's
-config already refuses the cold tier (15). All three families run
+(16), the remediation and operations planes (19), the legacy staging
+path (11) and the profiler capture (17); the port's config already
+refuses the cold tier (15). All three families run
 here: flat DQN, R2D2 (recurrent actors, stateful {obs, c, h} server
 queries, whole sequences as staging units and the `SequenceLearner`,
 runtime/sequence_learner.py) and Ape-X DPG (continuous actors, {a, q}
@@ -69,6 +92,7 @@ from collections import deque
 import numpy as np
 import torch
 
+from ape_x_dqn_tpu_torch.comm.param_codec import tree_map
 from ape_x_dqn_tpu_torch.comm.transport import LoopbackTransport, batch_rows
 from ape_x_dqn_tpu_torch.envs import make_env
 from ape_x_dqn_tpu_torch.models import build_network
@@ -83,9 +107,11 @@ from ape_x_dqn_tpu_torch.runtime.dpg_learner import DPGLearner
 from ape_x_dqn_tpu_torch.runtime.family import (
     actor_class, family_of, family_setup, server_apply_fn, warmup_example)
 from ape_x_dqn_tpu_torch.runtime.ingest import IngestStager
-from ape_x_dqn_tpu_torch.runtime.learner import DQNLearner
+from ape_x_dqn_tpu_torch.runtime.learner import (
+    DQNLearner, checkpoint_tree, restore_checkpoint_tree)
 from ape_x_dqn_tpu_torch.runtime.sequence_learner import SequenceLearner
 from ape_x_dqn_tpu_torch.runtime.single_process import build_replay
+from ape_x_dqn_tpu_torch.utils.checkpoint import CheckpointManager
 from ape_x_dqn_tpu_torch.utils.metrics import (Metrics, Throughput,
                                                log_run_header)
 from ape_x_dqn_tpu_torch.utils.misc import next_pow2, resolve_device
@@ -105,8 +131,6 @@ def _refuse_unported(cfg) -> None:
     if rcfg is not None and rcfg.mode != "off":
         waits.append((f"remediation.mode={rcfg.mode!r} (the remediation "
                        f"and operations planes)", 19))
-    if cfg.checkpoint_dir:
-        waits.append(("checkpoint_dir (utils/checkpoint.py)", 11))
     if not getattr(cfg.replay, "ingest_zero_copy", True):
         waits.append(("replay.ingest_zero_copy=False (the legacy staging "
                       "path)", 11))
@@ -123,9 +147,10 @@ class ApexDriver:
     def __init__(self, cfg, metrics: Metrics | None = None,
                  transport=None, device: str | torch.device = "cuda"):
         """transport: experience ingest + param distribution (defaults
-        to the in-process LoopbackTransport). device: the card the
-        replay, the learner and the inference server live on (a CUDA
-        request without a card raises)."""
+        to the in-process LoopbackTransport; a SocketIngestServer also
+        accepts remote actor hosts). device: the card the replay, the
+        learner and the inference server live on (a CUDA request
+        without a card raises)."""
         _refuse_unported(cfg)
         self.cfg = cfg
         self.device = resolve_device(device)
@@ -174,11 +199,17 @@ class ApexDriver:
             obs=self.obs, device=self.device)
         self.transport = transport if transport is not None \
             else LoopbackTransport()
+        # a transport that serves remote hosts gets host (numpy) params;
+        # the in-process one hands the server's tensors to nobody
+        self._host_params = not isinstance(self.transport,
+                                           LoopbackTransport)
+        self._pinned: dict[str, torch.Tensor] = {}  # learner thread only
         self.obs.blackbox.set_peer(f"driver-{os.getpid()}")
         self.obs.blackbox.install()
         # initial publication, so a client of the param channel can
         # bootstrap before the first publish_every boundary
-        self.transport.publish_params(server_params, 0)
+        self.transport.publish_params(self._transport_params(server_params),
+                                      0)
         self.stop_event = threading.Event()
         # learner priority, for an eager learner only: cleared while it
         # dispatches, and every actor query waits on it (see _gated)
@@ -217,6 +248,9 @@ class ApexDriver:
         self._slot_restarts: dict[int, int] = {}  # guarded-by: _lock
         self._quarantined: set[int] = set()  # guarded-by: _lock
         self._ingested_batches = 0  # guarded-by: _lock
+        # frames ingested per actor index (remote hosts ship their
+        # global index: actor_offset + slot); ingest thread only
+        self._frames_by_actor: dict[int, int] = {}
         # host mirror of the replay fill, so the learner loop never
         # reads the state to decide whether it may train
         self._replay_filled = 0  # guarded-by: _lock
@@ -236,6 +270,86 @@ class ApexDriver:
             buffers=getattr(cfg.replay, "stage_buffers", 2),
             ship=self._ship_staged, pin=self.device.type == "cuda")
         self.last_eval: dict | None = None  # guarded-by: _lock
+        # checkpoint/resume: params, targets, optimizer, RNG and step
+        # always; the replay's contents too under cfg.checkpoint_replay
+        self.ckpt = (CheckpointManager(cfg.checkpoint_dir)
+                     if cfg.checkpoint_dir else None)
+        self.checkpoint_saves = 0
+        if self.ckpt is not None:
+            self._maybe_restore()
+        # the pacing cap counts the grad-steps of THIS run (a resumed run
+        # goes on from its restored step, but its frames start at 0)
+        self._paced_from = self._grad_steps_total
+
+    # -- checkpoint / resume -----------------------------------------------
+
+    def _ckpt_payload(self) -> tuple[dict, torch.cuda.Event | None]:
+        """A copy of the train state, taken under the state lock so no
+        add or train dispatch is enqueued meanwhile: the small tensors
+        are cloned on the device (on the caller's stream, after every
+        train dispatch and add enqueued so far on the learner's and the
+        ingest stream, so a save at shutdown on the main thread's stream
+        never reads a step mid-update) and reach the host on the
+        manager's writer thread once the returned event has fired; the
+        replay's contents, too large to clone on the card, are copied to
+        the host here."""
+        cuda = self.device.type == "cuda"
+        with self._state_lock:
+            if cuda:
+                current = torch.cuda.current_stream(self.device)
+                for stream in (self._learn_stream, self._ingest_stream):
+                    if stream != current:
+                        current.wait_stream(stream)
+            tree = checkpoint_tree(self.state,
+                                   self.cfg.checkpoint_replay)
+            replay = tree.pop("replay", None)
+            payload = tree_map(
+                lambda x: x.detach().clone()
+                if isinstance(x, torch.Tensor) else x, tree)
+            if replay is not None:
+                payload["replay"] = tree_map(
+                    lambda x: x.to("cpu")
+                    if isinstance(x, torch.Tensor) else x, replay)
+            ready = None
+            if cuda:
+                ready = torch.cuda.Event()
+                ready.record()
+        return payload, ready
+
+    def _save_checkpoint(self, wait: bool = False) -> None:
+        with self.obs.span("ckpt.save", step=self._grad_steps_total):
+            payload, ready = self._ckpt_payload()
+            self.ckpt.save(self._grad_steps_total, payload, wait=wait,
+                           ready=ready)
+        self.checkpoint_saves += 1
+
+    def _maybe_restore(self) -> None:
+        """Restore the newest checkpoint IN PLACE. The captured graphs
+        read the state's tensors at fixed addresses, so every value is
+        copied into the tensor that holds it (load_state_dict and
+        ``copy_``), never rebound; the replay's cursor and fill go
+        through their setters, which refresh the device mirrors the
+        graphs read. What is restored follows what the file holds, not
+        the checkpoint_replay flag (the flag governs saves)."""
+        if self.ckpt.latest_step() is None:
+            return
+        saved = self.ckpt.item_keys()
+        with_replay = (("replay" in saved) if saved is not None
+                       else self.cfg.checkpoint_replay)
+        with self._state_lock:
+            template = checkpoint_tree(self.state, with_replay)
+            with self.obs.span("ckpt.restore"):
+                restored = self.ckpt.restore(template=template)
+            if restored is None:
+                return
+            restore_checkpoint_tree(self.state, restored)
+        self._grad_steps_total = int(restored["step"])
+        if "replay" in restored:
+            # restored contents: the learner can train at once instead
+            # of waiting for min_fill again
+            with self._lock:
+                self._replay_filled = int(restored["replay"]["size"])
+        self._publish_params()
 
     # -- components --------------------------------------------------------
 
@@ -367,6 +481,13 @@ class ApexDriver:
             return
         self.obs.check_stalled()
 
+    def _pacing_binds(self, frames: int) -> bool:
+        """learner.steps_per_frame_cap: this run's grad-steps have
+        reached the cap's share of this run's frames."""
+        cap = self.cfg.learner.steps_per_frame_cap
+        return (cap is not None
+                and self._grad_steps_total - self._paced_from >= cap * frames)
+
     def _min_fill(self) -> int:
         return min(self.cfg.replay.min_fill, self.capacity // 2)
 
@@ -413,11 +534,32 @@ class ApexDriver:
         # frames: actors ship the true frame count alongside (flat
         # batches: frames == units)
         frames = int(batch.get("frames", n))
+        actor = batch.get("actor")
         self._stage_one(batch, n)
         self.frames.add(frames)
+        if actor is not None:
+            by_actor = self._frames_by_actor
+            by_actor[int(actor)] = by_actor.get(int(actor), 0) + frames
         with self._lock:
             self._frames_total += frames
             self._ingested_batches += 1
+
+    def _wire_summary(self) -> dict | None:
+        """The socket transport's accounting for the run summary: bytes
+        in (on the wire and decoded), param bytes out (and what they
+        would have cost uncoded), pushes, resyncs and the shared-memory
+        plane. None for the in-process transport."""
+        tp = self.transport
+        if not hasattr(tp, "active_connections"):
+            return None
+        keys = ("bytes_in", "raw_bytes_in", "wire_compression_ratio",
+                "param_bytes_out", "param_raw_bytes_out",
+                "param_compression_ratio", "param_pushes", "param_resyncs",
+                "param_push_queue_drops", "shm_doorbells", "shm_bytes_in",
+                "shm_torn_slots", "shm_fallbacks", "shm_reclaimed",
+                "shm_dropped", "telemetry_frames", "wire_decode_errors",
+                "ever_connected")
+        return {k: getattr(tp, k) for k in keys}
 
     def _stage_one(self, batch: dict, n: int) -> None:
         self._stager.put(batch)
@@ -528,24 +670,51 @@ class ApexDriver:
         finally:
             self.obs.clear("learner")
 
+    def _transport_params(self, pub: dict) -> dict:
+        """What the transport publishes: `pub` itself in process; for a
+        transport serving remote hosts a plain dict of numpy arrays, the
+        one device-to-host copy of a publication (never a pickled torch
+        tensor, which would make every receiver need this torch build
+        and a card). On CUDA the copies go into pinned buffers, enqueued
+        on the caller's stream after the clone that made `pub`, and the
+        caller waits for that stream alone (not the device)."""
+        if not self._host_params:
+            return pub
+        if self.device.type != "cuda":
+            return {k: v.detach().cpu().numpy().copy()
+                    for k, v in pub.items()}
+        for k, v in pub.items():
+            buf = self._pinned.get(k)
+            if buf is None or buf.shape != v.shape or buf.dtype != v.dtype:
+                self._pinned[k] = torch.empty(v.shape, dtype=v.dtype,
+                                              pin_memory=True)
+            self._pinned[k].copy_(v, non_blocking=True)
+        torch.cuda.current_stream(self.device).synchronize()
+        # fresh arrays: the transport keeps them after the pinned
+        # buffers are rewritten by the next publication
+        return {k: self._pinned[k].numpy().copy() for k in pub}
+
     def _publish_params(self) -> None:
         # copy under the state lock: an add or a train dispatch would
         # otherwise write the tensors being copied
         with self._state_lock:
             with self.obs.span("learner.publish_params"):
                 pub = self.learner.publish_params(self.state)
-        if self._learn_stream is not None:
-            # the server reads the copy on its own stream
+        # the host copy (remote hosts) waits for the caller's stream, the
+        # learner's on its thread, which the server needs anyway: it
+        # reads `pub` on its own stream
+        host = self._transport_params(pub)
+        if self._learn_stream is not None and not self._host_params:
             self._learn_stream.synchronize()
         self.server.update_params(pub, self._grad_steps_total)
-        self.transport.publish_params(pub, self._grad_steps_total)
+        self.transport.publish_params(host, self._grad_steps_total)
 
     def _learner_loop_inner(self, max_grad_steps: int) -> None:
         publish_every = self.cfg.learner.publish_every
         # a chunk larger than the publish cadence would snap to 1 forever
         chunk = max(min(self.cfg.learner.train_chunk, publish_every), 1)
         last_log = 0
-        cap = self.cfg.learner.steps_per_frame_cap
+        last_ckpt = self._grad_steps_total
         while (not self.stop_event.is_set()
                and self._grad_steps_total < max_grad_steps):
             self.obs.beat("learner")
@@ -555,7 +724,7 @@ class ApexDriver:
             if filled < self._min_fill():
                 time.sleep(0.05)
                 continue
-            if cap is not None and self._grad_steps_total >= cap * frames:
+            if self._pacing_binds(frames):
                 time.sleep(0.01)  # pacing: let actors catch up
                 continue
             self.obs.maybe_profile(self._grad_steps_total)
@@ -592,6 +761,10 @@ class ApexDriver:
             self.obs.set_learner_step(self._grad_steps_total)
             if done // publish_every != self._grad_steps_total // publish_every:
                 self._publish_params()
+            if (self.ckpt is not None and self._grad_steps_total - last_ckpt
+                    >= self.cfg.checkpoint_every):
+                self._save_checkpoint()
+                last_ckpt = self._grad_steps_total
             if self._grad_steps_total - last_log >= 100:
                 last_log = self._grad_steps_total
                 # ONE fetch of the logged metrics at the log boundary
@@ -701,6 +874,7 @@ class ApexDriver:
             evaluator.start()
         for i in range(self.cfg.actors.num_actors):
             self._spawn_actor_slot(i, per_actor)
+        saw_remote = False
         try:
             prev_stuck_at = -1  # _ingested_batches at the last stuck poll
             while True:
@@ -712,6 +886,22 @@ class ApexDriver:
                     break
                 if not (learner.is_alive() and ingest.is_alive()):
                     break  # crashed loop: its error is in loop_errors
+                # remote actor hosts (socket transport): the learner
+                # outlives its local actors while hosts are connected,
+                # still booting (the boot grace of a remote-only
+                # learner) or only just gone (quiesced()'s debounce).
+                # The grace ends only once a host has SENT EXPERIENCE
+                # (ever_connected): a param-only probe must not end it
+                if hasattr(self.transport, "active_connections"):
+                    if self.transport.ever_connected:
+                        saw_remote = True
+                    booting = (not saw_remote
+                               and self.cfg.actors.num_actors == 0
+                               and time.monotonic() - t0
+                               < self.cfg.actors.remote_boot_grace_s)
+                    if booting or not self.transport.quiesced():
+                        time.sleep(0.2)
+                        continue
                 if not any(t.is_alive() for t in self._actor_threads()):
                     # actors finished: drain pending experience, then
                     # let the learner reach a finite grad-step target,
@@ -723,10 +913,8 @@ class ApexDriver:
                             size = self._replay_filled
                             ingested = self._ingested_batches
                             frames = self._frames_total
-                        cap = self.cfg.learner.steps_per_frame_cap
-                        stuck = size < self._min_fill() or (
-                            cap is not None
-                            and self._grad_steps_total >= cap * frames)
+                        stuck = (size < self._min_fill()
+                                 or self._pacing_binds(frames))
                         if max_grad_steps >= 10**9:
                             break
                         # stuck on two consecutive polls with no ingest
@@ -769,6 +957,13 @@ class ApexDriver:
                                          eval_game=game or self.cfg.env.id)
                 except Exception as e:
                     self.loop_errors.append(("final_eval", e))
+            # final checkpoint, so a stopped run resumes where it ended;
+            # a write that fails is an error of the run
+            if self.ckpt is not None and self._grad_steps_total > 0:
+                try:
+                    self._save_checkpoint(wait=True)
+                except Exception as e:
+                    self.loop_errors.append(("checkpoint", e))
             self.server.stop()
             self.obs.close(self._grad_steps_total)
         with self._lock:
@@ -779,8 +974,9 @@ class ApexDriver:
         if alive:
             logging.getLogger(__name__).warning(
                 "threads still running after teardown: %s", alive)
-        return {
+        out = {
             "frames": self._frames_total,
+            "frames_by_actor": dict(sorted(self._frames_by_actor.items())),
             "grad_steps": self._grad_steps_total,
             "avg_return": avg_ret,
             "episodes": len(self.episode_returns),
@@ -795,4 +991,9 @@ class ApexDriver:
             "supervisor_restarts": dict(self._slot_restarts),
             "loop_errors": list(self.loop_errors),
             "eval": self.last_eval,
+            "checkpoint_saves": self.checkpoint_saves,
         }
+        wire = self._wire_summary()
+        if wire is not None:
+            out["wire"] = wire
+        return out

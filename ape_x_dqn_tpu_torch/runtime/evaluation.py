@@ -7,9 +7,10 @@ inference server with the actors (one more client, no separate params
 copy). Eval episodes differ from training ones in the standard ways: no
 episodic-life pseudo-terminals, no reward clipping, near-greedy policy.
 
-The standalone suite evaluation (``evaluate_suite``, ``run_suite_eval``,
-the CLI's ``--eval-only``) waits for checkpoints (ROADMAP Queue A item
-11).
+The standalone suite evaluation is here too: `evaluate_suite` (per-game
+greedy scores -> the median human-normalized score) and
+`run_suite_eval` (the CLI's ``--eval-only``: params restored from the
+newest checkpoint, no learner, no actors).
 """
 
 from __future__ import annotations
@@ -17,11 +18,13 @@ from __future__ import annotations
 import dataclasses
 import threading
 import time
-from typing import Callable
+from typing import Callable, Iterable
 
 import numpy as np
+import torch
 
 from ape_x_dqn_tpu_torch.envs import make_env
+from ape_x_dqn_tpu_torch.models.dpg import PARTS, server_params
 from ape_x_dqn_tpu_torch.utils.metrics import ATARI_HUMAN_RANDOM, median_hns
 
 
@@ -217,3 +220,143 @@ def make_eval_policy_factory(family: str, lstm_size: int,
         return policy
 
     return factory
+
+
+def evaluate_suite(cfg, query_fn: Callable,
+                   games: Iterable[str] | None = None,
+                   episodes_per_game: int | None = None,
+                   max_frames: int = 108_000,
+                   policy_factory: Callable | None = None) -> dict:
+    """Per-game greedy scores -> median human-normalized score.
+
+    Loops the suite, evaluates each game with the shared query_fn, and
+    aggregates the Atari-57 metric. Returns {"scores": {game: mean},
+    "hns": {game: hns}, "backends": {game: "ale"|"synthetic"}, and
+    EITHER "median_hns" (every game ran on the real ALE) OR
+    "median_hns_synthetic" (the in-image catch stand-in ran instead).
+    The split key is deliberate: without `ale_py`, make_env substitutes
+    SyntheticAtari for every game, and an unmarked "median_hns" from
+    that path would look like the real number while measuring a catch
+    game."""
+    from ape_x_dqn_tpu_torch.envs.atari import atari_backend
+    from ape_x_dqn_tpu_torch.utils.metrics import human_normalized_score
+
+    games = tuple(games) if games is not None else ATARI57_GAMES
+    # at least one episode: configs carry eval_episodes=0 to switch off
+    # the TRAINING-time eval, and a suite score of None is useless
+    episodes = max(episodes_per_game or cfg.eval_episodes, 1)
+    backend = atari_backend(cfg.env.kind)
+    scores: dict[str, float] = {}
+    for game in games:
+        worker = EvalWorker(cfg, query_fn, game=game,
+                            policy_factory=policy_factory)
+        scores[game] = worker.run(episodes, max_frames)["mean_return"]
+    known = {g: s for g, s in scores.items() if g in ATARI_HUMAN_RANDOM}
+    out = {
+        "scores": scores,
+        "hns": {g: human_normalized_score(g, s) for g, s in known.items()},
+        "backends": {g: backend for g in scores},
+    }
+    key = "median_hns" if backend == "ale" else "median_hns_synthetic"
+    out[key] = median_hns(known)
+    return out
+
+
+def checkpoint_server_params(family: str, saved_params: dict) -> dict:
+    """A checkpoint's "params" entry -> the params the family's server
+    forward takes (runtime/family.py: the dqn and r2d2 nets' state
+    dicts; for dpg the {actor.*, critic.*} keys of one dict)."""
+    if family == "dpg":
+        return server_params(saved_params)
+    return dict(saved_params)
+
+
+def run_suite_eval(cfg, games: Iterable[str] | None = None,
+                   episodes_per_game: int | None = None,
+                   checkpoint_dir: str | None = None,
+                   max_frames: int = 108_000,
+                   device: str = "cuda") -> dict:
+    """Standalone evaluation (the CLI's --eval-only): build the net,
+    restore the newest checkpoint's params, and run greedy episodes —
+    the HNS suite for Atari configs, the config's own env otherwise. No
+    learner, no actors, no training state. Without a checkpoint the
+    freshly initialised params play (restored_step None). The summary
+    carries `params_crc32`, the fingerprint of the params that played."""
+    from ape_x_dqn_tpu_torch.models import build_network
+    from ape_x_dqn_tpu_torch.runtime.family import (
+        family_of, family_setup, server_apply_fn)
+    from ape_x_dqn_tpu_torch.utils.checkpoint import CheckpointManager
+    from ape_x_dqn_tpu_torch.utils.misc import resolve_device
+
+    if games is not None and cfg.env.kind not in ("atari",
+                                                  "synthetic_atari"):
+        # per-game Atari envs give 84x84x4 observations, which cannot
+        # feed a network sized for this config's own env
+        raise ValueError(
+            f"--games is only valid for Atari configs (env.kind 'atari' "
+            f"or 'synthetic_atari'), got kind={cfg.env.kind!r}")
+    dev = resolve_device(device)
+    family = family_of(cfg)
+    probe = make_env(cfg.env, seed=cfg.seed)
+    spec = probe.spec
+    net = build_network(cfg.network, spec)
+    family_setup(cfg, spec, net, probe.reset())
+    nets = net if family == "dpg" else (net,)
+    for module in nets:
+        module.to(dev)
+    params = (server_params({name: m.state_dict()
+                             for name, m in zip(PARTS, net)})
+              if family == "dpg" else net.state_dict())
+    params = {k: v.detach() for k, v in params.items()}
+    restored_step = None
+    if checkpoint_dir:
+        mngr = CheckpointManager(checkpoint_dir)
+        restored_step = mngr.latest_step()
+        if restored_step is not None:
+            # no template: only the params are needed from the payload
+            raw = mngr.restore(restored_step)
+            params = {k: v.to(dev) for k, v in checkpoint_server_params(
+                family, raw["params"]).items()}
+        mngr.close()
+    fn = server_apply_fn(family, net)
+
+    def to_dev(x):
+        return torch.as_tensor(np.asarray(x))[None].to(dev)
+
+    @torch.no_grad()
+    def query(inp):
+        batched = ({k: to_dev(v) for k, v in inp.items()}
+                   if isinstance(inp, dict) else to_dev(inp))
+        out = fn(params, batched)
+        if isinstance(out, dict):
+            return {k: v[0].float().cpu().numpy() for k, v in out.items()}
+        return out[0].float().cpu().numpy()
+
+    factory = make_eval_policy_factory(family, cfg.network.lstm_size,
+                                       query)
+    if games is None and cfg.env.kind not in ("atari", "synthetic_atari"):
+        worker = EvalWorker(cfg, query, policy_factory=factory)
+        out = worker.run(max(episodes_per_game or cfg.eval_episodes, 1),
+                         max_frames)
+    else:
+        out = evaluate_suite(cfg, query, games=games,
+                             episodes_per_game=episodes_per_game,
+                             max_frames=max_frames,
+                             policy_factory=factory)
+    out["restored_step"] = restored_step
+    out["params_crc32"] = params_crc32(params)
+    return out
+
+
+def params_crc32(params: dict) -> int:
+    """One CRC-32 over a param dict's tensors, in sorted key order: the
+    eval-only summary's fingerprint of the params it played, comparable
+    bitwise with a checkpoint's."""
+    import zlib
+
+    crc = 0
+    for k in sorted(params):
+        t = params[k].detach().to("cpu").contiguous().reshape(-1)
+        crc = zlib.crc32(k.encode(), crc)
+        crc = zlib.crc32(t.view(torch.uint8).numpy(), crc)
+    return crc

@@ -4,7 +4,12 @@ Counterpart of ``ape_x_dqn_tpu/runtime/ingest.py``. Preallocated,
 fixed-shape staging buffers replace per-batch list appends:
 
 - Each ingest message lands with ONE copy into a contiguous staging
-  row at a write cursor.
+  row at a write cursor: a dict batch (local actors) by slice
+  assignment, a `WireBatch` from the socket transport by
+  ``decode_into`` straight out of the received payload (inflate and
+  delta-undo in the staging rows, no intermediate arrays). A
+  `ShmSlotBatch` hands its shared-memory slot back once its bytes are
+  in staging.
 - Double buffering: while buffer N's host-to-device copy is in flight,
   the next batches land in buffer N+1; the stager waits on buffer N's
   copy only when it is about to overwrite that memory.
@@ -95,10 +100,13 @@ class IngestStager:
                 ev.synchronize()
             self._inflight[i] = []
 
-    def put(self, batch: dict) -> None:
-        """Stage one ingest message (a dict of arrays), splitting across
-        buffer boundaries; full buffers ship as one coalesced add_many."""
-        total = int(np.shape(batch["priorities"])[0])
+    def put(self, batch) -> None:
+        """Stage one ingest message (a WireBatch or a dict of arrays),
+        splitting across buffer boundaries; full buffers ship as one
+        coalesced add_many."""
+        wire = hasattr(batch, "decode_into")
+        total = batch.rows if wire \
+            else int(np.shape(batch["priorities"])[0])
         start = 0
         put_ms = 0.0
         while start < total:
@@ -106,9 +114,12 @@ class IngestStager:
             buf = self._bufs[self._active]
             k = min(total - start, self.rows - self._cursor)
             t0 = time.perf_counter()
-            for key in self._keys:
-                buf[key][self._cursor:self._cursor + k] = \
-                    np.asarray(batch[key])[start:start + k]
+            if wire:
+                batch.decode_into(buf, self._cursor, start, k)
+            else:
+                for key in self._keys:
+                    buf[key][self._cursor:self._cursor + k] = \
+                        np.asarray(batch[key])[start:start + k]
             put_ms += (time.perf_counter() - t0) * 1e3
             self._cursor += k
             start += k
@@ -116,6 +127,11 @@ class IngestStager:
                 self._ship_buffer()
         self.last_put_decode_ms = put_ms
         self.decode_ms += put_ms
+        # a shm slot batch aliases a shared-memory ring slot: its bytes
+        # are in staging now, so the slot goes back to the writer
+        rel = getattr(batch, "release", None)
+        if rel is not None:
+            rel()
 
     def _ship_buffer(self) -> None:
         """Full buffer -> one add_many; rotate to the next buffer while

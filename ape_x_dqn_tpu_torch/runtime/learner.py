@@ -62,6 +62,73 @@ class TrainState:
                                # opt_state.count holds the same count
 
 
+def checkpoint_tree(state, with_replay: bool = False) -> dict:
+    """A train state (`TrainState`, or runtime/dpg_learner.py's
+    `DPGTrainState`) as a checkpoint payload of its LIVE tensors (no
+    copies): "params", "target_params", "opt_state" (DPG: each keyed by
+    "actor" and "critic"), "rng" (the generator's state), "step", and
+    "replay" (storage, sum-tree, cursor, fill) when asked."""
+
+    def adam(opt) -> dict:
+        return {"count": opt.count, "mu": list(opt.mu), "nu": list(opt.nu)}
+
+    if hasattr(state, "actor"):
+        params = {"actor": state.actor.state_dict(),
+                  "critic": state.critic.state_dict()}
+        target = {"actor": state.target_actor.state_dict(),
+                  "critic": state.target_critic.state_dict()}
+        opt = {"actor": adam(state.actor_opt),
+               "critic": adam(state.critic_opt)}
+    else:
+        params = state.net.state_dict()
+        target = state.target_net.state_dict()
+        opt = adam(state.opt_state)
+    tree = {"params": params, "target_params": target, "opt_state": opt,
+            "rng": state.generator.get_state(), "step": int(state.step)}
+    if with_replay:
+        r = state.replay
+        tree["replay"] = {"storage": dict(r.storage), "tree": r.tree,
+                          "pos": int(r.pos), "size": int(r.size)}
+    return tree
+
+
+@torch.no_grad()
+def restore_checkpoint_tree(state, tree: dict) -> None:
+    """Write a `checkpoint_tree` payload back into `state` IN PLACE:
+    the captured CUDA graphs read the state's tensors at fixed
+    addresses, so every value is copied into the tensor that holds it
+    (``load_state_dict``, ``copy_``), never rebound. That includes
+    Adam's device count, which also keys the masked hard target sync;
+    the replay's cursor and fill go through their setters, which
+    refresh the device mirrors the graphs read."""
+
+    def adam(opt, saved: dict) -> None:
+        opt.count.copy_(saved["count"])
+        for t, v in zip(opt.mu, saved["mu"]):
+            t.copy_(v)
+        for t, v in zip(opt.nu, saved["nu"]):
+            t.copy_(v)
+
+    if hasattr(state, "actor"):
+        for name in ("actor", "critic"):
+            getattr(state, name).load_state_dict(tree["params"][name])
+            getattr(state, f"target_{name}").load_state_dict(
+                tree["target_params"][name])
+            adam(getattr(state, f"{name}_opt"), tree["opt_state"][name])
+    else:
+        state.net.load_state_dict(tree["params"])
+        state.target_net.load_state_dict(tree["target_params"])
+        adam(state.opt_state, tree["opt_state"])
+    if "replay" in tree:
+        r, saved = state.replay, tree["replay"]
+        for k, v in saved["storage"].items():
+            r.storage[k].copy_(v)
+        r.tree.copy_(saved["tree"])
+        r.pos, r.size = int(saved["pos"]), int(saved["size"])
+    state.generator.set_state(tree["rng"])
+    state.step = int(tree["step"])
+
+
 def transition_item_spec(obs_shape, obs_dtype) -> dict[str, ItemSpec]:
     """Item spec for one flat n-step transition (discrete actions)."""
     obs = ItemSpec(tuple(obs_shape), torch_dtype(obs_dtype))

@@ -9,16 +9,27 @@ preset and overrides any field:
         --wall-clock-limit 120
     python -m ape_x_dqn_tpu_torch.runtime.train --config cartpole_smoke \\
         --single-process --device cpu
+    python -m ape_x_dqn_tpu_torch.runtime.train --config pong --actors 0 \\
+        --listen 127.0.0.1:0 --checkpoint-dir runs/ckpt  # + actor hosts
+    python -m ape_x_dqn_tpu_torch.runtime.train --config pong \\
+        --eval-only --checkpoint-dir runs/ckpt --games Pong,Breakout
 
 The default mode runs the threaded Ape-X driver (`ApexDriver`: actors,
 the batched inference server, ingest staging and the learner);
 `--single-process` runs `train_single_process`. Either prints one
 summary JSON line on stdout when the run ends; the driver's carries
 `actor_errors` and `loop_errors` as strings, and the CLI exits 1 when
-either is non-empty. `--device` (default cuda) is the device it runs
-on. The original's other modes are not ported yet; each exits 2 naming
-the ROADMAP Queue A item it waits for, rather than running without what
-it asked for.
+either is non-empty. `--listen HOST:PORT` also accepts remote actor
+hosts (runtime/actor_host.py) and prints the bound port on stderr (port
+0 picks a free one); `--checkpoint-dir` saves and resumes the train
+state; `--eval-only` restores the newest checkpoint's params and prints
+one JSON line of greedy scores (the suite's median HNS for Atari
+configs, over `--games`). `--device` (default cuda) is the device it
+runs on. The original's other modes are not ported yet; each exits 2
+naming the ROADMAP Queue A item it waits for, rather than running
+without what it asked for. For the same reason `--single-process`
+refuses `--listen` and `--checkpoint-dir` (exit 2), which the one-process
+trainer has no use for.
 """
 
 from __future__ import annotations
@@ -88,17 +99,11 @@ def apply_overrides(cfg: RunConfig, sets: list[str]) -> RunConfig:
 # the original's modes and options that have no port yet:
 # (argparse dest, what it asks for, the ROADMAP Queue A item it waits for)
 _NOT_PORTED = (
-    ("listen", "--listen (remote actor hosts over TCP)", 11),
     ("coordinator", "--coordinator (the multi-host learner)", 14),
     ("num_processes", "--num-processes (the multi-host learner)", 14),
     ("process_id", "--process-id (the multi-host learner)", 14),
-    ("eval_only", "--eval-only (greedy suite evaluation from a "
-                  "checkpoint)", 11),
-    ("games", "--games (greedy suite evaluation from a checkpoint)", 11),
-    ("checkpoint_dir", "--checkpoint-dir (utils/checkpoint.py)", 11),
     ("profile_dir", "--profile-dir (the profiler capture)", 17),
     ("compilation_cache_dir", "--compilation-cache-dir", 17),
-    ("param_wire_dtype", "--param-wire-dtype (the param broadcast)", 11),
 )
 
 
@@ -127,14 +132,28 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--wall-clock-limit", type=float, default=None,
                     metavar="SECONDS",
                     help="stop the driver after this many seconds")
+    ap.add_argument("--checkpoint-dir", default=None,
+                    help="save the train state here every "
+                         "checkpoint_every grad-steps and at the end, and "
+                         "resume from the newest checkpoint it holds")
+    ap.add_argument("--eval-only", action="store_true",
+                    help="no training: restore the newest checkpoint and "
+                         "run greedy eval (the HNS suite for Atari "
+                         "configs); prints one JSON line")
+    ap.add_argument("--games", default=None, metavar="G1,G2,...",
+                    help="with --eval-only: comma-separated ALE games "
+                         "(default: all 57)")
+    ap.add_argument("--param-wire-dtype", default="bfloat16",
+                    choices=("bfloat16", "float32"),
+                    help="dtype for float params on the wire with "
+                         "--listen: bf16 halves the broadcast bytes "
+                         "(receivers upcast; values carry bf16 rounding "
+                         "only); float32 is bit-exact")
+    ap.add_argument("--listen", default=None, metavar="HOST:PORT",
+                    help="also accept remote actor hosts over TCP (port "
+                         "0: a free one, printed on stderr)")
     # not ported yet: accepted so that a request for them fails loudly
-    ap.add_argument("--checkpoint-dir", default=None)
     ap.add_argument("--profile-dir", default=None)
-    ap.add_argument("--eval-only", action="store_true")
-    ap.add_argument("--games", default=None, metavar="G1,G2,...")
-    ap.add_argument("--param-wire-dtype", default=None,
-                    choices=("bfloat16", "float32"))
-    ap.add_argument("--listen", default=None, metavar="HOST:PORT")
     ap.add_argument("--coordinator", default=None, metavar="HOST:PORT")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
@@ -155,6 +174,16 @@ def main(argv: list[str] | None = None) -> int:
                   f"waits for ROADMAP Queue A item {item}",
                   file=sys.stderr)
             return 2
+    if args.single_process:
+        for flag, value in (("--listen", args.listen),
+                            ("--checkpoint-dir", args.checkpoint_dir)):
+            if value is not None:
+                print(f"{flag} is not supported with --single-process: "
+                      f"the one-process trainer takes no remote actor "
+                      f"hosts and saves no checkpoints (ROADMAP Queue C); "
+                      f"run the driver (drop --single-process)",
+                      file=sys.stderr)
+                return 2
     cfg = get_config(args.config)
     if args.seed is not None:
         cfg = cfg.replace(seed=args.seed)
@@ -163,11 +192,37 @@ def main(argv: list[str] | None = None) -> int:
             actors=dataclasses.replace(cfg.actors, num_actors=args.actors))
     if args.total_env_frames is not None:
         cfg = cfg.replace(total_env_frames=args.total_env_frames)
+    if args.checkpoint_dir is not None:
+        cfg = cfg.replace(checkpoint_dir=args.checkpoint_dir)
     cfg = apply_overrides(cfg, args.set)
+
+    if args.eval_only:
+        from ape_x_dqn_tpu_torch.runtime.evaluation import run_suite_eval
+        out = run_suite_eval(
+            cfg, games=args.games.split(",") if args.games else None,
+            checkpoint_dir=args.checkpoint_dir or cfg.checkpoint_dir
+            or None, device=args.device)
+        print(json.dumps(out))
+        return 0
 
     metrics = Metrics(log_path=args.metrics_file,
                       tensorboard_dir=args.tensorboard_dir)
+    server = None
     try:
+        if args.listen and not args.single_process:
+            from ape_x_dqn_tpu_torch.comm.socket_transport import (
+                SocketIngestServer)
+            host, port = args.listen.rsplit(":", 1)
+            comm = cfg.comm
+            server = SocketIngestServer(
+                host, int(port), param_wire_dtype=args.param_wire_dtype,
+                wire_codec=comm.wire_codec, param_codec=comm.param_codec,
+                param_delta_window=comm.param_delta_window, shm=comm.shm,
+                shm_slots=comm.shm_slots,
+                shm_slot_bytes=comm.shm_slot_bytes,
+                shm_param_bytes=comm.shm_param_bytes)
+            print(f"ingest listening on {host}:{server.port}",
+                  file=sys.stderr, flush=True)
         if args.single_process:
             from ape_x_dqn_tpu_torch.runtime.single_process import (
                 train_single_process)
@@ -175,7 +230,8 @@ def main(argv: list[str] | None = None) -> int:
                                        device=args.device)
         else:
             from ape_x_dqn_tpu_torch.runtime.driver import ApexDriver
-            driver = ApexDriver(cfg, metrics=metrics, device=args.device)
+            driver = ApexDriver(cfg, metrics=metrics, transport=server,
+                                device=args.device)
             out = dict(driver.run(max_grad_steps=args.max_grad_steps,
                                   wall_clock_limit_s=args.wall_clock_limit))
             # the summary stays one parseable JSON line
@@ -184,6 +240,8 @@ def main(argv: list[str] | None = None) -> int:
             out["loop_errors"] = [f"{which}: {e!r}"
                                   for which, e in out["loop_errors"]]
     finally:
+        if server is not None:
+            server.stop()
         metrics.close()
     print(json.dumps(out))
     failed = bool(out.get("actor_errors") or out.get("loop_errors"))

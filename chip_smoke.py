@@ -81,7 +81,36 @@ non-zero:
              its captured one-step graph; then the learner alone on the
              run's replay, eager and as a graph. There is no pixel leaf,
              so no gather site.
-11. the kernels line, the card line, and the contract's last line.
+11. remote    the learner in this process through `python -m
+             ape_x_dqn_tpu_torch.runtime.train --config pong --actors 0
+             --listen 127.0.0.1:0 --set comm.shm=true --checkpoint-dir
+             <tmp> --set checkpoint_every=32 --set
+             learner.publish_every=16 --total-env-frames 60000
+             --wall-clock-limit 150`, fed by two `python -m
+             ape_x_dqn_tpu_torch.runtime.actor_host --config pong`
+             processes on the card (4 vector actors x 16 envs each,
+             actor offsets 0 and 4, 6,000 frames per actor: the apex
+             phase's 8 x 16 fleet): host A over shared memory, host B
+             over TCP (comm.shm=false on its side); frames from both
+             hosts reach replay, both pull params past version 0, host
+             A's shared-memory bytes > 0 and host B's 0; launch counts
+             zeroed just before and read just after (two gather
+             launches per draw, the graph replayed); frames/s, drops,
+             host ms per ingest add (beside apex's), wire bytes per
+             frame, param bytes per pull, publications and checkpoint
+             saves; no driver thread and no /dev/shm segment left
+12. resume   a second CLI run over the same checkpoint directory with the
+             preset's 8 local vector actors (`--set replay.min_fill=2048
+             --set learner.steps_per_frame_cap=None`, 16 grad-steps past
+             the saved step): params, target params and Adam state equal
+             the newest file bitwise before the first train call, the
+             grad-step counter goes on from the saved step, the learner
+             captures after the restore and replays
+13. eval-only `--config pong --eval-only --checkpoint-dir <tmp> --games
+             pong,breakout`: one summary with median_hns_synthetic (no
+             ale_py on the card's machine) and no median_hns, the
+             restored params the checkpoint's (CRC-32)
+14. the kernels line, the card line, and the contract's last line.
 
 It imports torch and the port only: no JAX, nothing of ape_x_dqn_tpu.
 """
@@ -94,8 +123,11 @@ import gc
 import io
 import json
 import math
+import os
+import shutil
 import subprocess
 import sys
+import tempfile
 import threading
 import time
 
@@ -116,6 +148,29 @@ RATE_STEPS = 8
 R2D2_ALONE = 4
 # dpg: grad-steps of the learner alone after the driver's run
 DPG_ALONE = 64
+# the entry points' device (the CLI's and the actor hosts')
+DEVICE = "cuda"
+# remote: two actor hosts of 4 vector actors (the apex fleet's 8 x 16),
+# 6,000 frames per actor (48,000 in all: ~76 grad-steps at the preset's
+# 1.6e-3 per frame, so publications every 16 and checkpoints every 32
+# grad-steps both happen)
+REMOTE_HOST_ACTORS = 4
+REMOTE_FRAMES_PER_ACTOR = 6000
+REMOTE_WALL_S = 150
+REMOTE_HOST_TIMEOUT_S = 120
+REMOTE_SETS = ("comm.shm=true", "checkpoint_every=32",
+               "learner.publish_every=16")
+REMOTE_HOST_SETS: tuple[str, ...] = ()
+# resume: grad-steps past the saved step; the replay is not saved, so
+# the run refills a small min_fill, then trains at the preset's pace
+# (a dispatch of 8 grad-steps starts while this run's steps are under
+# 1.6e-3 x its frames: 16 steps take ~5,000 frames)
+RESUME_MORE = 16
+RESUME_WALL_S = 120
+RESUME_SETS = ("replay.min_fill=2048",)
+# eval-only: two games of the score table
+EVAL_GAMES = "pong,breakout"
+EVAL_SETS: tuple[str, ...] = ()
 
 
 def log(msg: str) -> None:
@@ -1217,6 +1272,407 @@ def phase_dpg(seed: int) -> None:
     torch.cuda.empty_cache()
 
 
+def shm_left(names: set[str]) -> list[str]:
+    """Those of the shared-memory segments `names` still in /dev/shm."""
+    return sorted(n for n in names
+                  if os.path.exists(os.path.join("/dev/shm", n.lstrip("/"))))
+
+
+def spawn_actor_host(port: int, offset: int, shm: bool,
+                     sets: tuple[str, ...]) -> subprocess.Popen:
+    """One `python -m ape_x_dqn_tpu_torch.runtime.actor_host` process:
+    REMOTE_HOST_ACTORS vector actors of the pong preset's 16 envs at
+    global actor indices [offset, offset + REMOTE_HOST_ACTORS), its own
+    inference server on the card, comm.shm as asked."""
+    argv = [sys.executable, "-m", "ape_x_dqn_tpu_torch.runtime.actor_host",
+            "--config", "pong", "--connect", f"127.0.0.1:{port}",
+            "--actors", str(REMOTE_HOST_ACTORS), "--actor-offset",
+            str(offset), "--frames-per-actor", str(REMOTE_FRAMES_PER_ACTOR),
+            "--device", DEVICE, "--set", f"comm.shm={str(shm).lower()}"]
+    for s in sets:
+        argv += ["--set", s]
+    return subprocess.Popen(argv, stdout=subprocess.PIPE,
+                            stderr=subprocess.PIPE, text=True,
+                            cwd=os.path.dirname(os.path.abspath(__file__)))
+
+
+def host_result(proc: subprocess.Popen, name: str) -> dict:
+    try:
+        out, err = proc.communicate(timeout=REMOTE_HOST_TIMEOUT_S)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        raise RuntimeError(f"check failed: actor host {name} did not end "
+                           f"within {REMOTE_HOST_TIMEOUT_S} s: "
+                           f"{err[-2000:]}")
+    check(proc.returncode == 0,
+          f"actor host {name} exited {proc.returncode}: {err[-3000:]}")
+    return json.loads(out.strip().splitlines()[-1])
+
+
+def phase_remote(seed: int, ckpt_dir: str) -> dict:
+    """The learner in this process through the CLI with `--listen` and no
+    local actors, fed by two actor-host processes on the card: host A
+    over shared memory, host B over TCP (comm.shm=false on its side).
+    Wrapped: SocketIngestServer.__init__ starts the hosts once the port
+    is bound, the shared-memory ring, the param area and the hosts'
+    namespace probes record their segments' names (the leak check
+    looks at those alone), DQNLearner.train_many counts macro-steps and stamps the
+    training window, BatchedInferenceServer.update_params counts
+    publications, ApexDriver.__init__ keeps the driver. -> the launch
+    counts of this run and the checkpoint step it left."""
+    from ape_x_dqn_tpu_torch.comm import native as comm_native
+    from ape_x_dqn_tpu_torch.comm import shm_transport
+    from ape_x_dqn_tpu_torch.comm.param_codec import ParamBlobProvider
+    from ape_x_dqn_tpu_torch.comm.socket_transport import SocketIngestServer
+    from ape_x_dqn_tpu_torch.ops import frame_gather as fg
+    from ape_x_dqn_tpu_torch.parallel.inference_server import (
+        BatchedInferenceServer)
+    from ape_x_dqn_tpu_torch.runtime.driver import ApexDriver
+    from ape_x_dqn_tpu_torch.runtime.learner import DQNLearner
+
+    check(comm_native.available(), "the native framing codec did not "
+          "build: the remote phase must run the native wire path")
+    k = 4
+    calls = {"publications": 0, "train_many": 0, "macro": 0, "singles": 0,
+             "first_s": None, "last_s": None, "dropped_at_first": 0,
+             "frames_at_first": 0, "run_s": None}
+    seen: dict = {}
+    hosts: dict[str, subprocess.Popen] = {}
+    orig = (SocketIngestServer.__init__, DQNLearner.train_many,
+            BatchedInferenceServer.update_params, ApexDriver.__init__,
+            ApexDriver.run)
+    orig_shm = (shm_transport.ShmRingServer.__init__,
+                shm_transport.ShmParamArea.__init__,
+                shm_transport.check_probe)
+    segs: dict[str, set[str]] = {"ring": set(), "params": set(),
+                                 "probe": set()}
+
+    def ring_init(self, *a, **kw):
+        orig_shm[0](self, *a, **kw)
+        segs["ring"].add(self.name)
+
+    def area_init(self, *a, **kw):
+        orig_shm[1](self, *a, **kw)
+        segs["params"].add(self.name)
+
+    def check_probe(name, *a, **kw):
+        segs["probe"].add(str(name))
+        return orig_shm[2](name, *a, **kw)
+
+    def server_init(self, *a, **kw):
+        orig[0](self, *a, **kw)
+        hosts["A"] = spawn_actor_host(self.port, 0, True, REMOTE_HOST_SETS)
+        hosts["B"] = spawn_actor_host(self.port, REMOTE_HOST_ACTORS, False,
+                                      REMOTE_HOST_SETS)
+
+    def train_many(self, state, n, noise=None):
+        if calls["first_s"] is None:
+            calls["first_s"] = time.perf_counter()
+            calls["dropped_at_first"] = seen["driver"].transport.dropped
+            calls["frames_at_first"] = seen["driver"]._frames_total
+        out = orig[1](self, state, n, noise)
+        calls["last_s"] = time.perf_counter()
+        calls["train_many"] += 1
+        calls["macro"] += n // k
+        calls["singles"] += n % k
+        return out
+
+    def update_params(self, params, version):
+        calls["publications"] += 1
+        return orig[2](self, params, version)
+
+    def driver_init(self, *a, **kw):
+        orig[3](self, *a, **kw)
+        seen["driver"] = self
+
+    def driver_run(self, *a, **kw):
+        calls["run_s"] = time.perf_counter()
+        return orig[4](self, *a, **kw)
+
+    argv = ["--config", "pong", "--seed", str(seed), "--actors", "0",
+            "--listen", "127.0.0.1:0", "--checkpoint-dir", ckpt_dir,
+            "--total-env-frames", "60000", "--wall-clock-limit",
+            str(REMOTE_WALL_S), "--device", DEVICE]
+    for s in REMOTE_SETS:
+        argv += ["--set", s]
+    threads_before = {t.ident for t in threading.enumerate()}
+    torch.cuda.synchronize()
+    (shm_transport.ShmRingServer.__init__,
+     shm_transport.ShmParamArea.__init__,
+     shm_transport.check_probe) = (ring_init, area_init, check_probe)
+    (SocketIngestServer.__init__, DQNLearner.train_many,
+     BatchedInferenceServer.update_params, ApexDriver.__init__,
+     ApexDriver.run) = (server_init, train_many, update_params,
+                        driver_init, driver_run)
+    fg.gather_rows.launches = 0       # count the main path's run only
+    try:
+        with timed_adds() as adds:
+            out, wall = run_cli(argv)
+        hout = {name: host_result(p, name) for name, p in hosts.items()}
+    finally:
+        (SocketIngestServer.__init__, DQNLearner.train_many,
+         BatchedInferenceServer.update_params, ApexDriver.__init__,
+         ApexDriver.run) = orig
+        (shm_transport.ShmRingServer.__init__,
+         shm_transport.ShmParamArea.__init__,
+         shm_transport.check_probe) = orig_shm
+        for p in hosts.values():
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    launches = {"gather_rows": fg.gather_rows.launches}
+    left = [t.name for t in threading.enumerate()
+            if t.ident not in threads_before]
+    segs_left = shm_left(set().union(*segs.values()))
+    driver = seen.pop("driver")
+    wire = out["wire"]
+    by_actor = {int(a): n for a, n in out["frames_by_actor"].items()}
+    frames_a = sum(n for a, n in by_actor.items() if a < REMOTE_HOST_ACTORS)
+    frames_b = sum(n for a, n in by_actor.items() if a >= REMOTE_HOST_ACTORS)
+    train_s = (calls["last_s"] - calls["first_s"]
+               if calls["first_s"] is not None else 0.0)
+    fill_fps = (calls["frames_at_first"]
+                / max((calls["first_s"] or 0.0) - calls["run_s"], 1e-9))
+    # what one pull would cost as a full, coded and raw, for the
+    # run's final params (the denominator of host B's bytes per pull)
+    prov = ParamBlobProvider("bfloat16", "delta-q8")
+    prov.publish({key: v.detach().cpu().numpy() for key, v in
+                  driver.learner.publish_params(driver.state).items()}, 0)
+    full_coded = len(prov.coded_reply(-1, -1, 0)[0])
+    full_raw = len(prov.versioned_reply(-1, -1, 0)[0])
+    a, b = hout["A"], hout["B"]
+    # host B's pulls after its first (full) one: deltas and
+    # header-only "unchanged" replies
+    b_pulls = max(b["param_pulls_applied"], 1)
+    b_delta = b["param_bytes_in"] - b["param_bytes_bootstrap"]
+    log(f"remote: `{' '.join(argv)}` with two actor hosts of "
+        f"{REMOTE_HOST_ACTORS} vector actors x 16 envs each on the card "
+        f"(`--frames-per-actor {REMOTE_FRAMES_PER_ACTOR}`; host A "
+        f"comm.shm=true, host B comm.shm=false); frames={out['frames']} "
+        f"(host A {frames_a}, host B {frames_b}) frames/s reaching replay="
+        f"{out['frames'] / wall:.1f} over the run, "
+        f"{fill_fps:.1f} before the first train dispatch; grad_steps={out['grad_steps']} "
+        f"in {calls['train_many']} train_many calls ({calls['macro']} "
+        f"macro-steps) over {train_s:.2f} s; ingest_dropped="
+        f"{out['ingest_dropped']} ({calls['dropped_at_first']} transport "
+        f"batches before the first train dispatch); {adds_summary(adds)}; "
+        f"wire: host B {b['bytes_out']} B on TCP for {b['frames']} "
+        f"frames ({b['bytes_out'] / max(b['frames'], 1):.1f} B/frame, "
+        f"codec ratio {b['wire_compression_ratio']:.3f}), host A "
+        f"{a['shm_bytes_out']} B through {a['shm_posts']} shared-memory "
+        f"slots and {a['bytes_out']} B in {a['shm_fallbacks']} TCP "
+        f"fallbacks for {a['frames']} frames "
+        f"({(a['shm_bytes_out'] + a['bytes_out']) / max(a['frames'], 1):.1f}"
+        f" B/frame); learner side: {wire['bytes_in']} B on TCP (decoded "
+        f"{wire['raw_bytes_in']}), {wire['shm_bytes_in']} B in "
+        f"{wire['shm_doorbells']} doorbells, {wire['shm_torn_slots']} torn; "
+        f"params: host B "
+        f"{b['param_bytes_bootstrap']} B in its first pull (a full), then "
+        f"{b_delta} B for {b['param_pulls_applied']} applied pulls "
+        f"({b_delta / b_pulls:.0f} B per pull, delta-q8, "
+        f"{b['param_resyncs']} resyncs) against a full of {full_coded} B "
+        f"coded / {full_raw} B raw; server param bytes out "
+        f"{wire['param_bytes_out']} (uncoded "
+        f"{wire['param_raw_bytes_out']}, ratio "
+        f"{wire['param_compression_ratio']:.3f}); host A "
+        f"{a['shm_param_reads']} seqlock param reads; last versions A "
+        f"{a['last_param_version']} B {b['last_param_version']}; "
+        f"publications={calls['publications']}; checkpoint saves="
+        f"{out['checkpoint_saves']}; shared-memory segments made "
+        f"{ {kind: len(v) for kind, v in segs.items()} }, "
+        f"{len(segs_left)} left; launches={launches}; "
+        f"host A={json.dumps(a)}; host B={json.dumps(b)}; "
+        f"summary={json.dumps(out)}; {wall:.2f} s")
+    check(out["actor_errors"] == [] and out["loop_errors"] == [],
+          f"actor_errors {out['actor_errors']}, loop_errors "
+          f"{out['loop_errors']}")
+    check(a["errors"] == [] and b["errors"] == [],
+          f"actor host errors: A {a['errors']} B {b['errors']}")
+    check(frames_a > 0 and frames_b > 0,
+          f"frames from both hosts must reach replay: {by_actor}")
+    check(a["last_param_version"] > 0 and b["last_param_version"] > 0,
+          f"each host must pull params past version 0: A "
+          f"{a['last_param_version']} B {b['last_param_version']}")
+    check(a["shm_negotiated"] and a["shm_bytes_out"] > 0
+          and wire["shm_bytes_in"] == a["shm_bytes_out"],
+          f"host A's shared-memory bytes: {a}, the learner's {wire}")
+    check(b["shm_bytes_out"] == 0 and b["shm_posts"] == 0,
+          f"host B (comm.shm=false) used shared memory: {b}")
+    check(out["grad_steps"] >= 32, f"grad_steps {out['grad_steps']} < 32")
+    check(out["grad_steps"] == k * calls["macro"] + calls["singles"],
+          f"grad_steps {out['grad_steps']} != the train_many calls' "
+          f"{calls['macro']} macro-steps + {calls['singles']} singles")
+    want = 2 * (calls["macro"] + calls["singles"])
+    check(launches["gather_rows"] == want,
+          f"gather_rows launched {launches['gather_rows']} times, expected "
+          f"{want} (2 per draw)")
+    check(calls["publications"] >= 1, "no param publication")
+    check(out["checkpoint_saves"] >= 2, "fewer than two checkpoint saves")
+    check_graphed(driver, ("k", k), gathers=2)
+    check(not left, f"driver threads still running after the run: {left}")
+    check(segs["ring"] and segs["probe"],
+          f"host A's shared-memory ring and probe were not seen: {segs}")
+    check(not segs_left, f"shared-memory segments left behind: {segs_left}")
+    step = out["grad_steps"]
+    del driver
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {**launches, "step": step}
+
+
+def newest_checkpoint(ckpt_dir: str) -> tuple[int, dict]:
+    from ape_x_dqn_tpu_torch.utils.checkpoint import CheckpointManager
+
+    mngr = CheckpointManager(ckpt_dir)
+    step = mngr.latest_step()
+    check(step is not None, f"no checkpoint in {ckpt_dir}")
+    return step, mngr.restore(step)
+
+
+def phase_resume(seed: int, ckpt_dir: str, saved_step: int) -> dict:
+    """A second CLI run over the remote phase's checkpoint directory,
+    with the preset's 8 local vector actors, to RESUME_MORE grad-steps
+    past the saved step. Wrapped: DQNLearner.train_many compares the
+    learner's params, target params and Adam state with the newest
+    checkpoint file, bitwise, before the first train call, and counts
+    macro-steps; ApexDriver.__init__ keeps the driver. -> launch
+    counts."""
+    from ape_x_dqn_tpu_torch.ops import frame_gather as fg
+    from ape_x_dqn_tpu_torch.runtime.driver import ApexDriver
+    from ape_x_dqn_tpu_torch.runtime.learner import (DQNLearner,
+                                                     checkpoint_tree)
+
+    step, saved = newest_checkpoint(ckpt_dir)
+    check(step == saved_step, f"newest checkpoint {step} != the remote "
+          f"run's last grad-step {saved_step}")
+    k = 4
+    calls = {"train_many": 0, "macro": 0, "singles": 0, "compared": None,
+             "restored_step": None}
+    seen: dict = {}
+    orig = (DQNLearner.train_many, ApexDriver.__init__)
+
+    def compare(state) -> list[str]:
+        live = checkpoint_tree(state)
+        bad = []
+        for part in ("params", "target_params"):
+            for name, t in saved[part].items():
+                if not torch.equal(live[part][name].detach().cpu(), t):
+                    bad.append(f"{part}/{name}")
+        opt = saved["opt_state"]
+        if not torch.equal(live["opt_state"]["count"].cpu(), opt["count"]):
+            bad.append("opt_state/count")
+        for key in ("mu", "nu"):
+            for i, (t, s) in enumerate(zip(live["opt_state"][key],
+                                           opt[key])):
+                if not torch.equal(t.cpu(), s):
+                    bad.append(f"opt_state/{key}/{i}")
+        return bad
+
+    def train_many(self, state, n, noise=None):
+        if calls["compared"] is None:
+            calls["compared"] = compare(state)
+            calls["captured_before"] = bool(self.step_graphs().get(
+                ("k", k)) and self.step_graphs()[("k", k)].captured)
+        out = orig[0](self, state, n, noise)
+        calls["train_many"] += 1
+        calls["macro"] += n // k
+        calls["singles"] += n % k
+        return out
+
+    def driver_init(self, *a, **kw):
+        orig[1](self, *a, **kw)
+        seen["driver"] = self
+        calls["restored_step"] = self._grad_steps_total
+
+    argv = ["--config", "pong", "--seed", str(seed), "--checkpoint-dir",
+            ckpt_dir, "--max-grad-steps", str(saved_step + RESUME_MORE),
+            "--total-env-frames", "60000", "--wall-clock-limit",
+            str(RESUME_WALL_S), "--device", DEVICE]
+    for s in RESUME_SETS:
+        argv += ["--set", s]
+    threads_before = {t.ident for t in threading.enumerate()}
+    (DQNLearner.train_many, ApexDriver.__init__) = (train_many, driver_init)
+    fg.gather_rows.launches = 0
+    try:
+        out, wall = run_cli(argv)
+    finally:
+        (DQNLearner.train_many, ApexDriver.__init__) = orig
+    launches = {"gather_rows": fg.gather_rows.launches}
+    left = [t.name for t in threading.enumerate()
+            if t.ident not in threads_before]
+    driver = seen.pop("driver")
+    log(f"resume: `{' '.join(argv)}`: restored step "
+        f"{calls['restored_step']} of {ckpt_dir}, params/target/Adam "
+        f"bitwise equal to the file before the first train call "
+        f"({'yes' if calls['compared'] == [] else calls['compared']}); "
+        f"grad_steps={out['grad_steps']} ({out['grad_steps'] - saved_step} "
+        f"after the restore, {calls['macro']} macro-steps); frames="
+        f"{out['frames']}; ingest_dropped={out['ingest_dropped']}; "
+        f"checkpoint saves={out['checkpoint_saves']}; launches={launches}; "
+        f"summary={json.dumps(out)}; {wall:.2f} s")
+    check(out["actor_errors"] == [] and out["loop_errors"] == [],
+          f"actor_errors {out['actor_errors']}, loop_errors "
+          f"{out['loop_errors']}")
+    check(calls["restored_step"] == saved_step,
+          f"the driver resumed at {calls['restored_step']}, the file holds "
+          f"{saved_step}")
+    check(calls["compared"] == [], f"restored state differs from the "
+          f"newest checkpoint: {calls['compared']}")
+    check(not calls["captured_before"], "a graph was captured before the "
+          "restore's first train call")
+    check(out["grad_steps"] >= saved_step + RESUME_MORE,
+          f"grad_steps {out['grad_steps']} did not go on from {saved_step}")
+    lc = driver.cfg.learner
+    cap, chunk = lc.steps_per_frame_cap, min(lc.train_chunk,
+                                             lc.publish_every)
+    check(cap is not None and out["grad_steps"] - saved_step
+          <= cap * out["frames"] + chunk,
+          f"the resumed run took {out['grad_steps'] - saved_step} "
+          f"grad-steps for {out['frames']} frames, past the preset's pace "
+          f"{cap}")
+    want = 2 * (calls["macro"] + calls["singles"])
+    check(launches["gather_rows"] == want,
+          f"gather_rows launched {launches['gather_rows']} times, expected "
+          f"{want} (2 per draw)")
+    check_graphed(driver, ("k", k), gathers=2)
+    step, _ = newest_checkpoint(ckpt_dir)
+    check(step == out["grad_steps"], f"the resumed run's final checkpoint "
+          f"is {step}, not {out['grad_steps']}")
+    check(not left, f"driver threads still running after the run: {left}")
+    del driver
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_eval_only(ckpt_dir: str) -> None:
+    """`--eval-only` over the resumed run's checkpoint directory: the
+    HNS suite harness on two games, through the restored params."""
+    from ape_x_dqn_tpu_torch.runtime.evaluation import params_crc32
+
+    step, saved = newest_checkpoint(ckpt_dir)
+    argv = ["--config", "pong", "--eval-only", "--checkpoint-dir", ckpt_dir,
+            "--games", EVAL_GAMES, "--device", DEVICE]
+    for s in EVAL_SETS:
+        argv += ["--set", s]
+    out, wall = run_cli(argv)
+    want_crc = params_crc32(saved["params"])
+    log(f"eval-only: `{' '.join(argv)}`: restored step "
+        f"{out['restored_step']}; scores={json.dumps(out['scores'])} "
+        f"backends={json.dumps(out['backends'])} median_hns_synthetic="
+        f"{out.get('median_hns_synthetic')}; params crc32 "
+        f"{out['params_crc32']} (the file's {want_crc}); {wall:.2f} s")
+    check(out["restored_step"] == step,
+          f"restored step {out['restored_step']} != newest {step}")
+    check("median_hns_synthetic" in out and "median_hns" not in out,
+          f"expected median_hns_synthetic and no median_hns: {out}")
+    check(set(out["scores"]) == set(EVAL_GAMES.split(",")),
+          f"scores for {sorted(out['scores'])}")
+    check(out["params_crc32"] == want_crc, "the params that played are not "
+          "the checkpoint's")
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1262,6 +1718,21 @@ def main() -> int:
     t0 = time.perf_counter()
     phase_dpg(args.seed)
     log(f"dpg: {time.perf_counter() - t0:.2f} s")
+    # 11.-13. remote actor hosts, then resume and eval-only from the
+    # checkpoints the remote run left
+    ckpt_dir = tempfile.mkdtemp(prefix="apex-chip-smoke-ckpt-")
+    try:
+        t0 = time.perf_counter()
+        remote = phase_remote(args.seed, ckpt_dir)
+        log(f"remote: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        resume = phase_resume(args.seed, ckpt_dir, remote["step"])
+        log(f"resume: {time.perf_counter() - t0:.2f} s")
+        t0 = time.perf_counter()
+        phase_eval_only(ckpt_dir)
+        log(f"eval-only: {time.perf_counter() - t0:.2f} s")
+    finally:
+        shutil.rmtree(ckpt_dir, ignore_errors=True)
 
     # one entry per kernel; its top-level numbers are the flat replay's
     # call site at its real size (flat_full), `sites` has all four
@@ -1272,8 +1743,10 @@ def main() -> int:
     for site in sites:
         check(site["launches"] > 0, f"gather_rows never launched on the "
               f"{site['site']} path")
-    check(apex["gather_rows"] > 0, "gather_rows never launched on the apex "
-          "path")
+    for path, counts in (("apex", apex), ("remote", remote),
+                         ("resume", resume)):
+        check(counts["gather_rows"] > 0, f"gather_rows never launched on "
+              f"the {path} path")
     top = sites[2]
     kern = {"name": "gather_rows", "route": "cuda",
             "source": "ape_x_dqn_tpu_torch/csrc/frame_gather.cu",
@@ -1282,7 +1755,9 @@ def main() -> int:
             "launches_by_path": {"main": ring["gather_rows"],
                                  "apex": apex["gather_rows"],
                                  "r2d2": r2d2["gather_rows"],
-                                 "pong-sp": flat["gather_rows"]},
+                                 "pong-sp": flat["gather_rows"],
+                                 "remote": remote["gather_rows"],
+                                 "resume": resume["gather_rows"]},
             "max_abs_err": max(s_["max_abs_err"] for s_ in sites),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": "bytes",

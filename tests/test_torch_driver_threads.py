@@ -207,7 +207,6 @@ def test_driver_refuses_what_is_not_ported():
     base = _tiny_cfg()
     for cfg, item in (
             (base.replace(parallel=ParallelConfig(dp=2, tp=1)), 14),
-            (base.replace(checkpoint_dir="ck"), 11),
             (base.replace(profile_dir="prof"), 17),
             (base.replace(replay=ReplayConfig(
                 kind="prioritized", capacity=2048, ingest_zero_copy=False)),
@@ -253,11 +252,6 @@ def test_cli_exits_1_on_a_loop_error(capsys, monkeypatch):
 
 
 @pytest.mark.parametrize("argv,item", [
-    (["--listen", "0.0.0.0:0"], 11),
-    (["--checkpoint-dir", "ck"], 11),
-    (["--eval-only"], 11),
-    (["--games", "pong"], 11),
-    (["--param-wire-dtype", "float32"], 11),
     (["--profile-dir", "prof"], 17),
     (["--compilation-cache-dir", "cc"], 17),
     (["--coordinator", "h:1", "--num-processes", "2", "--process-id", "0"],

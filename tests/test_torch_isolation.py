@@ -1,8 +1,8 @@
 """The PyTorch package stands alone: no module of ape_x_dqn_tpu_torch/,
 and not chip_smoke.py, imports jax, flax, optax or anything of the JAX
 package, and importing the port's main path loads no JAX. Its copies of
-configs.py and of the Atari score table must not drift from the
-originals."""
+configs.py, of the Atari score table and of the native framing codec
+(cpp/framing.cpp) must not drift from the originals."""
 
 import ast
 import dataclasses
@@ -62,6 +62,14 @@ def test_main_path_import_loads_no_jax():
         "import ape_x_dqn_tpu_torch.runtime.step_graph\n"
         "import ape_x_dqn_tpu_torch.envs.control\n"
         "import ape_x_dqn_tpu_torch.tools.driver_contention\n"
+        "import ape_x_dqn_tpu_torch.comm.native\n"
+        "import ape_x_dqn_tpu_torch.comm.param_codec\n"
+        "import ape_x_dqn_tpu_torch.comm.shm_transport\n"
+        "import ape_x_dqn_tpu_torch.comm.socket_transport\n"
+        "import ape_x_dqn_tpu_torch.obs.health\n"
+        "import ape_x_dqn_tpu_torch.runtime.actor_host\n"
+        "import ape_x_dqn_tpu_torch.runtime.suite\n"
+        "import ape_x_dqn_tpu_torch.utils.checkpoint\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
         "assert not bad, bad\n" % (str(ROOT), FORBIDDEN))
     env = {"PATH": "/usr/bin:/bin", "PYTHONNOUSERSITE": "1"}
@@ -84,3 +92,12 @@ def test_atari_score_table_copy_matches_original():
     assert torch_metrics.median_hns(scores) == jax_metrics.median_hns(scores)
     with pytest.raises(ValueError, match="space_invaders"):
         torch_metrics.human_normalized_score("spaceinvaders", 1.0)
+
+
+def test_framing_source_copy_matches_original():
+    """The port compiles its own copy of the framing codec; the wire
+    contract (crc, record framing, XOR-delta, int8 quantization) is the
+    original's only while the source is the same, byte for byte."""
+    ours = ROOT / "ape_x_dqn_tpu_torch" / "cpp" / "framing.cpp"
+    theirs = ROOT / "ape_x_dqn_tpu" / "cpp" / "framing.cpp"
+    assert ours.read_bytes() == theirs.read_bytes()

@@ -93,10 +93,8 @@ def test_throughput_matches_jax():
 
 
 @pytest.mark.parametrize("argv,waits_for", [
-    (["--listen", "0.0.0.0:0"], "item 11"),              # remote actors
-    (["--single-process", "--listen", "0.0.0.0:0"], "item 11"),
-    (["--single-process", "--checkpoint-dir", "ck"], "item 11"),
-    (["--eval-only"], "item 11"),
+    (["--profile-dir", "prof"], "item 17"),              # the profiler
+    (["--single-process", "--profile-dir", "prof"], "item 17"),
     (["--coordinator", "h:1", "--num-processes", "2", "--process-id", "0"],
      "item 14"),
 ])
@@ -105,6 +103,19 @@ def test_modes_not_ported_exit_nonzero(argv, waits_for, capsys):
     assert rc != 0
     err = capsys.readouterr().err
     assert "not ported" in err and waits_for in err
+
+
+@pytest.mark.parametrize("argv,flag", [
+    (["--single-process", "--listen", "0.0.0.0:0"], "--listen"),
+    (["--single-process", "--checkpoint-dir", "ck"], "--checkpoint-dir"),
+])
+def test_single_process_refuses_driver_only_options(argv, flag, capsys):
+    """The one-process trainer neither takes remote hosts nor saves
+    checkpoints: it refuses the options rather than ignoring them."""
+    rc = train.main(["--config", "cartpole_smoke", *argv])
+    assert rc == 2
+    err = capsys.readouterr().err
+    assert flag in err and "--single-process" in err and "ROADMAP" in err
 
 
 def test_obs_enabled_raises_rather_than_running_unobserved():
