@@ -7,14 +7,12 @@ to a peer of the other (tests/test_torch_wire.py cross-decodes both
 directions). The Ape-X paper's actors feed the learner over gRPC; this
 plain TCP layer carries the host-side paths: experience ingest into
 the learner host and parameter pulls by actor hosts. What the port
-changes: params publish as a numpy tree (comm/param_codec.py), the
-server counts telemetry frames and drops them while no fleet
-aggregator is installed (the hook stays), and a push now carries the
-membership epoch its version was PUBLISHED under (`publish_params`),
-so a `bump_epoch` between two publications can no longer pair the new
-epoch with the old incarnation's version (the original pushes that
-pair, and its subscriber then holds a chain base the next publication
-deltas from instead of resyncing).
+changes: params publish as a numpy tree (comm/param_codec.py), and a
+push now carries the membership epoch its version was PUBLISHED under
+(`publish_params`), so a `bump_epoch` between two publications can no
+longer pair the new epoch with the old incarnation's version (the
+original pushes that pair, and its subscriber then holds a chain base
+the next publication deltas from instead of resyncing).
 
 Wire format (both directions), assembled/verified by the native codec
 (comm/native.py -> cpp/framing.cpp, Python-fallback compatible):

@@ -3,8 +3,8 @@
 Counterpart of ``ape_x_dqn_tpu/comm/transport.py``. In one process the
 actors, the inference server and the learner talk through thread-safe
 queues (`LoopbackTransport`); remote actor hosts reach the learner
-through comm/socket_transport.py (``--listen``). The fleet telemetry
-aggregator waits for the operations planes (ROADMAP Queue A item 19).
+through comm/socket_transport.py (``--listen``), whose telemetry frames
+reach the driver's fleet aggregator (obs/fleet.py).
 
 Messages are dicts of numpy arrays; an ingest message holds stacked
 transition fields (or frame segments) plus "priorities", and the

@@ -1,23 +1,48 @@
-"""Lock-order witness: the runtime's lock factory.
+"""Heartbeats, the stall watchdog and the lock-order witness.
 
-Counterpart of the part of ``ape_x_dqn_tpu/obs/health.py`` the
-transports need: `make_lock`, `WitnessLock` and `LockOrderRecorder`.
-Every transport lock is built through ``make_lock("owner.name")``; in
-production that is a plain ``threading.Lock`` with no overhead, but
-under ``APEX_LOCK_WITNESS=1`` (tests/conftest.py sets it) each
-acquisition is recorded into a process-global lock-ORDER graph, and an
-acquisition that closes a cycle raises `LockOrderError` at once: a
-deadlock that needs a precise two-thread interleave to bite becomes a
-deterministic failure on the first test whose code path merely acquires
-in the conflicting order. The heartbeat registry and the stall
-watchdogs of the original module belong to the operations planes
-(ROADMAP Queue A item 19).
+Counterpart of ``ape_x_dqn_tpu/obs/health.py``, less its multihost
+lockstep watchdog (`StallWatchdog`, which waits for the multi-GPU
+driver, ROADMAP Queue A item 14):
+
+- `HeartbeatRegistry` + `HeartbeatWatchdog`: the driver's components
+  (actors, ingest, learner, inference server; remote peers through
+  their telemetry frames) stamp heartbeats as they make progress; the
+  driver's poll loop calls `watchdog.check()` and gets a `StallError`
+  naming WHICH component went silent, for HOW long and what it last
+  reported, instead of a run that silently stops producing grad-steps.
+  Components that finish legitimately `clear()` themselves out.
+- The lock factory: every transport lock is built through
+  ``make_lock("owner.name")``; in production that is a plain
+  ``threading.Lock`` with no overhead, but under
+  ``APEX_LOCK_WITNESS=1`` (tests/conftest.py sets it) each acquisition
+  is recorded into a process-global lock-ORDER graph, and an
+  acquisition that closes a cycle raises `LockOrderError` at once: a
+  deadlock that needs a precise two-thread interleave to bite becomes a
+  deterministic failure on the first test whose code path merely
+  acquires in the conflicting order.
 """
 
 from __future__ import annotations
 
 import os
 import threading
+import time
+
+
+class StallError(RuntimeError):
+    """A component stopped heartbeating: attributed stall diagnostic."""
+
+    def __init__(self, component: str, staleness_s: float,
+                 last_note: str = "", timeout_s: float = 0.0):
+        self.component = component
+        self.staleness_s = staleness_s
+        self.last_note = last_note
+        note = f"; last report: {last_note!r}" if last_note else ""
+        super().__init__(
+            f"[stall-watchdog] component {component!r} silent for "
+            f"{staleness_s:.1f}s (timeout {timeout_s:.1f}s){note} — "
+            f"raising instead of hanging; check that component's thread "
+            f"or its upstream queue")
 
 
 class LockOrderError(RuntimeError):
@@ -170,3 +195,77 @@ def make_lock(name: str):
     if os.environ.get("APEX_LOCK_WITNESS"):
         return WitnessLock(name)
     return threading.Lock()
+
+
+class HeartbeatRegistry:
+    """Thread-safe component -> (last_beat, note) table.
+
+    `register` seeds the stamp so a component that never beats at all
+    (wedged before its first loop iteration) is still attributed;
+    `clear` removes a component that finished legitimately."""
+
+    def __init__(self):
+        self._lock = make_lock("health.heartbeats")
+        self._beats: dict[str, tuple[float, str]] = {}  # guarded-by: _lock
+
+    def register(self, name: str, now: float | None = None) -> None:
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            self._beats.setdefault(name, (now, "registered"))
+
+    def beat(self, name: str, note: str = "",
+             now: float | None = None) -> None:
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            self._beats[name] = (now, note)
+
+    def clear(self, name: str) -> None:
+        with self._lock:
+            self._beats.pop(name, None)
+
+    def snapshot(self) -> dict[str, tuple[float, str]]:
+        with self._lock:
+            return dict(self._beats)
+
+    def ages(self, now: float | None = None) -> dict[str, tuple[float, str]]:
+        """component -> (age_s, last_note). The clock-domain-free view
+        a fleet telemetry frame ships: an AGE survives the wire where
+        an absolute monotonic stamp from another host would not — the
+        receiver re-beats with `now = local_now - age_s` and the stall
+        watchdog covers the remote component as if it were local."""
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            return {name: (max(now - t, 0.0), note)
+                    for name, (t, note) in self._beats.items()}
+
+    def stale(self, timeout_s: float, now: float | None = None
+              ) -> list[tuple[str, float, str]]:
+        """(component, staleness_s, last_note) for every component
+        silent past timeout_s, stalest first."""
+        now = time.monotonic() if now is None else now
+        with self._lock:
+            out = [(name, now - t, note)
+                   for name, (t, note) in self._beats.items()
+                   if now - t >= timeout_s]
+        out.sort(key=lambda x: -x[1])
+        return out
+
+
+class HeartbeatWatchdog:
+    """Poll-style watchdog over a HeartbeatRegistry: `check()` raises
+    StallError for the stalest silent component. Lives in the caller's
+    (alive) supervisory loop — the whole point is that the DRIVER
+    thread still runs when a worker thread wedges, so the driver can
+    convert the hang into an attributed error and tear down."""
+
+    def __init__(self, registry: HeartbeatRegistry, timeout_s: float):
+        assert timeout_s > 0
+        self.registry = registry
+        self.timeout_s = timeout_s
+
+    def check(self, now: float | None = None) -> None:
+        stale = self.registry.stale(self.timeout_s, now=now)
+        if stale:
+            name, staleness, note = stale[0]
+            raise StallError(name, staleness, note,
+                             timeout_s=self.timeout_s)

@@ -19,7 +19,8 @@ run can show that its main path went through the kernel. A call made
 while its stream is capturing a CUDA graph launches nothing: it counts
 in `gather_rows.captured` instead, and whoever replays the graph adds
 the launches it carries to `gather_rows.launches` at each replay
-(runtime/step_graph.py).
+(runtime/step_graph.py). `gather_rows.bytes_moved` sums what the
+eager launches read and write, for obs/profiling.py's analytic cost.
 
 Bound: pure memory traffic, ``M * row_bytes`` read plus as much written;
 see the note in the CUDA source.
@@ -138,8 +139,12 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
         gather_rows.captured += 1
     else:
         gather_rows.launches += 1
+        gather_rows.bytes_moved += 2 * m * row_bytes + m * idx.element_size()
     return out
 
 
 gather_rows.launches = 0   # kernel launches, graph replays included
 gather_rows.captured = 0   # launches recorded into CUDA graphs
+# bytes the eager launches read and wrote (rows twice, the indices once):
+# what obs/profiling.py's analytic cost adds for them
+gather_rows.bytes_moved = 0

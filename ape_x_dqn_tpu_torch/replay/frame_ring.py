@@ -36,12 +36,13 @@ import torch.nn.functional as F
 
 from ape_x_dqn_tpu_torch.ops import sum_tree
 from ape_x_dqn_tpu_torch.ops.frame_gather import gather_rows
-from ape_x_dqn_tpu_torch.replay.packing import (ItemSpec, dus_rows,
-                                                frame_mode, pad128,
+from ape_x_dqn_tpu_torch.replay.packing import (ItemSpec, frame_mode,
+                                                pad128, ring_write_start,
                                                 torch_dtype)
 from ape_x_dqn_tpu_torch.replay.prioritized import (PrioritizedReplay,
                                                     ReplayState, ring_cursor,
-                                                    ring_finish)
+                                                    ring_cursor_dev,
+                                                    write_rows_at)
 
 FIELDS = ("action", "reward", "discount", "next_off")
 
@@ -215,14 +216,14 @@ class FrameRingReplay(PrioritizedReplay):
 
     # -- transitions -------------------------------------------------------
 
-    def _write_segments(self, state: ReplayState, items: Any,
-                        td_abs: torch.Tensor) -> ReplayState:
+    def add_body(self, state: ReplayState, items: Any,
+                 td_abs: torch.Tensor) -> None:
         """ONE contiguous block of G*F frame rows / G*B transition
-        slots at the segment cursor, with skip-to-head wrap (in
-        place)."""
+        slots at the DEVICE segment cursor, with skip-to-head wrap, the
+        tree write-back (dead pads get priority 0) and the device cursor
+        advance: in place, device operations only."""
         g = td_abs.shape[0]
-        seg0, pos1, size1 = ring_cursor(state.pos, state.size, g, self.S,
-                                        size_scale=self.B)
+        seg0 = ring_cursor_dev(state, g, self.S, size_scale=self.B)
         dev = state.tree.device
         tidx = seg0 * self.B + torch.arange(g * self.B, device=dev)
         rows = items["seg_frames"].to(dev, torch.uint8).reshape(
@@ -230,15 +231,21 @@ class FrameRingReplay(PrioritizedReplay):
         if self.frame_row != self.frame_bytes:
             rows = F.pad(rows, (0, self.frame_row - self.frame_bytes))
         st = state.storage
-        dus_rows(st["frames"], rows, seg0 * self.F)
+        write_rows_at(st["frames"], rows, seg0 * self.F)
         for k in FIELDS:
-            dus_rows(st[k], items[k].to(dev).reshape(g * self.B),
-                     seg0 * self.B)
+            write_rows_at(st[k], items[k].reshape(g * self.B),
+                          seg0 * self.B)
         td = td_abs.to(dev, torch.float32).reshape(g * self.B)
         valid = items["next_off"].to(dev).reshape(g * self.B) > 0
         pri = torch.where(valid, (td + self.eps) ** self.alpha,
                           torch.zeros_like(td))
-        return ring_finish(state, tidx, pri, pos1, size1)
+        sum_tree.update(state.tree, tidx, pri)
+
+    def advance_host(self, state: ReplayState, block: int) -> None:
+        """The host ints after one add of `block` segments."""
+        _, pos1, size1 = ring_cursor(state.pos, state.size, block, self.S,
+                                     size_scale=self.B)
+        state.set_host_cursor(pos1, size1)
 
     def add(self, state: ReplayState, items: Any,
             td_abs: torch.Tensor) -> ReplayState:
@@ -248,7 +255,10 @@ class FrameRingReplay(PrioritizedReplay):
         "discount"/"next_off": [G, B]}; td_abs: [G, B] initial |TD| (0
         on dead pads). Host tensors are copied to the replay's device.
         """
-        return self._write_segments(state, items, td_abs)
+        ring_write_start(state.pos, td_abs.shape[0], self.S)
+        self.add_body(state, items, td_abs)
+        self.advance_host(state, td_abs.shape[0])
+        return state
 
     def stack_rows(self, state: ReplayState, idx: torch.Tensor
                    ) -> tuple[torch.Tensor, torch.Tensor]:

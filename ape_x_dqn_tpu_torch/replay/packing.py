@@ -72,15 +72,6 @@ def ring_write_size(size: int, start: int, block: int,
     return min(max(size, start + block), capacity)
 
 
-def dus_rows(buf: torch.Tensor, block: torch.Tensor,
-             start: int) -> torch.Tensor:
-    """Write `block` into rows [start, start + len(block)) of `buf`, IN
-    PLACE (the JAX version's dynamic_update_slice returns a new array).
-    Returns `buf`."""
-    buf[start:start + block.shape[0]].copy_(block)
-    return buf
-
-
 def packable(spec: ItemSpec) -> bool:
     """Pack uint8 pixel leaves big enough that row padding matters.
     Small leaves (scalars, action vectors) stay in their natural

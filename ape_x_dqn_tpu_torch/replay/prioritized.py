@@ -11,6 +11,12 @@ when the graph was captured. Unlike the JAX version, which returns new
 state, `add` and the priority updates write the state IN PLACE, never
 reallocating storage or tree, and return it.
 
+An add is split the same way: `add_body` writes the rows, the leaves
+and the tree at the DEVICE cursor and advances the device mirrors, with
+device operations only (the ingest add's captured graph,
+runtime/step_graph.py: AddGraph), and `advance_host` moves the host ints
+by the block size the caller knows. `add` is the two in order.
+
 Conventions (Schaul et al. 2016; Horgan et al. 2018):
 - stored priority = (|td| + eps)^alpha  (alpha applied at write time)
 - IS weight w_i = (N * P(i))^-beta, normalized by max over the batch
@@ -32,8 +38,7 @@ import torch
 
 from ape_x_dqn_tpu_torch.ops import sum_tree
 from ape_x_dqn_tpu_torch.ops.frame_gather import gather_rows
-from ape_x_dqn_tpu_torch.replay.packing import (PixelPacker, dus_rows,
-                                                make_packer,
+from ape_x_dqn_tpu_torch.replay.packing import (PixelPacker, make_packer,
                                                 ring_write_size,
                                                 ring_write_start)
 from ape_x_dqn_tpu_torch.utils.misc import resolve_device
@@ -74,6 +79,11 @@ class ReplayState:
         self._size = int(value)
         self.size_dev.fill_(self._size)
 
+    def set_host_cursor(self, pos: int, size: int) -> None:
+        """Move the host ints alone: an add body already wrote the
+        device mirrors (on its stream, maybe inside a graph)."""
+        self._pos, self._size = int(pos), int(size)
+
 
 def ring_cursor(pos: int, size: int, block: int, capacity: int,
                 size_scale: int = 1) -> tuple[int, int, int]:
@@ -88,13 +98,29 @@ def ring_cursor(pos: int, size: int, block: int, capacity: int,
     return start, pos1, size1
 
 
-def ring_finish(state: ReplayState, idx: torch.Tensor, pri: torch.Tensor,
-                pos1: int, size1: int) -> ReplayState:
-    """Tree write-back + cursor advance shared by every ring layout (in
-    place)."""
-    sum_tree.update(state.tree, idx, pri)
-    state.pos, state.size = pos1, size1
-    return state
+def ring_cursor_dev(state: ReplayState, block: int, capacity: int,
+                    size_scale: int = 1) -> torch.Tensor:
+    """The device twin of `ring_cursor`, read from and written to the
+    device mirrors: -> the block's start (0-dim int64, skip-to-head),
+    and `pos_dev`/`size_dev` advanced in place. No host value is read,
+    so a captured graph writes where the cursor is when it replays."""
+    pos, size = state.pos_dev, state.size_dev
+    start = torch.where(pos + block <= capacity, pos, torch.zeros_like(pos))
+    end = start + block
+    size1 = torch.clamp(torch.maximum(size, end * size_scale),
+                        max=capacity * size_scale)
+    pos.copy_(torch.remainder(end, capacity))
+    size.copy_(size1)
+    return start
+
+
+def write_rows_at(buf: torch.Tensor, block: torch.Tensor,
+                  start: torch.Tensor) -> None:
+    """Rows [start, start + len(block)) of `buf` <- `block`, IN PLACE
+    (the JAX version's dynamic_update_slice returns a new array), with
+    `start` a device scalar."""
+    idx = start + torch.arange(block.shape[0], device=buf.device)
+    buf.index_copy_(0, idx, block.to(buf.device, buf.dtype))
 
 
 class _FlatStorage:
@@ -121,13 +147,22 @@ class _FlatStorage:
                                device=self.device)
                 for k, s in self._storage_spec.items()}
 
-    def _write_rows(self, storage: dict, items: dict, start: int) -> None:
-        """Encode a [b, ...] block and write it at slot `start`, in
-        place (host tensors are copied to the storage's device)."""
+    def _write_rows(self, storage: dict, items: dict,
+                    start: torch.Tensor) -> None:
+        """Encode a [b, ...] block and write it at slot `start` (a
+        device scalar), in place (host tensors are copied to the
+        storage's device)."""
         if self._packer is not None:
             items = self._packer.encode(items)
         for k, buf in storage.items():
-            dus_rows(buf, items[k], start)
+            write_rows_at(buf, items[k], start)
+
+    def advance_host(self, state: ReplayState, block: int) -> None:
+        """The host ints after one add of `block` slots (`add_body`
+        moved the device mirrors)."""
+        _, pos1, size1 = ring_cursor(state.pos, state.size, block,
+                                     self.capacity)
+        state.set_host_cursor(pos1, size1)
 
     def _gather(self, storage: dict, idx: torch.Tensor) -> dict:
         """Items at slots idx [B]: packed byte-row leaves through the
@@ -174,21 +209,21 @@ class PrioritizedReplay(_FlatStorage):
 
     # -- transitions -------------------------------------------------------
 
-    def _write_block(self, state: ReplayState, items: Any,
-                     td_abs: torch.Tensor) -> ReplayState:
-        """One contiguous block per leaf at the cursor with skip-to-head
-        wrap, then the tree write-back (in place). A block size that
-        does not divide the capacity retires the tail slots a skip
+    def add_body(self, state: ReplayState, items: Any,
+                 td_abs: torch.Tensor) -> None:
+        """One contiguous block per leaf at the DEVICE cursor with
+        skip-to-head wrap, the tree write-back and the device cursor
+        advance, in place and with device operations only. A block size
+        that does not divide the capacity retires the tail slots a skip
         leaves behind: `size` never counts them and the tree never
         carries priority there."""
         b = td_abs.shape[0]
-        start, pos1, size1 = ring_cursor(state.pos, state.size, b,
-                                         self.capacity)
+        start = ring_cursor_dev(state, b, self.capacity)
         self._write_rows(state.storage, items, start)
         dev = state.tree.device
         idx = start + torch.arange(b, device=dev)
         pri = (td_abs.to(dev, torch.float32) + self.eps) ** self.alpha
-        return ring_finish(state, idx, pri, pos1, size1)
+        sum_tree.update(state.tree, idx, pri)
 
     def add(self, state: ReplayState, items: Any,
             td_abs: torch.Tensor) -> ReplayState:
@@ -197,7 +232,10 @@ class PrioritizedReplay(_FlatStorage):
         items: {key: [B, ...]}; td_abs: [B]. Overwrites FIFO when full;
         a block that would cross the ring boundary is written at slot 0
         instead (skip-to-head)."""
-        return self._write_block(state, items, td_abs)
+        ring_write_start(state.pos, td_abs.shape[0], self.capacity)
+        self.add_body(state, items, td_abs)
+        self.advance_host(state, td_abs.shape[0])
+        return state
 
     def draw(self, state: ReplayState, batch: int,
              generator: torch.Generator | None = None) -> torch.Tensor:
@@ -298,13 +336,19 @@ class UniformReplayDevice(_FlatStorage):
                            tree=torch.zeros(1, device=self.device),  # unused
                            pos=0, size=0)
 
+    def add_body(self, state: ReplayState, items: Any,
+                 td_abs: torch.Tensor | None = None) -> None:
+        """The block at the device cursor (see PrioritizedReplay)."""
+        b = next(iter(items.values())).shape[0]
+        self._write_rows(state.storage, items,
+                         ring_cursor_dev(state, b, self.capacity))
+
     def add(self, state: ReplayState, items: Any,
             td_abs: torch.Tensor | None = None) -> ReplayState:
         b = next(iter(items.values())).shape[0]
-        start = ring_write_start(state.pos, b, self.capacity)
-        self._write_rows(state.storage, items, start)
-        state.pos = (start + b) % self.capacity
-        state.size = ring_write_size(state.size, start, b, self.capacity)
+        ring_write_start(state.pos, b, self.capacity)
+        self.add_body(state, items, td_abs)
+        self.advance_host(state, b)
         return state
 
     def draw(self, state: ReplayState, batch: int,

@@ -13,10 +13,14 @@ runtime/family.py, so dqn, r2d2 and dpg hosts all work; each pulled
 numpy tree is loaded with ``load_state_dict`` into the host's own
 network before the server gets a copy.
 
-What the original host has and the port does not yet is refused, naming
-its ROADMAP Queue A item: telemetry and the flight recorder
-(``obs.enabled``, items 17 and 19) and the multi-tenant serving tier
-(``serving.multi_tenant``, item 16).
+With ``obs.enabled`` the host observes itself as the original does:
+its experience batches are stamped with the peer id and a batch id
+(obs/fleet.py: StampingTransport), a `TelemetryEmitter` ships snapshot
+frames of its Obs to the learner every ``obs.telemetry_every_s`` (the
+learner's aggregator merges them under ``peer/<id>/...``), and its
+flight recorder dumps under the peer's name. The multi-tenant serving
+tier (``serving.multi_tenant``) is refused: it waits for ROADMAP Queue A
+item 16.
 
 Entry points:
 - run_actor_host(cfg, host, port, ...) — library call.
@@ -27,6 +31,7 @@ Entry points:
 
 from __future__ import annotations
 
+import dataclasses
 import os
 import socket as socket_mod
 import threading
@@ -41,11 +46,13 @@ from ape_x_dqn_tpu_torch.envs import make_env
 from ape_x_dqn_tpu_torch.models import build_network
 from ape_x_dqn_tpu_torch.models.dpg import (PARTS, server_params,
                                             split_server_params)
-from ape_x_dqn_tpu_torch.obs.core import NULL_OBS
+from ape_x_dqn_tpu_torch.obs.core import build_obs
+from ape_x_dqn_tpu_torch.obs.fleet import StampingTransport, TelemetryEmitter
 from ape_x_dqn_tpu_torch.parallel.inference_server import (
     BatchedInferenceServer)
 from ape_x_dqn_tpu_torch.runtime.family import (
     actor_class, family_of, server_apply_fn, warmup_example)
+from ape_x_dqn_tpu_torch.utils.metrics import Metrics
 from ape_x_dqn_tpu_torch.utils.misc import resolve_device
 
 
@@ -57,12 +64,6 @@ def default_peer_id(actor_offset: int = 0) -> str:
 
 
 def _refuse_unported(cfg) -> None:
-    if cfg.obs.enabled:
-        raise NotImplementedError(
-            "obs.enabled=true asks the actor host for telemetry frames "
-            "and a flight recorder, which the PyTorch package does not "
-            "have yet: they wait for ROADMAP Queue A items 17 and 19. "
-            "Run with obs.enabled=false.")
     if cfg.serving.multi_tenant:
         raise NotImplementedError(
             "serving.multi_tenant (the serving tier) is not ported to the "
@@ -116,6 +117,11 @@ def run_actor_host(cfg, host: str, port: int,
     transport (sends drop and back off; params re-converge to the live
     epoch on reconnect).
 
+    peer_id names this host on the fleet telemetry plane (obs/fleet.py);
+    with obs enabled, experience batches are stamped with it plus a
+    monotonic batch_id, and a TelemetryEmitter ships obs snapshot
+    frames to the learner every cfg.obs.telemetry_every_s.
+
     device: where the host's inference server runs (a CUDA request
     without a card raises)."""
     _refuse_unported(cfg)
@@ -131,6 +137,33 @@ def run_actor_host(cfg, host: str, port: int,
         params_push=comm.params_push, param_codec=comm.param_codec,
         shm=comm.shm, shm_slots=comm.shm_slots,
         shm_slot_bytes=comm.shm_slot_bytes)
+    # the raw socket transport, before any StampingTransport wrap
+    raw_transport = transport
+    # local obs: metrics stay in-memory (the learner's JSONL is the
+    # run's single artifact; this host's view crosses the wire as
+    # telemetry frames), and a trace path gets a per-peer suffix so
+    # co-located hosts don't clobber the learner's trace file
+    obs_cfg = cfg.obs
+    if obs_cfg.trace_path:
+        obs_cfg = dataclasses.replace(
+            obs_cfg, trace_path=f"{obs_cfg.trace_path}.{peer}")
+    obs = build_obs(obs_cfg, Metrics())
+    # forensics plane: this host's flight recorder dumps under the
+    # peer's name, with the transport's reconnect/drop tallies merged
+    # into every dump (SIGUSR2 install is skipped off the main thread)
+    obs.blackbox.set_peer(peer)
+    obs.blackbox.add_context_provider(
+        lambda: {"transport": {
+            "reconnects": raw_transport.reconnects,
+            "dropped": raw_transport.dropped,
+            "drop_reasons": dict(raw_transport.drop_reasons),
+            "epoch": raw_transport.epoch}})
+    obs.blackbox.install()
+    emitter: TelemetryEmitter | None = None
+    if obs.enabled:
+        transport = StampingTransport(transport, peer)
+        emitter = TelemetryEmitter(transport, obs, peer,
+                                   interval_s=cfg.obs.telemetry_every_s)
 
     # wait for the learner's first publication; under supervise the
     # wait is unbounded (a host that outlives its learner keeps
@@ -142,6 +175,7 @@ def run_actor_host(cfg, host: str, port: int,
         time.sleep(0.2)
         params, version = transport.get_params()
     if params is None:
+        obs.close()
         transport.close()
         raise TimeoutError("learner never published parameters")
     bootstrap_bytes = transport.bytes_in  # the first (full) pull
@@ -155,8 +189,11 @@ def run_actor_host(cfg, host: str, port: int,
     server = BatchedInferenceServer(
         server_apply_fn(family, net), first,
         max_batch=cfg.inference.max_batch,
-        deadline_ms=cfg.inference.deadline_ms, device=dev)
+        deadline_ms=cfg.inference.deadline_ms, device=dev,
+        obs=obs if obs.enabled else None)
     server.update_params(first, version)
+    if emitter is not None:
+        emitter.start()
     # one forward per bucket before the first query
     server.warmup(warmup_example(family, cfg, probe.spec),
                   extra_sizes=(cfg.actors.envs_per_actor,))
@@ -201,6 +238,7 @@ def run_actor_host(cfg, host: str, port: int,
                 errs = transport.param_pull_errors
                 if errs > seen_pull_errors:
                     pulls["errors"] += errs - seen_pull_errors
+                    obs.count("param_pull_errors", errs - seen_pull_errors)
                     seen_pull_errors = errs
                     fail_streak += 1
                     continue
@@ -216,6 +254,7 @@ def run_actor_host(cfg, host: str, port: int,
                 seen_epoch = ep
             except Exception:  # noqa: BLE001 - the puller outlives anything
                 pulls["errors"] += 1
+                obs.count("param_pull_errors")
                 fail_streak += 1
 
     puller = threading.Thread(target=param_puller, name="param-pull",
@@ -233,10 +272,17 @@ def run_actor_host(cfg, host: str, port: int,
     def actor_thread(slot: int) -> None:
         idx = actor_offset + slot
         try:
-            actor = cls(cfg, idx, query, transport, obs=NULL_OBS)
+            actor = cls(cfg, idx, query, transport,
+                        obs=obs if obs.enabled else None)
             live_actors[slot] = actor  # the puller paces off .frames
             frames[slot] = actor.run(per_actor, stop_event)
+            obs.clear(f"actor-{idx}")  # finished, not stalled
         except Exception as e:  # noqa: BLE001 - reported to the caller
+            # the thread dies quietly from the interpreter's point of
+            # view (no excepthook): archive the ring ourselves
+            obs.blackbox.record("actor_error", component=f"actor-{idx}",
+                                error=repr(e)[:200])
+            obs.blackbox.dump("actor_error", component=f"actor-{idx}")
             errors.append((idx, e))
 
     threads = [threading.Thread(target=actor_thread, args=(i,),
@@ -253,6 +299,10 @@ def run_actor_host(cfg, host: str, port: int,
     stop_event.set()
     puller.join(timeout=2)
     server.stop()
+    if emitter is not None:
+        emitter.stop()  # ships one shutdown-fresh frame
+    obs.close()
+    transport = raw_transport
     shm_negotiated = transport.shm_negotiated  # closing detaches it
     transport.close()
     return {"frames": sum(frames), "actors": n,

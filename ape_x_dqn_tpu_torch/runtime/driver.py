@@ -65,19 +65,29 @@ this run, so a run that resumes without its replay trains at the cap's
 pace once it has refilled ``min_fill``, as a fresh run does.
 
 Nothing compiles in the port, so the original's AOT warm-up becomes one
-forward per server bucket (`_warmup`), which changes no learner state.
-What the original builds and the port does not have yet raises, naming
-its ROADMAP Queue A item: the multi-GPU learner (14), the serving tier
-(16), the remediation and operations planes (19), the legacy staging
-path (11) and the profiler capture (17); the port's config already
-refuses the cold tier (15). All three families run
-here: flat DQN, R2D2 (recurrent actors, stateful {obs, c, h} server
-queries, whole sequences as staging units and the `SequenceLearner`,
+forward per server bucket (`_warmup`), which changes no learner state;
+the ingest add is one captured graph per (replay, g) on the card
+(runtime/step_graph.py: AddGraph). Before anything is allocated on the
+card, `check_hbm_fits` prices the run (utils/hbm.py) and raises when it
+cannot fit. What the original builds and the port does not have yet
+raises, naming its ROADMAP Queue A item: the multi-GPU learner (14), the
+serving tier (16) and the legacy staging path (11); the port's config
+already refuses the cold tier (15). All three families run here: flat
+DQN, R2D2 (recurrent actors, stateful {obs, c, h} server queries, whole
+sequences as staging units and the `SequenceLearner`,
 runtime/sequence_learner.py) and Ape-X DPG (continuous actors, {a, q}
-server replies and the `DPGLearner`, runtime/dpg_learner.py). With
-observability off (the only ported facade) the supervisor has no
-watchdog to read, as in the original with obs off; the HBM fits-check
-waits for ``utils/hbm.py`` (item 17).
+server replies and the `DPGLearner`, runtime/dpg_learner.py).
+
+Observability (``obs.enabled``, obs/core.py): spans, heartbeats, the
+stall watchdog, the flight recorder, stage windows (CUDA events on the
+learner's and ingest's streams, read at publish time), the fleet
+aggregator over a socket transport's telemetry frames, and the fleet
+supervisor (`_supervise_tick`: restart a wedged local actor slot in
+place, quarantine it past ``actors.supervisor_max_restarts``,
+quarantine a silent remote peer), with the remediation engine
+(``remediation.mode`` observe or enforce, runtime/remediation.py) first
+in line. ``profile_dir`` opens one ``torch.profiler`` window over
+``profile_steps`` grad-steps.
 """
 
 from __future__ import annotations
@@ -96,7 +106,8 @@ from ape_x_dqn_tpu_torch.comm.param_codec import tree_map
 from ape_x_dqn_tpu_torch.comm.transport import LoopbackTransport, batch_rows
 from ape_x_dqn_tpu_torch.envs import make_env
 from ape_x_dqn_tpu_torch.models import build_network
-from ape_x_dqn_tpu_torch.obs.core import build_obs
+from ape_x_dqn_tpu_torch.obs.core import ProfileWindow, build_obs
+from ape_x_dqn_tpu_torch.obs.fleet import MAX_SPAN_IDS, FleetAggregator
 from ape_x_dqn_tpu_torch.parallel.inference_server import (
     BatchedInferenceServer)
 from ape_x_dqn_tpu_torch.runtime.build import build_prioritized_replay
@@ -109,9 +120,12 @@ from ape_x_dqn_tpu_torch.runtime.family import (
 from ape_x_dqn_tpu_torch.runtime.ingest import IngestStager
 from ape_x_dqn_tpu_torch.runtime.learner import (
     DQNLearner, checkpoint_tree, restore_checkpoint_tree)
+from ape_x_dqn_tpu_torch.runtime.remediation import (Actuators,
+                                                     RemediationEngine)
 from ape_x_dqn_tpu_torch.runtime.sequence_learner import SequenceLearner
 from ape_x_dqn_tpu_torch.runtime.single_process import build_replay
 from ape_x_dqn_tpu_torch.utils.checkpoint import CheckpointManager
+from ape_x_dqn_tpu_torch.utils.hbm import check_hbm_fits
 from ape_x_dqn_tpu_torch.utils.metrics import (Metrics, Throughput,
                                                log_run_header)
 from ape_x_dqn_tpu_torch.utils.misc import next_pow2, resolve_device
@@ -127,15 +141,9 @@ def _refuse_unported(cfg) -> None:
                       "learner)", 14))
     if cfg.serving.multi_tenant:
         waits.append(("serving.multi_tenant (the serving tier)", 16))
-    rcfg = getattr(cfg, "remediation", None)
-    if rcfg is not None and rcfg.mode != "off":
-        waits.append((f"remediation.mode={rcfg.mode!r} (the remediation "
-                       f"and operations planes)", 19))
     if not getattr(cfg.replay, "ingest_zero_copy", True):
         waits.append(("replay.ingest_zero_copy=False (the legacy staging "
                       "path)", 11))
-    if cfg.profile_dir:
-        waits.append(("profile_dir (the profiler capture)", 17))
     if waits:
         what, item = waits[0]
         raise NotImplementedError(
@@ -155,7 +163,8 @@ class ApexDriver:
         self.cfg = cfg
         self.device = resolve_device(device)
         self.metrics = metrics or Metrics()
-        # observability facade: NULL_OBS (an enabled config raises)
+        # observability facade (obs/): NULL_OBS unless cfg.obs.enabled,
+        # so every span/beat below is a no-op method call when off
         self.obs = build_obs(getattr(cfg, "obs", None), self.metrics)
         probe_env = make_env(cfg.env, seed=cfg.seed)
         self.spec = probe_env.spec
@@ -163,7 +172,15 @@ class ApexDriver:
         obs0 = probe_env.reset()
         self.family = family_of(cfg)
         setup = family_setup(cfg, self.spec, self.net, obs0)
-        for module in (self.net if self.family == "dpg" else (self.net,)):
+        modules = self.net if self.family == "dpg" else (self.net,)
+        # early, loud fits-check: the replay + model state must fit the
+        # card BEFORE anything is allocated there (utils/hbm.py)
+        self.hbm_budget = check_hbm_fits(
+            cfg, self.spec.obs_shape, self.spec.obs_dtype,
+            param_count=sum(p.numel() for m in modules
+                            for p in m.parameters()),
+            device=self.device)
+        for module in modules:
             module.to(self.device)
         item_spec = setup.item_spec
         self._frame_mode = setup.frame_mode
@@ -204,7 +221,22 @@ class ApexDriver:
         self._host_params = not isinstance(self.transport,
                                            LoopbackTransport)
         self._pinned: dict[str, torch.Tensor] = {}  # learner thread only
+        # fleet telemetry plane (obs/fleet.py): with obs on and a
+        # telemetry-capable transport, remote peers' snapshot frames
+        # merge into this run's JSONL under peer/<id>/ keys and their
+        # heartbeats feed the stall watchdog
+        self.fleet: FleetAggregator | None = None
+        if self.obs.enabled:
+            agg = FleetAggregator(self.obs)
+            if agg.install(self.transport):
+                self.fleet = agg
+        # forensics plane (obs/blackbox.py): the flight recorder dumps
+        # on crash/atexit/SIGUSR2, and every dump carries the fleet's
+        # retained per-peer telemetry frames
         self.obs.blackbox.set_peer(f"driver-{os.getpid()}")
+        if self.fleet is not None:
+            self.obs.blackbox.add_context_provider(
+                lambda: {"peer_frames": self.fleet.retained_frames()})
         self.obs.blackbox.install()
         # initial publication, so a client of the param channel can
         # bootstrap before the first publish_every boundary
@@ -242,11 +274,40 @@ class ApexDriver:
         self._slot_stops: dict[int, threading.Event] = {}  # guarded-by: _lock
         self._slot_threads: dict[int, threading.Thread] = {}  # guarded-by: _lock
         self._slot_budget: dict[int, int] = {}  # guarded-by: _lock
+        self._slot_actor_obj: dict[int, object] = {}  # guarded-by: _lock
         # frames produced by FINISHED attempts of the slot's current
-        # generation (crash restarts)
+        # generation (crash restarts); the live attempt's count lives on
+        # the actor object itself
         self._slot_done: dict[int, int] = {}  # guarded-by: _lock
         self._slot_restarts: dict[int, int] = {}  # guarded-by: _lock
         self._quarantined: set[int] = set()  # guarded-by: _lock
+        self._peer_quarantined: set[str] = set()  # guarded-by: _lock
+        # remediation-paused slots: slot -> remaining frame budget
+        # (reversible, unlike a quarantine)
+        self._slot_paused: dict[int, int] = {}  # guarded-by: _lock
+        # the transport+stage drop total the remediation sensor last saw
+        # (supervisor tick thread only)
+        self._remed_dropped_seen = 0
+        # fleet remediation plane (runtime/remediation.py): the policy
+        # engine closing the monitor->actuator loop inside
+        # _supervise_tick. mode="off" never constructs it
+        self.remediation: RemediationEngine | None = None
+        rcfg = getattr(cfg, "remediation", None)
+        if rcfg is not None and rcfg.mode != "off":
+            self.remediation = RemediationEngine(
+                rcfg, obs=self.obs, metrics=self.metrics,
+                actuators=Actuators(
+                    restart_actor=self._supervise_actor,
+                    quarantine_peer=self._quarantine_peer,
+                    pause_actor=self._pause_actor_slot,
+                    resume_actor=self._resume_actor_slot,
+                    set_backpressure=self._remediation_backpressure,
+                    set_priority=self._remediation_set_priority),
+                default_class=cfg.serving.default_class)
+            if self.obs.perf is not None:
+                self.obs.perf.add_listener(self.remediation.note_perf)
+            if self.obs.learn is not None:
+                self.obs.learn.add_listener(self.remediation.note_learn)
         self._ingested_batches = 0  # guarded-by: _lock
         # frames ingested per actor index (remote hosts ship their
         # global index: actor_offset + slot); ingest thread only
@@ -269,6 +330,17 @@ class ApexDriver:
             coalesce=getattr(cfg.replay, "ingest_coalesce", 4),
             buffers=getattr(cfg.replay, "stage_buffers", 2),
             ship=self._ship_staged, pin=self.device.type == "cuda")
+        # the --profile-dir capture: one torch.profiler window over
+        # profile_steps grad-steps from the first train dispatch
+        self._profile = (ProfileWindow(cfg.profile_dir, cfg.profile_steps)
+                         if cfg.profile_dir else None)
+        # host mirror of the replay's write cursor (in leaves), for the
+        # sample_age_steps histogram (ingest thread writes, learner
+        # thread reads at the publish cadence: a heuristic view)
+        ring = getattr(self.replay, "B", 1)
+        self._age = self.obs.age_tracker(self.capacity)
+        self._age_block = self._stage_chunk * (ring if self._frame_mode
+                                                else 1)
         self.last_eval: dict | None = None  # guarded-by: _lock
         # checkpoint/resume: params, targets, optimizer, RNG and step
         # always; the replay's contents too under cfg.checkpoint_replay
@@ -444,6 +516,10 @@ class ApexDriver:
                                   self.transport, seed=seed,
                                   episode_callback=self._on_episode,
                                   obs=self.obs)
+                # the supervisor reads this actor's frame count when it
+                # supersedes a wedged slot (remaining-budget estimate)
+                with self._lock:
+                    self._slot_actor_obj[i] = actor
                 actor.run(remaining, stop)
                 return  # frames counted at ingest
             except Exception as e:
@@ -470,16 +546,249 @@ class ApexDriver:
 
     # -- fleet supervisor --------------------------------------------------
 
+    _FATAL_COMPONENTS = ("learner", "ingest", "inference-server", "eval")
+
     def _supervise_tick(self) -> None:
-        """One supervisory pass over heartbeat staleness. With
-        observability off there is no watchdog to read, so the pass is
-        a no-op, exactly as in the original with obs off; the
-        watchdog-driven restarts and quarantines arrive with the
-        observability and operations planes (ROADMAP Queue A items 17
-        and 19)."""
-        if self.obs.watchdog is None:
+        """One supervisory pass over heartbeat staleness, replacing the
+        bare check_stalled() raise in run()'s poll loop.
+
+        Partition of stale components (actors.supervise):
+        - local actor slots (actor-N): restart in place with the
+          remaining frame budget, up to actors.supervisor_max_restarts
+          per slot; past the budget the slot is QUARANTINED (heartbeat
+          cleared, actor_quarantines counter, attributed JSONL event)
+          and the run continues degraded — a restart storm must never
+          become a crash loop.
+        - remote peers (telemetry heartbeats): quarantined + counted
+          (peer_stall_events) — the peer's own host supervises its
+          workers; this learner just stops waiting on it.
+        - fatal locals (learner / ingest / inference-server / eval):
+          fall through to check_stalled(), which raises the attributed
+          StallError — a driver cannot restart its own learner.
+
+        With the remediation plane on (cfg.remediation.mode != "off"),
+        the engine ticks its gauge rules here and gets first claim on
+        stale actors/peers: in enforce mode a handled (applied) target
+        skips the default path — the engine's actuator IS the default
+        path's method, now cooldown-limited and attributed; any other
+        outcome (observed / cooldown / failed) falls through to the
+        pre-remediation behavior, so a wedged slot is never left for
+        check_stalled() to escalate into a run-fatal StallError."""
+        obs = self.obs
+        eng = self.remediation
+        if eng is not None:
+            eng.tick(self._remediation_sensors(),
+                     step=self._grad_steps_total)
+        if obs.watchdog is None:
             return
-        self.obs.check_stalled()
+        if not getattr(self.cfg.actors, "supervise", False):
+            obs.check_stalled()
+            return
+        for name, staleness, _note in obs.heartbeats.stale(
+                obs.watchdog.timeout_s):
+            slot = name[len("actor-"):] if name.startswith("actor-") else ""
+            if slot.isdigit():
+                if eng is not None and eng.remediate_stale_actor(
+                        int(slot), staleness,
+                        step=self._grad_steps_total):
+                    continue
+                self._supervise_actor(int(slot), staleness)
+            elif name not in self._FATAL_COMPONENTS:
+                if eng is not None and eng.remediate_stale_peer(
+                        name, staleness, step=self._grad_steps_total):
+                    continue
+                self._quarantine_peer(name, staleness)
+        # anything still stale is a fatal local component
+        obs.check_stalled()
+
+    def _supervise_actor(self, i: int, staleness: float) -> None:
+        """Restart or quarantine one wedged LOCAL actor slot."""
+        with self._lock:
+            if i in self._quarantined:
+                already = True
+            else:
+                already = False
+                used = self._slot_restarts.get(i, 0)
+                exhausted = used >= self.cfg.actors.supervisor_max_restarts
+                if exhausted:
+                    self._quarantined.add(i)
+                    # drop the wedged thread from liveness bookkeeping:
+                    # a quarantined slot must not keep run()'s
+                    # any(is_alive) drain check true forever, or the
+                    # degraded-but-terminating contract becomes a hang
+                    self._slot_threads.pop(i, None)
+                    old_ev = self._slot_stops.pop(i, None)
+                else:
+                    self._slot_restarts[i] = used + 1
+                    old_ev = self._slot_stops.get(i)
+                actor = self._slot_actor_obj.pop(i, None)
+                budget = self._slot_budget.get(i, 0)
+                done_prior = self._slot_done.get(i, 0)
+        if already:
+            # a superseded thread un-wedged long enough to beat again:
+            # re-clear so the fallthrough check_stalled() can't convert
+            # a quarantine into a fatal StallError
+            self.obs.clear(f"actor-{i}")
+            return
+        if old_ev is not None:
+            old_ev.set()  # superseded generation exits if it un-wedges
+        if exhausted:
+            self.obs.clear(f"actor-{i}")
+            self.obs.count("actor_quarantines")
+            self.metrics.log(self._grad_steps_total, actor_quarantined=i,
+                             stall_staleness_s=round(staleness, 1))
+            # archive the victim's ring: a quarantine is a terminal
+            # verdict for the slot, so the evidence goes to disk now
+            self.obs.blackbox.record("quarantine", component=f"actor-{i}",
+                                     staleness_s=round(staleness, 1))
+            self.obs.blackbox.dump("quarantine", component=f"actor-{i}",
+                                   step=self._grad_steps_total)
+            logging.getLogger(__name__).warning(
+                "[fleet] actor slot %d exhausted its supervised-restart "
+                "budget (%d) — quarantined; the run continues without it",
+                i, self.cfg.actors.supervisor_max_restarts)
+            return
+        # remaining = generation budget minus EVERY frame the slot
+        # already produced this generation: crash-restart attempts that
+        # ended before this supersession (_slot_done) plus the wedged
+        # current attempt's count
+        done = done_prior
+        if actor is not None:
+            try:
+                done += int(actor.frames)
+            except (TypeError, ValueError, AttributeError):
+                pass
+        remaining = max(budget - done, 0)
+        self.obs.count("supervisor_restarts")
+        with self._lock:
+            self.actor_restarts.append(
+                (i, f"supervised: stalled {staleness:.1f}s"))
+        self.metrics.log(self._grad_steps_total, supervisor_restart=i,
+                         stall_staleness_s=round(staleness, 1))
+        # every restart decision archives the ring as it stood when the
+        # slot wedged — the postmortem bundler's per-incident evidence
+        self.obs.blackbox.record("supervisor_restart",
+                                 component=f"actor-{i}",
+                                 staleness_s=round(staleness, 1))
+        self.obs.blackbox.dump("supervisor_restart",
+                               component=f"actor-{i}",
+                               step=self._grad_steps_total)
+        # re-arm the heartbeat NOW so the check_stalled() fallthrough in
+        # this very tick doesn't still see the slot as stale
+        self.obs.beat(f"actor-{i}", "supervised restart")
+        if remaining > 0:
+            # fresh seed salt stream for the superseded generation's
+            # successor (offset past crash-restart salts)
+            self._spawn_actor_slot(i, remaining,
+                                   attempt0=100 + self._slot_restarts[i])
+        else:
+            self.obs.clear(f"actor-{i}")
+
+    def _quarantine_peer(self, name: str, staleness: float) -> None:
+        """A REMOTE component's telemetry heartbeat went stale: count
+        it, attribute it in the JSONL, and clear the heartbeat so it
+        cannot wedge this driver's watchdog — the peer's own host owns
+        its recovery (actor_host --supervise); if it reconnects, its
+        next telemetry frame re-registers the heartbeat."""
+        with self._lock:
+            first = name not in self._peer_quarantined
+            self._peer_quarantined.add(name)
+        self.obs.clear(name)
+        self.obs.count("peer_stall_events")
+        self.metrics.log(self._grad_steps_total, peer_stall=name,
+                         stall_staleness_s=round(staleness, 1))
+        if first:
+            # the remote died without a local ring: dump OURS, which
+            # carries its last retained telemetry frame (context
+            # provider above) — its black box of last resort
+            self.obs.blackbox.record("peer_stall", peer=name.split("/")[0],
+                                     component=name,
+                                     staleness_s=round(staleness, 1))
+            self.obs.blackbox.dump("peer_stall", component=name,
+                                   step=self._grad_steps_total)
+            logging.getLogger(__name__).warning(
+                "[fleet] remote component %r silent for %.1fs — "
+                "quarantined from the stall watchdog (its host owns "
+                "recovery); ingest continues from the remaining fleet",
+                name, staleness)
+
+    # -- remediation actuators + sensors (runtime/remediation.py) ----------
+
+    def _pause_actor_slot(self, i: int) -> bool:
+        """Ingest-pressure autoscale actuator: park one RUNNING actor
+        slot by setting its generation stop event — the thread exits
+        cooperatively at its next stop check and clears its own
+        heartbeat (it stays the slot's current generation, so the
+        watchdog never sees a stale ghost). The remaining frame budget
+        is banked in _slot_paused for resume. Returns False when the
+        slot has nothing to pause (dead, quarantined, already paused)."""
+        with self._lock:
+            ev = self._slot_stops.get(i)
+            t = self._slot_threads.get(i)
+            if (ev is None or t is None or not t.is_alive()
+                    or i in self._quarantined or i in self._slot_paused):
+                return False
+            actor = self._slot_actor_obj.get(i)
+            budget = self._slot_budget.get(i, 0)
+            done = self._slot_done.get(i, 0)
+        if actor is not None:
+            try:
+                done += int(actor.frames)
+            except (TypeError, ValueError, AttributeError):
+                pass
+        remaining = max(budget - done, 0)
+        ev.set()
+        with self._lock:
+            self._slot_paused[i] = remaining
+        logging.getLogger(__name__).warning(
+            "[fleet] remediation paused actor slot %d under ingest "
+            "pressure (%d frames banked)", i, remaining)
+        return True
+
+    def _resume_actor_slot(self, i: int) -> bool:
+        """Resume a remediation-paused slot with its banked frame
+        budget (fresh generation, salted seed stream)."""
+        with self._lock:
+            remaining = self._slot_paused.pop(i, None)
+            restarts = self._slot_restarts.get(i, 0)
+            if remaining is None or i in self._quarantined:
+                return False
+        if remaining <= 0:
+            return False  # budget already produced; slot is finished
+        self._spawn_actor_slot(i, remaining, attempt0=200 + restarts)
+        return True
+
+    def _remediation_backpressure(self, engaged: bool) -> bool:
+        """Queue-SLO actuator: the serving tier's backpressure flag.
+        There is no serving tier yet (ROADMAP Queue A item 16), so the
+        action is skipped (False), as the original's is without one."""
+        return False
+
+    def _remediation_set_priority(self, tenant: str, cls: int) -> bool:
+        """Learn-health actuator: re-temper this driver's tenant
+        priority class in the serving tier; skipped (False) while there
+        is none, as in the original."""
+        return False
+
+    def _remediation_sensors(self) -> dict:
+        """Fresh gauge-sensor snapshot for the engine's tick: ingest
+        drop pressure (delta since the last tick) and the local slot
+        population (supervisor-tick thread only — the delta bookkeeping
+        needs no lock). The serving queue's sensors wait for the
+        serving tier."""
+        s: dict = {}
+        with self._lock:
+            running = [i for i, t in self._slot_threads.items()
+                       if t.is_alive() and i not in self._quarantined
+                       and i not in self._slot_paused]
+            paused = list(self._slot_paused)
+        dropped = (int(getattr(self.transport, "dropped", 0))
+                   + self._stage_dropped)
+        s["ingest_dropped_delta"] = dropped - self._remed_dropped_seen
+        self._remed_dropped_seen = dropped
+        s["running_slots"] = running
+        s["paused_slots"] = paused
+        return s
 
     def _pacing_binds(self, frames: int) -> bool:
         """learner.steps_per_frame_cap: this run's grad-steps have
@@ -535,7 +844,24 @@ class ApexDriver:
         # batches: frames == units)
         frames = int(batch.get("frames", n))
         actor = batch.get("actor")
-        self._stage_one(batch, n)
+        # cross-process correlation (obs/fleet.StampingTransport): a
+        # stamped batch's staging gets its own span sharing the origin's
+        # batch_id, and the tag rides the stager into the replay.add
+        # that carries it
+        bid = batch.get("batch_id")
+        if bid is None:
+            self._stage_one(batch, n)
+        else:
+            peer = str(batch.get("peer", ""))
+            with self.obs.span("ingest.batch", batch_id=int(bid),
+                               peer=peer, rows=n):
+                self._stage_one(batch, n, tag=(peer, int(bid)))
+        # wire codec accounting: a WireBatch knows its wire and decoded
+        # sizes; dict batches came in locally
+        wire = getattr(batch, "wire_nbytes", 0)
+        if wire:
+            self.obs.gauge("wire_compression_ratio",
+                           batch.raw_nbytes / wire)
         self.frames.add(frames)
         if actor is not None:
             by_actor = self._frames_by_actor
@@ -543,6 +869,67 @@ class ApexDriver:
         with self._lock:
             self._frames_total += frames
             self._ingested_batches += 1
+        if self.obs.enabled:
+            self._emit_shm_gauges()
+            self._emit_param_gauges()
+
+    def _emit_shm_gauges(self) -> None:
+        """Shared-memory transport instruments (ingest thread only —
+        the delta bookkeeping needs no lock). Counters delta-emit so
+        report --check sees torn slots / TCP fallbacks the moment they
+        start; the inflight gauge is the ring-lease population."""
+        tp = self.transport
+        if not getattr(tp, "shm_rings", None) and \
+                not getattr(tp, "shm_doorbells", 0):
+            return
+        if not hasattr(self, "_shm_seen"):
+            self._shm_seen = {"shm_doorbells": 0, "shm_torn_slots": 0,
+                              "shm_fallbacks": 0}
+        # literal metric names, one per INSTRUMENTS row of obs/report.py
+        d = int(tp.shm_doorbells) - self._shm_seen["shm_doorbells"]
+        if d:
+            self.obs.count("shm_doorbells", d)
+            self._shm_seen["shm_doorbells"] += d
+        d = int(tp.shm_torn_slots) - self._shm_seen["shm_torn_slots"]
+        if d:
+            self.obs.count("shm_torn_slots", d)
+            self._shm_seen["shm_torn_slots"] += d
+        d = int(tp.shm_fallbacks) - self._shm_seen["shm_fallbacks"]
+        if d:
+            self.obs.count("shm_fallbacks", d)
+            self._shm_seen["shm_fallbacks"] += d
+        self.obs.gauge("shm_slots_inflight",
+                       float(tp.shm_slots_inflight))
+
+    def _emit_param_gauges(self) -> None:
+        """Param-plane codec instruments (ingest thread only — same
+        delta-bookkeeping discipline as _emit_shm_gauges). The ratio
+        gauge carries the never-inflate floor: report --check flags any
+        sample below 1.0, which a correct encoder can never produce."""
+        tp = self.transport
+        if not getattr(tp, "param_pushes", 0) and \
+                not getattr(tp, "param_bytes_out", 0):
+            return
+        if not hasattr(self, "_param_seen"):
+            self._param_seen = {"param_bytes_out": 0, "param_resyncs": 0,
+                                "param_push_queue_drops": 0}
+        # literal metric names, one per INSTRUMENTS row of obs/report.py
+        d = int(tp.param_bytes_out) - self._param_seen["param_bytes_out"]
+        if d:
+            self.obs.count("param_bytes_out", d)
+            self._param_seen["param_bytes_out"] += d
+        d = int(tp.param_resyncs) - self._param_seen["param_resyncs"]
+        if d:
+            self.obs.count("param_resyncs", d)
+            self._param_seen["param_resyncs"] += d
+        drops = sum(tp.param_push_queue_drops.values())
+        d = drops - self._param_seen["param_push_queue_drops"]
+        if d:
+            self.obs.count("param_push_queue_drops", d)
+            self._param_seen["param_push_queue_drops"] += d
+        ratio = float(tp.param_compression_ratio)
+        if ratio > 0.0:
+            self.obs.gauge("param_compression_ratio", ratio)
 
     def _wire_summary(self) -> dict | None:
         """The socket transport's accounting for the run summary: bytes
@@ -561,8 +948,8 @@ class ApexDriver:
                 "ever_connected")
         return {k: getattr(tp, k) for k in keys}
 
-    def _stage_one(self, batch: dict, n: int) -> None:
-        self._stager.put(batch)
+    def _stage_one(self, batch: dict, n: int, tag=None) -> None:
+        self._stager.put(batch, tag=tag)
         # below min_fill the learner waits on replay: ship complete
         # blocks at once instead of letting coalescing delay the first
         # train dispatch by up to a full buffer
@@ -575,31 +962,33 @@ class ApexDriver:
     def _ship_staged(self, views: dict, g: int) -> list:
         """Ship g coalesced staged blocks (the IngestStager callback):
         one asynchronous host-to-device copy per leaf straight out of
-        the pinned staging memory, a CUDA event recorded after them,
-        then ONE add (g == 1) or add_many under _state_lock. -> the
-        event (none on the CPU), which the stager synchronises on
-        before it rewrites the memory."""
+        the pinned staging memory (into the add graph's static inputs
+        on the card), a CUDA event recorded after them, then ONE add
+        under _state_lock: on the card one replay of the captured graph
+        of this (replay, g) (runtime/step_graph.py: AddGraph), else the
+        add body, eagerly. -> the event (none on the CPU), which the
+        stager synchronises on before it rewrites the memory."""
         count = g * self.dp * self._stage_chunk
-        shape = (g, self._stage_chunk) if g > 1 else (self._stage_chunk,)
-        staged = {k: v.reshape(shape + tuple(v.shape[1:])).to(
-                      self.device, non_blocking=True)
-                  for k, v in views.items()}
+        lead = (g, self._stage_chunk) if g > 1 else (self._stage_chunk,)
+        staged = self.learner.land_add(g, views, lead)
         handles = []
         if self.device.type == "cuda":
             ev = torch.cuda.Event()
             ev.record()
             handles.append(ev)
-        pris = staged.pop("priorities")
         with self._state_lock:
             if self._learn_done is not None:
                 # the add writes what the last train dispatch reads
                 self._ingest_stream.wait_event(self._learn_done)
-            with self.obs.span("replay.add", units=count):
-                if g > 1:
-                    self.state = self.learner.add_many(self.state, staged,
-                                                       pris)
-                else:
-                    self.state = self.learner.add(self.state, staged, pris)
+            with self.obs.stage_window("ingest", count,
+                                       stream=self._ingest_stream):
+                with self.obs.span("replay.add", **self._add_span_args(
+                        count)):
+                    self.state = self.learner.add_landed(self.state, g,
+                                                         staged)
+        if self._age is not None:
+            for _ in range(g):
+                self._age.on_add(self._age_block, self._grad_steps_total)
         self.ingest_rows.add(count * self._unit_items)
         with self._lock:
             self._replay_filled = min(
@@ -607,6 +996,16 @@ class ApexDriver:
                 self.capacity)
         self.obs.gauge("ingest_coalesce_width", g)
         return handles
+
+    def _add_span_args(self, count: int) -> dict:
+        """The replay.add span's args: the units, and the origin
+        batch_ids staged into this add (truncated: attribution, not an
+        exhaustive ledger)."""
+        args: dict = {"units": count}
+        tags = self._stager.shipping_tags
+        if tags:
+            args["batch_ids"] = [t[1] for t in tags[:MAX_SPAN_IDS]]
+        return args
 
     def _flush_stage(self, force: bool = False) -> None:
         """Ship the complete staged blocks; at force-flush the sub-block
@@ -669,6 +1068,10 @@ class ApexDriver:
                 self.loop_errors.append(("learner", e))
         finally:
             self.obs.clear("learner")
+            # a run that ends inside the profile window still writes its
+            # trace (and frees the process-wide profiler for a later run)
+            if self._profile is not None:
+                self._profile.close()
 
     def _transport_params(self, pub: dict) -> dict:
         """What the transport publishes: `pub` itself in process; for a
@@ -715,6 +1118,8 @@ class ApexDriver:
         chunk = max(min(self.cfg.learner.train_chunk, publish_every), 1)
         last_log = 0
         last_ckpt = self._grad_steps_total
+        sync_every = self.cfg.learner.target_sync_every
+        m = None
         while (not self.stop_event.is_set()
                and self._grad_steps_total < max_grad_steps):
             self.obs.beat("learner")
@@ -727,6 +1132,10 @@ class ApexDriver:
             if self._pacing_binds(frames):
                 time.sleep(0.01)  # pacing: let actors catch up
                 continue
+            if (self._profile is not None
+                    and self._profile.step(self._grad_steps_total)):
+                self.metrics.log(self._grad_steps_total,
+                                 profile_trace=self.cfg.profile_dir)
             self.obs.maybe_profile(self._grad_steps_total)
             # up to `chunk` grad-steps per dispatch without overshooting
             # the step target; publication fires on boundary CROSSINGS
@@ -742,7 +1151,8 @@ class ApexDriver:
                     if self._learn_stream is not None:
                         # after the adds ingest has enqueued so far
                         self._learn_stream.wait_stream(self._ingest_stream)
-                    with self.obs.stage_window("train", k):
+                    with self.obs.stage_window("train", k,
+                                               stream=self._learn_stream):
                         with self.obs.span("learner.train", k=k):
                             if k > 1:
                                 self.state, m = self.learner.train_many(
@@ -759,6 +1169,14 @@ class ApexDriver:
             self._grad_steps_total += k
             self.grad_steps.add(k)
             self.obs.set_learner_step(self._grad_steps_total)
+            # sampling, the priority write-back and (boundary permitting)
+            # the target sync run inside the train graph: mark, don't span
+            self.obs.mark("replay.sample", fused_into="learner.train")
+            self.obs.mark("replay.priority_update",
+                          fused_into="learner.train")
+            if done // sync_every != self._grad_steps_total // sync_every:
+                self.obs.mark("learner.target_sync",
+                              fused_into="learner.train")
             if done // publish_every != self._grad_steps_total // publish_every:
                 self._publish_params()
             if (self.ckpt is not None and self._grad_steps_total - last_ckpt
@@ -767,34 +1185,79 @@ class ApexDriver:
                 last_ckpt = self._grad_steps_total
             if self._grad_steps_total - last_log >= 100:
                 last_log = self._grad_steps_total
-                # ONE fetch of the logged metrics at the log boundary
-                loss, q_mean, td = torch.stack(
-                    [m["loss"].float(), m["q_mean"].float(),
-                     m["td_abs_mean"].float()]).tolist()
-                with self._lock:
-                    avg_ret = (float(np.mean(self.episode_returns))
-                               if self.episode_returns else 0.0)
-                    replay_size = self._replay_filled
-                self.metrics.log(
-                    self._grad_steps_total,
-                    loss=loss, q_mean=q_mean,
-                    frames=self._frames_total,
-                    frames_per_s=self.frames.rate(),
-                    grad_steps_per_s=self.grad_steps.rate(),
-                    avg_return=avg_ret,
-                    replay_size=replay_size,
-                    ingest_dropped=self.transport.dropped)
-                self.obs.observe("td_abs", td)
-                self.obs.gauge("replay_occupancy", replay_size)
-                self.obs.perf_rate("grad_steps_per_s",
-                                   self.grad_steps.rate(),
-                                   step=self._grad_steps_total)
-                self.obs.perf_rate("env_fps", self.frames.rate(),
-                                   step=self._grad_steps_total)
-                self.obs.perf_rate("ingest_rows_per_s",
-                                   self.ingest_rows.rate(),
-                                   step=self._grad_steps_total)
-                self.obs.publish(self._grad_steps_total)
+                self._log_boundary(m)
+        # a run that ends between log boundaries still logs (and, with
+        # obs on, publishes) its last dispatch's metrics once
+        if m is not None and self._grad_steps_total > last_log:
+            self._log_boundary(m)
+
+    def _log_boundary(self, m: dict) -> None:
+        """The learner's log record and the observability publication,
+        with ONE fetch of the logged metrics (and, with obs on, the
+        learning diagnostics): every 100 grad-steps, and once at the
+        end of the loop."""
+        diag = m.get("diag", {}) if self.obs.enabled else {}
+        loss, q_mean, td, *dvals = torch.stack(
+            [m["loss"].float(), m["q_mean"].float(),
+             m["td_abs_mean"].float()]
+            + [v.float() for v in diag.values()]).tolist()
+        with self._lock:
+            avg_ret = (float(np.mean(self.episode_returns))
+                       if self.episode_returns else 0.0)
+            replay_size = self._replay_filled
+        self.metrics.log(
+            self._grad_steps_total,
+            loss=loss, q_mean=q_mean,
+            frames=self._frames_total,
+            frames_per_s=self.frames.rate(),
+            grad_steps_per_s=self.grad_steps.rate(),
+            avg_return=avg_ret,
+            replay_size=replay_size,
+            ingest_dropped=self.transport.dropped)
+        self.obs.observe("td_abs", td)
+        self.obs.gauge("replay_occupancy", replay_size)
+        if diag:
+            diag = dict(zip(diag, dvals))
+            self.obs.learn_health(diag, loss, step=self._grad_steps_total,
+                                  tenant=self.cfg.env.id)
+            self._observe_sample_ages(diag)
+        self._attach_stage_costs()
+        self.obs.perf_rate("grad_steps_per_s", self.grad_steps.rate(),
+                           step=self._grad_steps_total)
+        self.obs.perf_rate("env_fps", self.frames.rate(),
+                           step=self._grad_steps_total)
+        self.obs.perf_rate("ingest_rows_per_s", self.ingest_rows.rate(),
+                           step=self._grad_steps_total)
+        self.obs.publish(self._grad_steps_total)
+
+    def _observe_sample_ages(self, diag: dict) -> None:
+        """sample_age_steps from the learner's in-graph sample-age order
+        statistics (ring distances from the write cursor, in leaves),
+        mapped to grad-steps through the host mirror of the cursor: the
+        age in grad-steps of the p50 and p90 transitions of the last
+        draw. Approximate: adds in flight move the cursor meanwhile."""
+        if self._age is None or "sample_age_p50" not in diag:
+            return
+        self.obs.observe_sample_ages(self._age.ages_at_distances(
+            [diag["sample_age_p50"], diag["sample_age_p90"]],
+            self._grad_steps_total))
+
+    def _attach_stage_costs(self) -> None:
+        """Give the profiler the analytic roofs of the train and ingest
+        stages once the graphs' warm-ups have counted them
+        (runtime/step_graph.py): per grad-step from the step graph that
+        covers the most steps, per staged unit from the one-block add."""
+        if not self.obs.stage_attached("train"):
+            graphs = [g for g in self.learner.step_graphs().values()
+                      if g.cost is not None]
+            if graphs:
+                g = max(graphs, key=lambda g: g.steps)
+                self.obs.stage_attach("train", g.steps, cost=g.cost)
+        if not self.obs.stage_attached("ingest"):
+            add = self.learner.add_graphs().get(1)
+            if add is not None and add.cost is not None:
+                self.obs.stage_attach("ingest", self._stage_chunk,
+                                      cost=add.cost)
 
     def _eval_loop(self) -> None:
         """Greedy eval at every eval_every_steps grad-step boundary,
@@ -992,7 +1455,11 @@ class ApexDriver:
             "loop_errors": list(self.loop_errors),
             "eval": self.last_eval,
             "checkpoint_saves": self.checkpoint_saves,
+            "add_graph_replays": {g: a.replays for g, a in sorted(
+                self.learner.add_graphs().items())},
         }
+        if self.remediation is not None:
+            out["remediation"] = self.remediation.summary()
         wire = self._wire_summary()
         if wire is not None:
             out["wire"] = wire

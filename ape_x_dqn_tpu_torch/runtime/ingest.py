@@ -87,6 +87,13 @@ class IngestStager:
         # under the state lock; not device time)
         self.ship_ms = 0.0
         self.last_ship_ms = 0.0
+        # cross-process correlation: tags ((peer, batch_id) from the
+        # wire header) of batches staged since the last ship, read by
+        # the ship callback through `shipping_tags`. Approximate: a
+        # batch that straddles a buffer boundary is attributed to the
+        # ship that took its head
+        self._pending_tags: list = []
+        self.shipping_tags: tuple = ()
 
     # -- write side --------------------------------------------------------
 
@@ -100,10 +107,13 @@ class IngestStager:
                 ev.synchronize()
             self._inflight[i] = []
 
-    def put(self, batch) -> None:
+    def put(self, batch, tag=None) -> None:
         """Stage one ingest message (a WireBatch or a dict of arrays),
         splitting across buffer boundaries; full buffers ship as one
-        coalesced add_many."""
+        coalesced add_many. `tag` is an opaque correlation handle
+        surfaced via `shipping_tags` on the ship that carries it."""
+        if tag is not None:
+            self._pending_tags.append(tag)
         wire = hasattr(batch, "decode_into")
         total = batch.rows if wire \
             else int(np.shape(batch["priorities"])[0])
@@ -137,6 +147,8 @@ class IngestStager:
         """Full buffer -> one add_many; rotate to the next buffer while
         the copy flies."""
         tbuf = self._tbufs[self._active]
+        self.shipping_tags = tuple(self._pending_tags)
+        self._pending_tags = []
         t0 = time.perf_counter()
         self._inflight[self._active] = list(
             self._ship({k: tbuf[k] for k in self._keys}, self.coalesce))
@@ -158,6 +170,8 @@ class IngestStager:
         tbuf = self._tbufs[self._active]
         buf = self._bufs[self._active]
         shipped = nblocks * self.block
+        self.shipping_tags = tuple(self._pending_tags)
+        self._pending_tags = []
         handles: list = []
         t0 = time.perf_counter()
         for b in range(nblocks):

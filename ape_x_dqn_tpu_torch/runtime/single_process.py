@@ -24,14 +24,16 @@ Differences from the original, by design:
   JAX's ``RngStream.next_uint32``, whose threefry bits cannot be
   reproduced without JAX. Runs are reproducible, but not the same
   episode-for-episode as the JAX package's.
-- Observability is the disabled facade (obs/core.py); the observed
-  split dispatch (the original's ``traced_train``) and its publish-
-  boundary instruments wait for the device observability port (ROADMAP
-  Queue A item 17), and an obs-enabled config raises.
+- With observability on (obs/core.py) the macro-steps take the split
+  sample_k/learn_k dispatch, as the original's ``traced_train``, so the
+  two stages are spans and stage windows of their own (CUDA events on
+  the card, read at publish time); each stage's analytic cost is
+  counted over its first call (obs/profiling.py: count_cost).
 """
 
 from __future__ import annotations
 
+import time
 from collections import deque
 
 import numpy as np
@@ -39,6 +41,7 @@ import torch
 
 from ape_x_dqn_tpu_torch.envs import make_env
 from ape_x_dqn_tpu_torch.models import build_network, init_params
+from ape_x_dqn_tpu_torch.obs import profiling
 from ape_x_dqn_tpu_torch.obs.core import build_obs
 from ape_x_dqn_tpu_torch.ops.nstep import NStepBuilder
 from ape_x_dqn_tpu_torch.replay.prioritized import (PrioritizedReplay,
@@ -75,8 +78,11 @@ def train_single_process(cfg, total_env_frames: int | None = None,
     metrics = metrics or Metrics()
     log_run_header(metrics, cfg)
     # `obs` is this loop's env observation; the observability facade
-    # rides as `obs_` (NULL_OBS: see the module docstring)
+    # rides as `obs_` (NULL_OBS when cfg.obs is absent or disabled)
     obs_ = build_obs(getattr(cfg, "obs", None), metrics)
+    # crash hooks (obs/blackbox.py): uninstalled again by obs_.close(),
+    # so a healthy run leaves no dump behind and a later run in this
+    # process inherits no hook
     obs_.blackbox.install()
     obs_.register("actor-0")
     obs_.register("learner")
@@ -87,6 +93,10 @@ def train_single_process(cfg, total_env_frames: int | None = None,
 
     obs = env.reset()
     replay = build_replay(cfg.replay, dev)
+    # host mirror of the ring's skip-to-head write cursor: maps sampled
+    # slot indices back to the grad-step they were written at (None
+    # when obs is disabled)
+    age_tracker = obs_.age_tracker(next_pow2(cfg.replay.capacity))
     item_spec = transition_item_spec(env.spec.obs_shape,
                                      env.spec.obs_dtype)
     learner = DQNLearner(replay, cfg.learner)
@@ -137,8 +147,54 @@ def train_single_process(cfg, total_env_frames: int | None = None,
                     [t.discount for t in pending], np.float32)),
             }
             learner.add(state, items, torch.ones(len(pending)))
+        if age_tracker is not None:
+            age_tracker.on_add(len(pending), grad_steps)
         obs_.count("replay_adds", len(pending))
         pending = []
+
+    stream = torch.cuda.current_stream(dev) if dev.type == "cuda" else None
+
+    def counted(stage: str, k: int, fn):
+        """fn(), counted for the stage's analytic roof the first time."""
+        if obs_.stage_attached(stage):
+            return fn()
+        out, flops, nbytes = profiling.count_cost(fn)
+        obs_.stage_attach(stage, k, cost=(flops, nbytes))
+        return out
+
+    def traced_train(k: int):
+        """Observed macro-step: the split sample_k/learn_k dispatch
+        (parity-tested against train_step/_k), so the tracer sees
+        replay.sample and learner.learn as spans of their own and the
+        profiler a window each. The priority write-back and the target
+        sync run inside learn_k: marks."""
+        nonlocal state
+        with obs_.stage_window("sample_k", k, stream=stream):
+            with obs_.span("replay.sample", k=k):
+                sample = counted("sample_k", k,
+                                 lambda: learner.sample_k(state, k))
+        if age_tracker is not None:
+            obs_.observe_sample_ages(age_tracker.ages(
+                sample[1].cpu().numpy(), grad_steps))
+        with obs_.stage_window("learn_k", k, stream=stream):
+            with obs_.span("learner.learn", k=k):
+                state, m = counted("learn_k", k,
+                                   lambda: learner.learn_k(state, sample, k))
+        obs_.mark("replay.priority_update", fused_into="learner.learn")
+        sync = cfg.learner.target_sync_every
+        if grad_steps // sync != (grad_steps + k) // sync:
+            obs_.mark("learner.target_sync", fused_into="learner.learn")
+        obs_.observe("td_abs", float(m["td_abs_mean"]))
+        # the acting policy reads state.net directly: lag is truly 0
+        obs_.observe("param_lag_steps", 0)
+        return m
+
+    pub_every = max(getattr(getattr(cfg, "obs", None),
+                            "publish_every_steps", 500) or 500, 1)
+    # publish-boundary rate window for the perf-regression engine
+    rate_t = time.monotonic()
+    rate_frames = 0
+    rate_steps = 0
 
     while frames < total:
         obs_.beat("actor-0", f"frame {frames}")
@@ -177,7 +233,12 @@ def train_single_process(cfg, total_env_frames: int | None = None,
                 train_bank += 1
                 if train_bank >= sample_chunk:
                     train_bank = 0
-                    if sample_prefetch:
+                    if obs_.enabled:
+                        # observed runs take the split dispatch so the
+                        # two stages are separately timeable; the
+                        # prefetch overlap is deliberately broken here
+                        m = traced_train(sample_chunk)
+                    elif sample_prefetch:
                         if pending_sample is None:  # pipeline prologue
                             pending_sample = learner.sample_k(state,
                                                               sample_chunk)
@@ -189,10 +250,14 @@ def train_single_process(cfg, total_env_frames: int | None = None,
                         state, m = learner.train_step_k(state, sample_chunk)
                     grad_steps += sample_chunk
             else:
-                state, m = learner.train_step(state)
+                if obs_.enabled:
+                    m = traced_train(1)
+                else:
+                    state, m = learner.train_step(state)
                 grad_steps += 1
             if m is not None:
                 obs_.beat("learner", f"grad_step {grad_steps}")
+                obs_.maybe_profile(grad_steps)
                 losses.append(float(m["loss"]))
                 # boundary CROSSING, not equality: K-sized increments
                 # would otherwise only hit exact multiples at lcm(K, 500)
@@ -203,6 +268,30 @@ def train_single_process(cfg, total_env_frames: int | None = None,
                                 avg_return=(float(np.mean(returns))
                                             if returns else 0.0),
                                 eps=eps)
+                if prev_grad_steps // pub_every != \
+                        grad_steps // pub_every:
+                    obs_.gauge("replay_occupancy", state.replay.size)
+                    if obs_.enabled and "diag" in m:
+                        # one fetch of the diagnostics, at the publish
+                        # cadence
+                        diag = m["diag"]
+                        vals = torch.stack([v.float() for v in
+                                            diag.values()]).tolist()
+                        obs_.learn_health(
+                            dict(zip(diag, vals)), float(m["loss"]),
+                            step=grad_steps, tenant=cfg.env.id)
+                    now = time.monotonic()
+                    if now > rate_t:
+                        dt = now - rate_t
+                        obs_.perf_rate("grad_steps_per_s",
+                                       (grad_steps - rate_steps) / dt,
+                                       step=grad_steps)
+                        obs_.perf_rate("env_fps",
+                                       (frames - rate_frames) / dt,
+                                       step=grad_steps)
+                    rate_t, rate_frames, rate_steps = \
+                        now, frames, grad_steps
+                    obs_.publish(grad_steps)
         obs_.check_stalled()
         if (solve_return is not None and len(returns) >= 20
                 and np.mean(list(returns)[-20:]) >= solve_return):

@@ -33,14 +33,32 @@ as `noise`.
 - `frame_gather.gather_rows` counts the launches recorded into a graph
   while it is captured (``gather_rows.captured``); each replay adds them
   to ``gather_rows.launches``.
+
+`AddGraph` is the same for the ingest add (the counterpart of the JAX
+driver's one donated `add`/`add_many` dispatch,
+``ape_x_dqn_tpu/runtime/ingest.py``): its body writes g staged blocks at
+the replay's DEVICE cursor and advances it, reading its inputs from
+static device buffers that the caller's host-to-device copies land in
+(`land`); the host cursor is the learner's to advance. One graph per
+(replay, g).
+
+Every capture is logged in `CAPTURES` (name, milliseconds, the caching
+allocator's growth across it), which the observability layer publishes
+as `graph_captures`, `graph_capture_ms` and `hbm/<graph>/...`
+(obs/profiling.py). While a cost is wanted (`profiling.want_costs`),
+the first eager run of a body (the warm-up on the card) is counted for
+its FLOPs and bytes (`profiling.count_cost`), kept as `cost`.
 """
 
 from __future__ import annotations
 
+import threading
+import time
 from typing import Any, Callable
 
 import torch
 
+from ape_x_dqn_tpu_torch.obs import profiling
 from ape_x_dqn_tpu_torch.ops.frame_gather import gather_rows
 
 
@@ -76,68 +94,184 @@ def unpack_metrics(vec: torch.Tensor, paths: list[tuple]) -> dict:
     return out
 
 
-class StepGraph:
-    def __init__(self, body: Callable[[Any, torch.Tensor], dict]):
-        self.body = body
-        self.gathers = 0           # gather launches one replay carries
+class CaptureLog:
+    """Every graph captured in this process, in order: {"name", "ms",
+    "allocated_bytes", "reserved_bytes"} (the allocator's growth across
+    the capture: the graph's private pool, plus whatever other threads
+    allocated meanwhile)."""
+
+    def __init__(self):
+        self._lock = threading.Lock()
+        self.entries: list[dict] = []   # guarded-by: _lock
+
+    def add(self, entry: dict) -> None:
+        with self._lock:
+            self.entries.append(entry)
+
+    def since(self, n: int) -> list[dict]:
+        with self._lock:
+            return list(self.entries[n:])
+
+
+CAPTURES = CaptureLog()
+
+
+def _memory(device: torch.device) -> tuple[int, int]:
+    st = torch.cuda.memory_stats(device)
+    return (int(st.get("allocated_bytes.all.current", 0)),
+            int(st.get("reserved_bytes.all.current", 0)))
+
+
+class _Captured:
+    """Warm-up, capture and the capture log, shared by `StepGraph` and
+    `AddGraph`. `run(state, x)` is the body on the static or fed input
+    `x`; subclasses say what `x` is."""
+
+    def __init__(self, name: str, steps: int):
+        self.name = name
+        self.steps = steps         # grad-steps (or add units) one run does
+        self.cost: tuple[float, float] | None = None  # (flops, bytes)
         self._warm = None          # the state the eager warm-up ran on
         self._bound = None         # the state the graph was captured on
         self._graph: torch.cuda.CUDAGraph | None = None
         self._stream: torch.cuda.Stream | None = None
-        self._noise: torch.Tensor | None = None   # static input
-        self._out: torch.Tensor | None = None     # static packed metrics
-        self._paths: list[tuple] = []
 
     @property
     def captured(self) -> bool:
         return self._graph is not None
 
-    def __call__(self, state, noise: torch.Tensor, capture: bool) -> dict:
-        if noise.device.type != "cuda" or not capture:
-            return self.body(state, noise)
-        if self._graph is None or self._bound is not state:
-            if self._warm is not state:
-                return self._warm_up(state, noise)
-            self._capture(state, noise)
-        return self._replay(noise)
+    def _eager(self, run: Callable, state, x):
+        """One eager run, counted for its cost the first time a cost is
+        wanted."""
+        if self.cost is None and profiling.costs_wanted():
+            out, flops, nbytes = profiling.count_cost(lambda: run(state, x))
+            self.cost = (flops, nbytes)
+            return out
+        return run(state, x)
 
     def _side_stream(self, device: torch.device) -> torch.cuda.Stream:
         if self._stream is None:
             self._stream = torch.cuda.Stream(device=device)
         return self._stream
 
-    def _warm_up(self, state, noise: torch.Tensor) -> dict:
-        cur = torch.cuda.current_stream(noise.device)
-        side = self._side_stream(noise.device)
+    def _warm_up(self, run: Callable, state, x: Any, device):
+        cur = torch.cuda.current_stream(device)
+        side = self._side_stream(device)
         side.wait_stream(cur)
         with torch.cuda.stream(side):
-            out = self.body(state, noise)
+            out = self._eager(run, state, x)
         cur.wait_stream(side)
-        for _, v in _leaves(out):
-            v.record_stream(cur)
         self._warm = state
         return out
 
-    def _capture(self, state, noise: torch.Tensor) -> None:
+    def _capture(self, run: Callable, state, x: Any, device):
+        """Capture `run(state, x)` (which runs nothing) and log it. ->
+        what the body returned while capturing (static outputs)."""
         self._graph = self._bound = None    # a graph of another state
-        static = torch.empty_like(noise)
         graph = torch.cuda.CUDAGraph()
-        before = gather_rows.captured
+        mem0 = _memory(device)
+        t0 = time.perf_counter()
         # thread_local: the driver's other threads keep using the card
         # (on other streams) while this thread captures
-        with torch.cuda.graph(graph, stream=self._side_stream(noise.device),
+        with torch.cuda.graph(graph, stream=self._side_stream(device),
                               capture_error_mode="thread_local"):
-            out, paths = pack_metrics(self.body(state, static))
-        self.gathers = gather_rows.captured - before
-        self._graph, self._noise, self._out, self._paths = (
-            graph, static, out, paths)
-        self._bound = state
+            out = run(state, x)
+        ms = (time.perf_counter() - t0) * 1e3
+        mem1 = _memory(device)
+        CAPTURES.add({"name": self.name, "ms": ms,
+                      "allocated_bytes": mem1[0] - mem0[0],
+                      "reserved_bytes": mem1[1] - mem0[1]})
+        self._graph, self._bound = graph, state
+        return out
+
+
+class StepGraph(_Captured):
+    def __init__(self, body: Callable[[Any, torch.Tensor], dict],
+                 name: str = "step", steps: int = 1):
+        super().__init__(name, steps)
+        self.body = body
+        self.gathers = 0           # gather launches one replay carries
+        self._noise: torch.Tensor | None = None   # static input
+        self._out: torch.Tensor | None = None     # static packed metrics
+        self._paths: list[tuple] = []
+
+    def __call__(self, state, noise: torch.Tensor, capture: bool) -> dict:
+        if noise.device.type != "cuda" or not capture:
+            return self._eager(self.body, state, noise)
+        if self._graph is None or self._bound is not state:
+            if self._warm is not state:
+                out = self._warm_up(self.body, state, noise, noise.device)
+                cur = torch.cuda.current_stream(noise.device)
+                for _, v in _leaves(out):
+                    v.record_stream(cur)
+                return out
+            static = torch.empty_like(noise)
+            before = gather_rows.captured
+            self._out, self._paths = self._capture(
+                lambda s, u: pack_metrics(self.body(s, u)), state, static,
+                noise.device)
+            self.gathers = gather_rows.captured - before
+            self._noise = static
+        return self._replay(noise)
 
     def _replay(self, noise: torch.Tensor) -> dict:
         self._noise.copy_(noise)
         self._graph.replay()
         gather_rows.launches += self.gathers
         return unpack_metrics(self._out.clone(), self._paths)
+
+
+class AddGraph(_Captured):
+    """One ingest add of g staged blocks: `body(state, inputs)` writes
+    them at the replay's device cursor and advances it (device
+    operations only, no host value read). On the card with capture on,
+    `land` copies the host views into the graph's static inputs and the
+    call warms up, captures and replays as `StepGraph` does; elsewhere
+    `land` makes fresh device tensors and the call is the body. The
+    caller advances the host cursor."""
+
+    def __init__(self, body: Callable[[Any, dict], None],
+                 name: str = "add", steps: int = 1):
+        super().__init__(name, steps)
+        self.body = body
+        self.inputs: dict[str, torch.Tensor] | None = None  # static
+        self.replays = 0
+
+    def land(self, views: dict, lead: tuple, device: torch.device,
+             graphed: bool) -> dict:
+        """The add's host-to-device copies, asynchronous from pinned
+        memory, on the caller's stream: into the static inputs when
+        `graphed` (a replay of this graph earlier on the same stream has
+        read them by then), else into fresh tensors."""
+        def shaped(v):
+            return v.reshape(lead + tuple(v.shape[1:]))
+
+        if not graphed:
+            return {k: shaped(v).to(device, non_blocking=True)
+                    for k, v in views.items()}
+        if self.inputs is None:
+            self.inputs = {k: torch.empty(shaped(v).shape, dtype=v.dtype,
+                                          device=device)
+                           for k, v in views.items()}
+        for k, v in views.items():
+            self.inputs[k].copy_(shaped(v), non_blocking=True)
+        return self.inputs
+
+    def __call__(self, state, inputs: dict, capture: bool) -> None:
+        dev = next(iter(inputs.values())).device
+        if dev.type != "cuda" or not capture:
+            self._eager(self.body, state, inputs)
+            return
+        if inputs is not self.inputs:
+            raise ValueError(f"{self.name}: a graphed add reads its static "
+                             f"inputs; land() the views first")
+        if self._graph is None or self._bound is not state:
+            if self._warm is not state:
+                self._warm_up(self.body, state, inputs, dev)
+                return
+            self._capture(self.body, state, inputs, dev)
+        self._graph.replay()
+        self.replays += 1
 
 
 class GraphedEndpoints:
@@ -168,9 +302,59 @@ class GraphedEndpoints:
     def _run(self, key, body: Callable, state, noise: torch.Tensor) -> dict:
         graphs = self.__dict__.setdefault("_graphs", {})
         if key not in graphs:
-            graphs[key] = StepGraph(body)
+            # "step" runs one grad-step, ("k", k) a K-batch macro-step
+            steps = key[1] if isinstance(key, tuple) else 1
+            name = "train_step" if steps == 1 else f"train_step_k{steps}"
+            graphs[key] = StepGraph(
+                body, name=f"{type(self).__name__}.{name}", steps=steps)
         return graphs[key](state, noise, self.capture)
 
     def step_graphs(self) -> dict:
         """{endpoint key: StepGraph} built so far."""
         return dict(self.__dict__.get("_graphs", {}))
+
+    # -- the ingest add ------------------------------------------------------
+
+    def _add_graph(self, g: int) -> AddGraph:
+        graphs = self.__dict__.setdefault("_add_graphs", {})
+        if g not in graphs:
+            graphs[g] = AddGraph(
+                lambda s, ins: self._add_body(s, ins, g),
+                name=f"{type(self).__name__}.add_g{g}", steps=g)
+        return graphs[g]
+
+    def add_graphs(self) -> dict:
+        """{g: AddGraph} built so far."""
+        return dict(self.__dict__.get("_add_graphs", {}))
+
+    def _add_body(self, state, inputs: dict, g: int) -> None:
+        """g staged blocks at the replay's device cursor, in order
+        (device operations only). g == 1: one block, without the
+        leading g axis."""
+        td = inputs["priorities"]
+        items = {k: v for k, v in inputs.items() if k != "priorities"}
+        if g == 1:
+            self.replay.add_body(state.replay, items, td)
+            return
+        for j in range(g):
+            self.replay.add_body(state.replay,
+                                 {k: v[j] for k, v in items.items()}, td[j])
+
+    def land_add(self, g: int, views: dict, lead: tuple) -> dict:
+        """The host-to-device copies of one add of g staged blocks
+        (views {key: [g * block, ...]} with "priorities", reshaped to
+        `lead` + the leaf shape): into the add graph's static inputs
+        when graphed, else fresh device tensors (AddGraph.land)."""
+        return self._add_graph(g).land(views, lead, self.replay.device,
+                                       self.graphed)
+
+    def add_landed(self, state, g: int, inputs: dict):
+        """The add of g landed blocks: one graph replay per (replay, g)
+        on the card, the body elsewhere; then the host cursor advances
+        by the g blocks it wrote. -> state."""
+        self._add_graph(g)(state, inputs, self.capture)
+        td = inputs["priorities"]
+        block = td.shape[1] if g > 1 else td.shape[0]
+        for _ in range(g):
+            self.replay.advance_host(state.replay, block)
+        return state

@@ -24,10 +24,12 @@ hosts (runtime/actor_host.py) and prints the bound port on stderr (port
 0 picks a free one); `--checkpoint-dir` saves and resumes the train
 state; `--eval-only` restores the newest checkpoint's params and prints
 one JSON line of greedy scores (the suite's median HNS for Atari
-configs, over `--games`). `--device` (default cuda) is the device it
-runs on. The original's other modes are not ported yet; each exits 2
+configs, over `--games`). `--profile-dir` captures a torch.profiler
+trace of `profile_steps` grad-steps. `--device` (default cuda) is the
+device it runs on. The multi-host modes are not ported yet; each exits 2
 naming the ROADMAP Queue A item it waits for, rather than running
-without what it asked for. For the same reason `--single-process`
+without what it asked for (`--compilation-cache-dir` exits 2 too: the
+port compiles nothing at run time). For the same reason `--single-process`
 refuses `--listen` and `--checkpoint-dir` (exit 2), which the one-process
 trainer has no use for.
 """
@@ -102,8 +104,6 @@ _NOT_PORTED = (
     ("coordinator", "--coordinator (the multi-host learner)", 14),
     ("num_processes", "--num-processes (the multi-host learner)", 14),
     ("process_id", "--process-id (the multi-host learner)", 14),
-    ("profile_dir", "--profile-dir (the profiler capture)", 17),
-    ("compilation_cache_dir", "--compilation-cache-dir", 17),
 )
 
 
@@ -152,8 +152,11 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--listen", default=None, metavar="HOST:PORT",
                     help="also accept remote actor hosts over TCP (port "
                          "0: a free one, printed on stderr)")
+    ap.add_argument("--profile-dir", default=None,
+                    help="capture a torch.profiler trace (host and "
+                         "device activity) of profile_steps grad-steps "
+                         "into this directory")
     # not ported yet: accepted so that a request for them fails loudly
-    ap.add_argument("--profile-dir", default=None)
     ap.add_argument("--coordinator", default=None, metavar="HOST:PORT")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
@@ -174,6 +177,12 @@ def main(argv: list[str] | None = None) -> int:
                   f"waits for ROADMAP Queue A item {item}",
                   file=sys.stderr)
             return 2
+    if args.compilation_cache_dir is not None:
+        print("--compilation-cache-dir does not apply to the PyTorch "
+              "package: nothing is jit-compiled (the CUDA graphs are "
+              "captured in each process, and the kernels are built once "
+              "into ape_x_dqn_tpu_torch/_build/)", file=sys.stderr)
+        return 2
     if args.single_process:
         for flag, value in (("--listen", args.listen),
                             ("--checkpoint-dir", args.checkpoint_dir)):
@@ -194,6 +203,8 @@ def main(argv: list[str] | None = None) -> int:
         cfg = cfg.replace(total_env_frames=args.total_env_frames)
     if args.checkpoint_dir is not None:
         cfg = cfg.replace(checkpoint_dir=args.checkpoint_dir)
+    if args.profile_dir is not None:
+        cfg = cfg.replace(profile_dir=args.profile_dir)
     cfg = apply_overrides(cfg, args.set)
 
     if args.eval_only:

@@ -1,0 +1,201 @@
+"""Per-preset device-memory budgeting with an early, loud fits-check.
+
+Counterpart of ``ape_x_dqn_tpu/utils/hbm.py``: `replay_budget` prices a
+RunConfig's replay storage the way the card will hold it (byte-row
+packed pixel leaves, replay/packing.py), `run_budget` adds the model
+and optimizer state and the transient headroom, and `check_hbm_fits`
+raises before any device allocation when the preset cannot fit its
+card. The replay and model-state prices are the original's, byte for
+byte (tests/test_torch_hbm.py); the headroom and the card's size are
+the port's own:
+
+- `device_hbm_bytes` is ``torch.cuda.get_device_properties(d)
+  .total_memory`` on a card, and None on the CPU (no budget to
+  enforce there).
+- `TRANSIENT_HEADROOM` covers what the run allocates beyond the replay
+  and the model state: gradients, the captured graphs' private pools
+  (activations of a whole K-batch macro-step, the add graphs' static
+  inputs), the inference server's param copy and buckets, and the
+  pinned publication copies. The original's 2 GB was measured on a
+  TPU v5e and does not carry over; this one was measured on an NVIDIA
+  H100 80GB HBM3 at a 700 W limit by ``chip_smoke.py``, which prints
+  each phase's measured peak (``torch.cuda.max_memory_allocated``)
+  beside the budget (PERF.md §6).
+"""
+
+from __future__ import annotations
+
+import math
+from dataclasses import dataclass
+from typing import Any
+
+import numpy as np
+import torch
+
+from ape_x_dqn_tpu_torch.replay.frame_ring import frame_ring_mode
+from ape_x_dqn_tpu_torch.replay.packing import (ItemSpec, packable, pad128,
+                                                torch_dtype)
+from ape_x_dqn_tpu_torch.replay.sequence import sequence_frame_mode
+from ape_x_dqn_tpu_torch.utils.misc import next_pow2
+
+
+def _leaf_stored_bytes(shape: tuple[int, ...], dtype) -> int:
+    """Bytes one stored leaf actually occupies: pad128 byte rows when
+    the leaf is packed (the SAME packing.packable predicate the replay
+    storage uses — the budget must not drift from the layout), raw
+    bytes otherwise."""
+    n = math.prod(shape) * np.dtype(dtype).itemsize
+    if packable(ItemSpec(tuple(shape), torch_dtype(dtype))):
+        return pad128(n)
+    return n
+
+
+# bytes reserved for what the run allocates beyond the replay and the
+# model state (module docstring): the largest transient chip_smoke.py
+# measured on the card was r2d2's 1.32 GiB (NVIDIA H100 80GB HBM3,
+# 700 W; pong's driver 0.98, pong-sp 0.80, apex_dpg 0.48), with a
+# margin
+TRANSIENT_HEADROOM = 2 << 30  # 2.0 GiB
+
+
+@dataclass(frozen=True)
+class HbmBudget:
+    """All sizes in bytes, PER DEVICE (dp-sharded replay counts one
+    shard; replicated model state counts fully)."""
+    replay_storage: int
+    replay_tree: int
+    model_state: int
+    headroom: int
+    capacity: int          # effective per-device item capacity (pow2)
+    detail: dict
+
+    @property
+    def total(self) -> int:
+        return (self.replay_storage + self.replay_tree
+                + self.model_state + self.headroom)
+
+    def table(self) -> str:
+        gib = 1024 ** 3
+        rows = [("replay storage", self.replay_storage),
+                ("sum-tree", self.replay_tree),
+                ("model+opt state", self.model_state),
+                ("transient headroom", self.headroom),
+                ("TOTAL per device", self.total)]
+        body = "\n".join(f"  {k:<20} {v / gib:8.2f} GiB" for k, v in rows)
+        extra = ", ".join(f"{k}={v}" for k, v in self.detail.items())
+        return f"{body}\n  ({extra})"
+
+
+def _frame_ring_bytes(capacity: int, seg_transitions: int, n_step: int,
+                      obs_shape: tuple[int, ...]) -> tuple[int, dict]:
+    h, w, stack = obs_shape
+    f = seg_transitions + n_step + stack - 1
+    s = capacity // seg_transitions
+    frames = s * f * pad128(h * w)
+    fields = capacity * 4 * 4  # action/reward/discount/next_off, 4B each
+    return frames + fields, {"layout": "frame_ring", "frame_rows": s * f,
+                             "frame_row_bytes": pad128(h * w)}
+
+
+def _flat_bytes(capacity: int, obs_shape: tuple[int, ...],
+                obs_dtype) -> tuple[int, dict]:
+    obs = _leaf_stored_bytes(obs_shape, obs_dtype)
+    per_item = 2 * obs + 3 * 4  # obs + next_obs + action/reward/discount
+    return capacity * per_item, {"layout": "flat", "item_bytes": per_item}
+
+
+def _sequence_bytes(capacity: int, seq_len: int, obs_shape: tuple[int, ...],
+                    obs_dtype, lstm_size: int,
+                    frame_mode: bool) -> tuple[int, dict]:
+    if frame_mode:
+        h, w, stack = obs_shape
+        obs = _leaf_stored_bytes((seq_len + stack - 1, h, w), obs_dtype)
+    else:
+        obs = _leaf_stored_bytes((seq_len, *obs_shape), obs_dtype)
+    per_item = obs + seq_len * 4 * 4 + 2 * lstm_size * 4
+    return capacity * per_item, {"layout": "sequence",
+                                 "seq_item_bytes": per_item,
+                                 "frame_mode": frame_mode}
+
+
+def replay_budget(cfg: Any, obs_shape: tuple[int, ...],
+                  obs_dtype=np.uint8) -> tuple[int, int, int, dict]:
+    """-> (storage_bytes, tree_bytes, per_device_capacity, detail) for
+    cfg (a RunConfig), per device after dp sharding, capacity rounded to
+    the pow2 the drivers actually allocate."""
+    r = cfg.replay
+    dp = max(getattr(cfg.parallel, "dp", 1), 1)
+    cap = next_pow2(max(r.capacity // dp, 2)) if dp > 1 \
+        else next_pow2(r.capacity)
+    if r.kind == "sequence":
+        storage, detail = _sequence_bytes(
+            cap, r.seq_length, obs_shape, obs_dtype,
+            lstm_size=getattr(cfg.network, "lstm_size", 512),
+            # the SHARED predicate (replay/sequence.py) — pricing must
+            # follow the layout runtime/family.py actually selects
+            frame_mode=sequence_frame_mode(r.storage, obs_shape))
+    elif frame_ring_mode(r.storage, obs_shape):
+        storage, detail = _frame_ring_bytes(
+            cap, r.seg_transitions, cfg.learner.n_step, obs_shape)
+    else:
+        storage, detail = _flat_bytes(cap, obs_shape, obs_dtype)
+    tree = 2 * cap * 4 if r.kind != "uniform" else 4
+    detail["dp"] = dp
+    return storage, tree, cap, detail
+
+
+def model_state_bytes(param_count: int, adam: bool = True) -> int:
+    """params + target copy (+2 adam moments), all f32."""
+    per = 4 * (2 + (2 if adam else 0))
+    return param_count * per
+
+
+def run_budget(cfg: Any, obs_shape: tuple[int, ...], obs_dtype=np.uint8,
+               param_count: int = 5_000_000) -> HbmBudget:
+    """Budget a RunConfig per device. `param_count` defaults to a
+    generous flagship-CNN-class estimate when the caller has not built
+    the network yet (Nature-CNN ~1.7M, LSTM-Q ~6.5M params)."""
+    storage, tree, cap, detail = replay_budget(cfg, obs_shape, obs_dtype)
+    return HbmBudget(replay_storage=storage, replay_tree=tree,
+                     model_state=model_state_bytes(param_count),
+                     headroom=TRANSIENT_HEADROOM, capacity=cap,
+                     detail=detail)
+
+
+def device_hbm_bytes(device=None) -> int | None:
+    """Device memory of the card `device` (default: the current one),
+    from its properties; None without a card or for a CPU device (no
+    budget to enforce there)."""
+    if device is not None:
+        device = torch.device(device)
+        if device.type != "cuda":
+            return None
+    if not torch.cuda.is_available():
+        return None
+    return int(torch.cuda.get_device_properties(
+        device if device is not None else torch.cuda.current_device())
+        .total_memory)
+
+
+def check_hbm_fits(cfg: Any, obs_shape: tuple[int, ...], obs_dtype=np.uint8,
+                   param_count: int = 5_000_000, device=None,
+                   hbm_bytes: int | None = None) -> HbmBudget:
+    """Raise ValueError (loudly, with the budget table and the fix)
+    when the config's per-device footprint exceeds the card's memory.
+    Returns the budget either way on success; returns without a check
+    when there is no card to budget (`device_hbm_bytes` None)."""
+    budget = run_budget(cfg, obs_shape, obs_dtype, param_count)
+    limit = hbm_bytes if hbm_bytes is not None else device_hbm_bytes(device)
+    if limit is None:
+        return budget
+    if budget.total > limit:
+        gib = 1024 ** 3
+        raise ValueError(
+            f"config {getattr(cfg, 'name', '?')!r} needs "
+            f"{budget.total / gib:.2f} GiB per device but the device has "
+            f"{limit / gib:.2f} GiB of memory.\n{budget.table()}\n"
+            f"Fix: lower replay.capacity (per-device items: "
+            f"{budget.capacity}), raise parallel.dp to shard the replay "
+            f"wider, or switch replay.storage='frame_ring' for pixel "
+            f"configs.")
+    return budget

@@ -6,8 +6,8 @@ episode returns, loss and replay occupancy. Output: a JSONL stream and
 an in-memory latest snapshot; TensorBoard event files are optional.
 
 Locks are plain ``threading.Lock``s: the original builds them through
-``obs/health.py: make_lock``, whose lock-order witness belongs to the
-observability port (ROADMAP Queue A item 17).
+``obs/health.py: make_lock`` (its lock-order witness, which the port's
+transports use); these two leaf locks never nest another.
 """
 
 from __future__ import annotations

@@ -28,9 +28,11 @@ non-zero:
              capture (each replay counts the gather launches it
              carries); kernel launch counts are zeroed just before and
              read just after; then the learner's rate eager and as a
-             graph, and a torch.profiler pass of each: device busy
-             share, kernels per macro-step and top kernels. Its 10.3 GB
-             ring is freed before the next phases.
+             graph, the graph's rate with the enabled observability
+             facade's stage windows on against off (interleaved), and a
+             torch.profiler pass of each: device busy share, kernels per
+             macro-step and top kernels. Its 10.3 GB ring is freed
+             before the next phases.
 6. apex      `python -m ape_x_dqn_tpu_torch.runtime.train --config pong
              --total-env-frames 60000 --wall-clock-limit 120`, the
              default CLI mode: the Ape-X driver with 8 vector actors x 16
@@ -110,7 +112,27 @@ non-zero:
              pong,breakout`: one summary with median_hns_synthetic (no
              ale_py on the card's machine) and no median_hns, the
              restored params the checkpoint's (CRC-32)
-14. the kernels line, the card line, and the contract's last line.
+14. obs      `--config pong --actors 4 --listen 127.0.0.1:0 --set
+             obs.enabled=true --set obs.trace_path=<tmp>/trace.json --set
+             obs.telemetry_every_s=1 --set remediation.mode=observe
+             --profile-dir <tmp>/prof --metrics-file <tmp>/run.jsonl
+             --total-env-frames 40000 --wall-clock-limit 90` beside one
+             `actor_host --config pong` process (4 vector actors x 16
+             envs over TCP, obs.enabled): the trace holds the ingest,
+             learner and server threads' spans; the JSONL holds the
+             sample-age and param-lag histograms, peer/<host>/...
+             telemetry, graph_captures and the stage gauges in (0, 1];
+             the profiler wrote its trace; the report prints its stage,
+             staleness and roofline sections; a SIGUSR2 to this process
+             mid-run left a blackbox-*.json and no handler; the run's
+             HBM budget covers its measured peak; the gather launched
+15. the memory table (each preset's budget beside its measured peak and
+             the card), the kernels line, the card line, and the
+             contract's last line.
+
+Every driver phase prints the ingest add's host ms (median, p90) and the
+replays of its captured graphs by g (one graph per replay layout and g,
+runtime/step_graph.py: AddGraph), and checks that they replayed.
 
 It imports torch and the port only: no JAX, nothing of ape_x_dqn_tpu.
 """
@@ -119,6 +141,7 @@ from __future__ import annotations
 
 import argparse
 import contextlib
+import dataclasses
 import gc
 import io
 import json
@@ -171,6 +194,18 @@ RESUME_SETS = ("replay.min_fill=2048",)
 # eval-only: two games of the score table
 EVAL_GAMES = "pong,breakout"
 EVAL_SETS: tuple[str, ...] = ()
+# apex: the eager ingest add's host ms median and drops in the last run
+# of this script before the add was captured (PERF.md section 5)
+EAGER_ADD_MS = 320.32
+EAGER_ADD_DROPS = 1608
+# obs: 4 local vector actors beside one actor host of 4 (its actor
+# offset follows the local ones), SIGUSR2 to this process mid-run
+OBS_ACTORS = 4
+OBS_FRAMES = 40000
+OBS_WALL_S = 90
+OBS_SIGNAL_AFTER_S = 30.0
+OBS_SETS: tuple[str, ...] = ()
+OBS_HOST_SETS: tuple[str, ...] = ("obs.enabled=true",)
 
 
 def log(msg: str) -> None:
@@ -447,6 +482,23 @@ def learner_rate(learner, state, k: int, n: int, capture: bool) -> float:
         learner.capture = True
 
 
+def windowed_rate(learner, state, k: int, n: int, obs) -> float:
+    """`learner_rate` of the graphs with each call inside the enabled
+    facade's train stage window (a CUDA event pair on the current
+    stream), the windows read by one publish after the clock stops."""
+    stream = torch.cuda.current_stream()
+    state, _ = learner_step(learner, state, k)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        with obs.stage_window("train", k, stream=stream):
+            state, _ = learner_step(learner, state, k)
+    torch.cuda.synchronize()
+    rate = n * k / (time.perf_counter() - t0)
+    obs.publish(0)
+    return rate
+
+
 def profile_macro_steps(learner, state, k: int, n: int,
                         capture: bool) -> str:
     """n learner calls (macro-steps, or grad-steps at K=1) under
@@ -608,10 +660,32 @@ def phase_main(dev, seed: int) -> dict:
     log(f"main: the pong learner alone, grad-steps/s eager={eager:.2f} "
         f"graph={graphed:.2f} (host clock over {RATE_STEPS} macro-steps "
         f"each, after one untimed call; the same learner and replay)")
+    # the enabled facade's stage windows on against off, interleaved
+    from ape_x_dqn_tpu_torch.configs import ObsConfig
+    from ape_x_dqn_tpu_torch.obs.core import build_obs
+    from ape_x_dqn_tpu_torch.utils.metrics import Metrics
+    obs = build_obs(ObsConfig(enabled=True), Metrics())
+    rates = {"off": [], "on": []}
+    for _ in range(2):
+        rates["off"].append(learner_rate(learner, state, k, RATE_STEPS,
+                                         capture=True))
+        rates["on"].append(windowed_rate(learner, state, k, RATE_STEPS,
+                                         obs))
+    dev_ms = obs.metrics.latest().get("gauge/device_ms_train")
+    obs.close()
+    check(dev_ms is not None and dev_ms > 0,
+          f"the stage windows published no device time: {dev_ms}")
+    log(f"main: the pong learner's graph, grad-steps/s with the enabled "
+        f"facade's stage windows off={[round(r, 2) for r in rates['off']]}"
+        f" on={[round(r, 2) for r in rates['on']]} (interleaved off, on, "
+        f"off, on; {RATE_STEPS} macro-steps each); the windows' device "
+        f"ms per macro-step (EWMA) {dev_ms:.3f}")
     log(profile_macro_steps(learner, state, k, PROFILE_STEPS, False))
     log(profile_macro_steps(learner, state, k, PROFILE_STEPS, True))
-    # free the 10.3 GB ring before the flat replay's 59.3 GB
-    del learner, state, replay, sample, frames, got, items
+    # free the 10.3 GB ring before the next phases (the graph holds the
+    # state it was captured on, and the learner and its graphs form a
+    # cycle that only a collection frees)
+    del learner, state, replay, sample, frames, got, items, graph, m
     gc.collect()
     torch.cuda.empty_cache()
     return launches
@@ -619,7 +693,8 @@ def phase_main(dev, seed: int) -> dict:
 
 def check_graphed(driver, key, gathers: int) -> None:
     """The driver's learner replayed its captured graph for `key`
-    (carrying `gathers` gather launches a replay) and its actors ran
+    (carrying `gathers` gather launches a replay), its ingest adds
+    replayed their captured graphs (one per g), and its actors ran
     without the learner-priority gate."""
     graph = driver.learner.step_graphs().get(key)
     check(driver.learner.graphed and graph is not None and graph.captured,
@@ -627,6 +702,23 @@ def check_graphed(driver, key, gathers: int) -> None:
     check(graph.gathers == gathers, f"the {key} graph carries "
           f"{graph.gathers} gather launches, expected {gathers}")
     check(not driver._gate_actors, "the actors were gated")
+    adds = driver.learner.add_graphs()
+    check(any(a.captured for a in adds.values())
+          and sum(a.replays for a in adds.values()) > 0,
+          f"the ingest adds replayed no captured graph: "
+          f"{ {g: (a.captured, a.replays) for g, a in adds.items()} }")
+
+
+# per phase: (the driver's HBM budget or None, peak allocated bytes)
+MEMORY: dict[str, tuple] = {}
+
+
+def note_memory(name: str, budget=None) -> float:
+    """Record the phase's peak allocated bytes (since its reset) beside
+    its budget; -> the peak in GB."""
+    peak = torch.cuda.max_memory_allocated()
+    MEMORY[name] = (budget, peak)
+    return peak / 1e9
 
 
 @contextlib.contextmanager
@@ -652,13 +744,17 @@ def timed_adds():
         ApexDriver._ship_staged = orig
 
 
-def adds_summary(secs: list[float]) -> str:
+def adds_summary(secs: list[float], out: dict) -> str:
+    """The ingest adds' host times and the replays of their captured
+    graphs (the run summary's add_graph_replays, by g)."""
+    replays = out.get("add_graph_replays", {})
     if not secs:
-        return "adds: none"
+        return f"adds: none, add graph replays {replays}"
     ms = np.asarray(secs) * 1e3
     return (f"adds: {len(ms)} calls, host ms median {np.median(ms):.2f} "
             f"p90 {np.percentile(ms, 90):.2f} max {ms.max():.2f}, "
-            f"{ms.sum() / 1e3:.2f} s in all")
+            f"{ms.sum() / 1e3:.2f} s in all; add graph replays by g "
+            f"{replays} ({sum(replays.values())} in all)")
 
 
 def run_cli(argv: list[str]) -> tuple[dict, float]:
@@ -774,11 +870,11 @@ def phase_apex(seed: int) -> dict:
         (BatchedInferenceServer.update_params, DQNLearner.train_many,
          LoopbackTransport.send_experience, ApexDriver.__init__) = orig
     launches = {"gather_rows": fg.gather_rows.launches}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     left = [t.name for t in threading.enumerate()
             if t.ident not in threads_before]
 
     driver = seen.pop("driver")
+    peak_gb = note_memory("pong", driver.hbm_budget)
     replay, st = driver.replay, driver.state.replay.storage
     server = out["server"]
     train_s = (calls["last_s"] - calls["first_s"]
@@ -800,7 +896,7 @@ def phase_apex(seed: int) -> dict:
         f"avg_batch={server['avg_batch']:.2f} "
         f"items/s={server['items'] / wall:.1f}; ingest_dropped="
         f"{out['ingest_dropped']} ({calls['dropped_at_first']} transport "
-        f"batches before the first train dispatch); {adds_summary(adds)}; "
+        f"batches before the first train dispatch); {adds_summary(adds, out)}; "
         f"publications={calls['publications']}; "
         f"launches={launches}; peak_mem_gb={peak_gb:.2f}; episodes="
         f"{out['episodes']} avg_return={out['avg_return']:.3f}; "
@@ -836,6 +932,12 @@ def phase_apex(seed: int) -> dict:
     log("apex: the first shipped segment read back from ring slot 0 "
         "bitwise (frames and fields); the learner replayed its captured "
         "macro-step graph with the actors ungated")
+    ms = np.median(adds) * 1e3 if adds else math.nan
+    log(f"apex: the ingest add as graph replays: host ms median {ms:.2f}, "
+        f"{out['ingest_dropped']} dropped ({calls['dropped_at_first']} "
+        f"before the first train dispatch); the eager add on this card "
+        f"(PERF.md section 5, one call of this script, H100 at 700 W): "
+        f"{EAGER_ADD_MS} ms median, {EAGER_ADD_DROPS} dropped")
     del driver, replay, st, got_frames, seg
     gc.collect()
     torch.cuda.empty_cache()
@@ -949,11 +1051,11 @@ def phase_r2d2(seed: int) -> dict:
          ApexDriver.run, driver_mod.make_eval_policy_factory) = orig
     t_end = time.perf_counter()
     launches = {"gather_rows": fg.gather_rows.launches}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     left = [t.name for t in threading.enumerate()
             if t.ident not in threads_before]
 
     driver = seen.pop("driver")
+    peak_gb = note_memory("r2d2", driver.hbm_budget)
     storage = driver.state.replay.storage
     replay_gb = sum(v.numel() * v.element_size()
                     for v in storage.values()) / 1e9
@@ -984,7 +1086,7 @@ def phase_r2d2(seed: int) -> dict:
         f"server batches={server['batches']} items={server['items']} "
         f"avg_batch={server['avg_batch']:.2f}; ingest_dropped="
         f"{out['ingest_dropped']} ({calls['dropped_at_first']} transport "
-        f"batches before the first train dispatch); {adds_summary(adds)}; "
+        f"batches before the first train dispatch); {adds_summary(adds, out)}; "
         f"publications={calls['publications']}; "
         f"launches={launches}; peak_mem_gb={peak_gb:.2f}; episodes="
         f"{out['episodes']} avg_return={out['avg_return']:.3f}; eval="
@@ -1086,7 +1188,14 @@ def phase_pong_single_process(seed: int) -> dict:
         DQNLearner.sample_k, DQNLearner.learn_k = orig_sample_k, orig_learn_k
     t_end = time.perf_counter()
     launches = {"gather_rows": fg.gather_rows.launches}
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    # the one-process trainer stores flat transitions: its budget is the
+    # pong preset's over the flat layout
+    from ape_x_dqn_tpu_torch.utils.hbm import run_budget
+    net = seen["state"].net
+    peak_gb = note_memory("pong-sp", run_budget(
+        cfg.replace(replay=dataclasses.replace(cfg.replay, storage="flat")),
+        (84, 84, 4), np.uint8,
+        param_count=sum(p_.numel() for p_ in net.parameters())))
 
     check(math.isfinite(out["final_loss"]), f"loss {out['final_loss']}")
     check(calls["learn_k"] > 0 and calls["sample_k"] == calls["learn_k"] + 1,
@@ -1209,10 +1318,10 @@ def phase_dpg(seed: int) -> None:
         (BatchedInferenceServer.update_params, DPGLearner.train_many,
          ApexDriver.__init__, ApexDriver.run) = orig
     t_end = time.perf_counter()
-    peak_gb = torch.cuda.max_memory_allocated() / 1e9
     left = [t.name for t in threading.enumerate()
             if t.ident not in threads_before]
     driver = seen.pop("driver")
+    peak_gb = note_memory("apex_dpg", driver.hbm_budget)
     trained = calls["first_s"] is not None
     train_s = calls["last_s"] - calls["first_s"] if trained else 0.0
     fill_s = (calls["first_s"] if trained else t_end) - calls["run_s"]
@@ -1239,7 +1348,7 @@ def phase_dpg(seed: int) -> None:
         f"batches={server['batches']} items={server['items']} "
         f"avg_batch={server['avg_batch']:.2f}; ingest_dropped="
         f"{out['ingest_dropped']} ({calls['dropped_at_first']} transport "
-        f"batches before the first train dispatch); {adds_summary(adds)}; "
+        f"batches before the first train dispatch); {adds_summary(adds, out)}; "
         f"publications={calls['publications']}; "
         f"peak_mem_gb={peak_gb:.2f}; episodes={out['episodes']} "
         f"avg_return={out['avg_return']:.3f}; eval={json.dumps(ev)}; "
@@ -1456,7 +1565,7 @@ def phase_remote(seed: int, ckpt_dir: str) -> dict:
         f"in {calls['train_many']} train_many calls ({calls['macro']} "
         f"macro-steps) over {train_s:.2f} s; ingest_dropped="
         f"{out['ingest_dropped']} ({calls['dropped_at_first']} transport "
-        f"batches before the first train dispatch); {adds_summary(adds)}; "
+        f"batches before the first train dispatch); {adds_summary(adds, out)}; "
         f"wire: host B {b['bytes_out']} B on TCP for {b['frames']} "
         f"frames ({b['bytes_out'] / max(b['frames'], 1):.1f} B/frame, "
         f"codec ratio {b['wire_compression_ratio']:.3f}), host A "
@@ -1673,6 +1782,202 @@ def phase_eval_only(ckpt_dir: str) -> None:
           "the checkpoint's")
 
 
+def phase_obs(seed: int) -> dict:
+    """The observability and operations planes on the pong preset, at
+    full width and 2^20 capacity: the CLI in this process with 4 local
+    vector actors, `--listen`, `obs.enabled`, a span trace, telemetry
+    every second, the remediation engine observing, a torch.profiler
+    window and a JSONL, beside one actor-host process of 4 vector actors
+    x 16 envs over TCP with obs enabled. A timer sends SIGUSR2 to this
+    process during the run. Checks the trace, the JSONL's instruments,
+    the profiler's trace, the report, the flight recorder's dump, the
+    HBM budget against the measured peak, and the gather's launches.
+    -> the launch counts of this run."""
+    import signal
+
+    from ape_x_dqn_tpu_torch.comm.socket_transport import SocketIngestServer
+    from ape_x_dqn_tpu_torch.ops import frame_gather as fg
+    from ape_x_dqn_tpu_torch.runtime.driver import ApexDriver
+
+    tmp = tempfile.mkdtemp(prefix="apex-chip-smoke-obs-")
+    trace, jsonl = os.path.join(tmp, "trace.json"), os.path.join(tmp,
+                                                                 "run.jsonl")
+    prof = os.path.join(tmp, "prof")
+    seen: dict = {}
+    hosts: dict[str, subprocess.Popen] = {}
+    orig = (SocketIngestServer.__init__, ApexDriver.__init__,
+            ApexDriver.run)
+    handler_before = signal.getsignal(signal.SIGUSR2)
+
+    def server_init(self, *a, **kw):
+        orig[0](self, *a, **kw)
+        hosts["A"] = spawn_actor_host(self.port, OBS_ACTORS, False,
+                                      OBS_HOST_SETS)
+
+    def driver_init(self, *a, **kw):
+        orig[1](self, *a, **kw)
+        seen["driver"] = self
+
+    def driver_run(self, *a, **kw):
+        timer = threading.Timer(OBS_SIGNAL_AFTER_S, os.kill,
+                                (os.getpid(), signal.SIGUSR2))
+        timer.start()
+        try:
+            return orig[2](self, *a, **kw)
+        finally:
+            timer.cancel()
+
+    argv = ["--config", "pong", "--seed", str(seed), "--actors",
+            str(OBS_ACTORS), "--listen", "127.0.0.1:0",
+            "--set", "obs.enabled=true", "--set", f"obs.trace_path={trace}",
+            "--set", "obs.telemetry_every_s=1",
+            "--set", "remediation.mode=observe", "--profile-dir", prof,
+            "--metrics-file", jsonl, "--total-env-frames",
+            str(OBS_FRAMES), "--wall-clock-limit", str(OBS_WALL_S),
+            "--device", DEVICE]
+    for s_ in OBS_SETS:
+        argv += ["--set", s_]
+    threads_before = {t.ident for t in threading.enumerate()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    (SocketIngestServer.__init__, ApexDriver.__init__, ApexDriver.run) = (
+        server_init, driver_init, driver_run)
+    fg.gather_rows.launches = 0       # count the main path's run only
+    try:
+        out, wall = run_cli(argv)
+        host = host_result(hosts.pop("A"), "A")
+    finally:
+        (SocketIngestServer.__init__, ApexDriver.__init__,
+         ApexDriver.run) = orig
+        for proc in hosts.values():
+            proc.kill()
+            proc.communicate()
+    launches = {"gather_rows": fg.gather_rows.launches}
+    left = [t.name for t in threading.enumerate()
+            if t.ident not in threads_before]
+    driver = seen.pop("driver")
+    budget = driver.hbm_budget
+    peak_gb = note_memory("obs", budget)
+    check(out["actor_errors"] == [] and out["loop_errors"] == [],
+          f"actor_errors {out['actor_errors']}, loop_errors "
+          f"{out['loop_errors']}")
+    check(not left, f"driver threads still running after the run: {left}")
+    check(host["frames"] > 0 and not host["errors"],
+          f"the actor host: {host}")
+    check_graphed(driver, ("k", 4), gathers=2)
+    # 1. the span trace loads and holds the ingest, learner and server
+    # threads' spans
+    with open(trace) as fh:
+        tr = json.load(fh)
+    tnames = {ev["tid"]: ev["args"]["name"] for ev in tr["traceEvents"]
+              if ev.get("ph") == "M" and ev.get("name") == "thread_name"}
+    by_thread: dict[str, set] = {}
+    for ev in tr["traceEvents"]:
+        if ev.get("ph") == "X":
+            by_thread.setdefault(tnames.get(ev["tid"], "?"),
+                                 set()).add(ev["name"])
+    for thread in ("ingest", "learner", "inference-server"):
+        check(by_thread.get(thread), f"no span from the {thread} thread "
+              f"in the trace: {sorted(by_thread)}")
+    # 2. the JSONL's instruments
+    last: dict = {}
+    peers: set = set()
+    with open(jsonl) as fh:
+        for line in fh:
+            rec = json.loads(line)
+            last.update(rec)
+            peers.update(k.split("/")[1] for k in rec
+                         if k.startswith("peer/"))
+    for key in ("hist/sample_age_steps", "hist/param_lag_steps"):
+        check(last.get(key, {}).get("count", 0) > 0, f"{key}: "
+              f"{last.get(key)}")
+    check(peers, "no peer/<host>/... telemetry in the JSONL")
+    check(last.get("ctr/graph_captures", 0) > 0,
+          f"graph_captures {last.get('ctr/graph_captures')}")
+    fracs = {k: last.get(f"gauge/{k}") for k in
+             ("mfu_train", "hbm_bw_frac_train", "hbm_bw_frac_ingest")}
+    check(all(v is not None and 0 < v <= 1 for v in fracs.values()),
+          f"stage gauges outside (0, 1]: {fracs}")
+    # 3. the torch.profiler window wrote its trace
+    traces = sorted(os.listdir(prof)) if os.path.isdir(prof) else []
+    check(traces and os.path.getsize(os.path.join(prof, traces[0])) > 0,
+          f"no torch.profiler trace in {prof}: {traces}")
+    # 4. the report reads the run
+    rep = subprocess.run([sys.executable, "-m",
+                          "ape_x_dqn_tpu_torch.obs.report", jsonl],
+                         capture_output=True, text=True, timeout=120,
+                         cwd=os.path.dirname(os.path.abspath(__file__)))
+    check(rep.returncode == 0, f"report exited {rep.returncode}: "
+          f"{rep.stderr[-2000:]}")
+    for section in ("stage-time breakdown", "staleness", "roofline"):
+        check(section in rep.stdout, f"the report has no {section} "
+              f"section:\n{rep.stdout[-3000:]}")
+    # 5. SIGUSR2 dumped the flight recorder, and the hook is gone again
+    dumps = [f for f in os.listdir(tmp) if f.startswith("blackbox-")]
+    check(dumps, f"SIGUSR2 left no blackbox-*.json in {tmp}")
+    with open(os.path.join(tmp, dumps[0])) as fh:
+        box = json.load(fh)
+    check(signal.getsignal(signal.SIGUSR2) == handler_before,
+          "the flight recorder's SIGUSR2 handler outlived its run")
+    # 6. the budget covers the measured peak
+    check(budget is not None and budget.total >= peak_gb * 1e9,
+          f"HBM budget {budget.total / 1e9 if budget else None} GB < "
+          f"the measured peak {peak_gb:.2f} GB")
+    # 7. the gather launched on this path
+    check(launches["gather_rows"] > 0, "gather_rows never launched")
+    log(f"obs: `{' '.join(argv)}` beside one actor host ({OBS_ACTORS} "
+        f"vector actors x 16 envs over TCP, obs.enabled): "
+        f"frames={out['frames']} ({host['frames']} from the host) "
+        f"grad_steps={out['grad_steps']}; trace spans by thread "
+        f"{ {t: len(n) for t, n in sorted(by_thread.items())} }; "
+        f"sample_age_steps p50={last['hist/sample_age_steps']['p50']} "
+        f"param_lag_steps p50={last['hist/param_lag_steps']['p50']}; "
+        f"telemetry peers {sorted(peers)}; graph_captures="
+        f"{last.get('ctr/graph_captures')} in "
+        f"{last.get('ctr/graph_capture_ms', 0):.1f} ms; stage gauges "
+        f"{fracs}, device_ms_train={last.get('gauge/device_ms_train')}, "
+        f"device_ms_ingest={last.get('gauge/device_ms_ingest')}; "
+        f"profiler trace {traces[0]}; report sections present; blackbox "
+        f"dump {dumps[0]} ({len(box.get('records', box))} entries); "
+        f"remediation {json.dumps(out.get('remediation'))}; HBM budget "
+        f"{budget.total / 1e9:.2f} GB >= peak {peak_gb:.2f} GB; "
+        f"launches={launches}; {adds_summary([], out)}; {wall:.2f} s")
+    log("obs: report --\n" + "\n".join(
+        "obs:   " + line for line in rep.stdout.splitlines()[:60]))
+    shutil.rmtree(tmp, ignore_errors=True)
+    del driver
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def memory_table() -> list[str]:
+    """The HBM budget of each preset's run beside its measured peak and
+    the card's memory; the transient the budget must cover (the peak
+    less the replay and the model state) beside its headroom."""
+    gib = 1024 ** 3
+    card = torch.cuda.get_device_properties(0).total_memory
+    lines = [f"memory: card {card / gib:.2f} GiB; per run: budget GiB "
+             f"(replay + tree + model + headroom) vs measured peak GiB "
+             f"(torch.cuda.max_memory_allocated), transient = peak - "
+             f"replay - tree - model"]
+    for name, (budget, peak) in MEMORY.items():
+        if budget is None:
+            continue
+        fixed = budget.replay_storage + budget.replay_tree \
+            + budget.model_state
+        lines.append(
+            f"memory: {name}: budget {budget.total / gib:.2f} (replay "
+            f"{budget.replay_storage / gib:.2f}, tree "
+            f"{budget.replay_tree / gib:.3f}, model "
+            f"{budget.model_state / gib:.3f}, headroom "
+            f"{budget.headroom / gib:.2f}) vs peak {peak / gib:.2f}; "
+            f"transient {(peak - fixed) / gib:.2f}; "
+            f"{'fits' if budget.total <= card else 'EXCEEDS the card'}; "
+            f"{'covers' if budget.total >= peak else 'BELOW'} the peak")
+    return lines
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
@@ -1733,6 +2038,12 @@ def main() -> int:
         log(f"eval-only: {time.perf_counter() - t0:.2f} s")
     finally:
         shutil.rmtree(ckpt_dir, ignore_errors=True)
+    # 14. the observability and operations planes
+    t0 = time.perf_counter()
+    obs = phase_obs(args.seed)
+    log(f"obs: {time.perf_counter() - t0:.2f} s")
+    for line in memory_table():
+        log(line)
 
     # one entry per kernel; its top-level numbers are the flat replay's
     # call site at its real size (flat_full), `sites` has all four
@@ -1744,7 +2055,7 @@ def main() -> int:
         check(site["launches"] > 0, f"gather_rows never launched on the "
               f"{site['site']} path")
     for path, counts in (("apex", apex), ("remote", remote),
-                         ("resume", resume)):
+                         ("resume", resume), ("obs", obs)):
         check(counts["gather_rows"] > 0, f"gather_rows never launched on "
               f"the {path} path")
     top = sites[2]
@@ -1757,7 +2068,8 @@ def main() -> int:
                                  "r2d2": r2d2["gather_rows"],
                                  "pong-sp": flat["gather_rows"],
                                  "remote": remote["gather_rows"],
-                                 "resume": resume["gather_rows"]},
+                                 "resume": resume["gather_rows"],
+                                 "obs": obs["gather_rows"]},
             "max_abs_err": max(s_["max_abs_err"] for s_ in sites),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": "bytes",

@@ -217,6 +217,16 @@ def test_whole_slice_matches_the_jax_driver(drivers):
     sd = from_flax(jax.tree.map(np.asarray, jd.state.params))
     td.state.net.load_state_dict(sd)
     td.state.target_net.load_state_dict(sd)
+    # the reference ships a snapshot of its staged rows: on the CPU
+    # backend jax.device_put aliases float32 and int32 numpy rows instead
+    # of copying them, so the JAX stager's wait on the put handles
+    # returns at once, and an add dispatched asynchronously could read
+    # rows that the stager has meanwhile rewritten with the next batch
+    # (a buffer's reuse, or a drain's compaction): on a loaded machine
+    # the JAX replay then held the wrong transitions
+    jship = jd._stager._ship
+    jd._stager._ship = lambda views, g: jship(
+        {k: np.array(v, copy=True) for k, v in views.items()}, g)
     for batch in stream:
         n = int(np.shape(batch["priorities"])[0])
         jd._ingest_one(dict(batch), n)

@@ -287,3 +287,117 @@ def test_a_capture_that_fails_raises(cuda_device):
     state, _ = learner.train_step_k(state, k)        # the eager warm-up
     with pytest.raises(RuntimeError):
         learner.train_step_k(state, k)               # the capture
+
+
+# -- the ingest add ----------------------------------------------------------
+
+
+def _add_replay(layout: str, dev):
+    """(replay, item spec or None, block units, the block's host items
+    maker) of one layout the driver ships to."""
+    if layout == "frame_ring":
+        replay = FrameRingReplay(64, 8, 3, (42, 42, 4), device=dev)
+
+        def block(lead, rng):
+            next_off = rng.integers(1, 4, lead + (8,)).astype(np.int32)
+            next_off[..., -1] = 0
+            return {"seg_frames": rng.integers(0, 255, lead + (14, 42, 42)
+                                               ).astype(np.uint8),
+                    "action": rng.integers(0, 6, lead + (8,)).astype(
+                        np.int32),
+                    "reward": rng.normal(size=lead + (8,)).astype(
+                        np.float32),
+                    "discount": np.full(lead + (8,), 0.97, np.float32),
+                    "next_off": next_off,
+                    "priorities": rng.uniform(0.1, 2, lead + (8,)).astype(
+                        np.float32)}
+
+        return replay, replay.init(), 3, block
+    spec, cap, chunk = {
+        "flat": (transition_item_spec((84, 84, 4), np.uint8), 64, 24),
+        "dpg": (continuous_item_spec((3,), np.float32, 1), 64, 24),
+        "sequences": (sequence_item_spec((84, 84, 4), np.uint8, 80, 512,
+                                         frame_mode=True), 16, 5)}[layout]
+    replay = PrioritizedReplay(cap, device=dev, item_spec=spec)
+
+    def block(lead, rng):
+        out = {}
+        for k, s in sorted(spec.items()):
+            dtype = torch.zeros(0, dtype=s.dtype).numpy().dtype
+            shape = lead + tuple(s.shape)
+            out[k] = (rng.integers(0, 200, shape).astype(dtype)
+                      if np.issubdtype(dtype, np.integer)
+                      else rng.normal(size=shape).astype(dtype))
+        out["priorities"] = rng.uniform(0.1, 2, lead).astype(np.float32)
+        return out
+
+    return replay, replay.init(), chunk, block
+
+
+def _adds(layout: str, dev, capture: bool):
+    replay, rs, chunk, block = _add_replay(layout, dev)
+    learner = DQNLearner(replay, LearnerConfig())
+    learner.capture = capture
+    state = type("S", (), {"replay": rs})()
+    rng = np.random.default_rng(11)
+    cursor_units = getattr(replay, "S", replay.capacity)
+    wrapped = False
+    for g in (1, 4, 1, 4, 1, 4, 4, 1):
+        lead = (g, chunk) if g > 1 else (chunk,)
+        items = block(lead, rng)
+        views = {k: torch.from_numpy(v.reshape(g * chunk, *v.shape[
+            len(lead):])).pin_memory() for k, v in items.items()}
+        before = rs.pos
+        learner.add_landed(state, g, learner.land_add(g, views, lead))
+        wrapped |= before + g * chunk > cursor_units
+    torch.cuda.synchronize()
+    assert wrapped
+    snap = {f"storage/{k}": v.clone() for k, v in rs.storage.items()}
+    snap.update(tree=rs.tree.clone(), pos_dev=rs.pos_dev.clone(),
+                size_dev=rs.size_dev.clone())
+    return learner, (rs.pos, rs.size), snap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["frame_ring", "flat", "dpg",
+                                    "sequences"])
+def test_add_graphs_match_the_eager_add(cuda_device, layout):
+    """One captured graph per (replay, g): after single blocks and
+    coalesced groups of 4 past a wrap of the ring, the graphed adds and
+    the eager adds leave the replay bitwise equal."""
+    gl, gcur, gsnap = _adds(layout, cuda_device, True)
+    el, ecur, esnap = _adds(layout, cuda_device, False)
+    assert gcur == ecur
+    assert (int(gsnap["pos_dev"]), int(gsnap["size_dev"])) == gcur
+    for name in gsnap:
+        assert torch.equal(gsnap[name], esnap[name]), f"{layout}: {name}"
+    graphs = gl.add_graphs()
+    assert sorted(graphs) == [1, 4]
+    # a warm-up, a capture (and its replay), then replays
+    assert all(a.captured and a.replays == 3 for a in graphs.values())
+    assert not any(a.captured for a in el.add_graphs().values())
+
+
+@pytest.mark.cuda
+def test_an_add_capture_that_fails_raises(cuda_device):
+    """An add body that synchronises with the host cannot be captured:
+    the capturing call raises, with no eager fallback."""
+    replay, rs, chunk, block = _add_replay("flat", cuda_device)
+
+    class Syncing(DQNLearner):
+        def _add_body(self, state, inputs, g):
+            super()._add_body(state, inputs, g)
+            float(state.replay.pos_dev)
+
+    learner = Syncing(replay, LearnerConfig())
+    state = type("S", (), {"replay": rs})()
+    rng = np.random.default_rng(0)
+
+    def views():
+        return {k: torch.from_numpy(v) for k, v in
+                block((chunk,), rng).items()}
+
+    learner.add_landed(state, 1, learner.land_add(1, views(), (chunk,)))
+    with pytest.raises(RuntimeError):
+        learner.add_landed(state, 1, learner.land_add(1, views(),
+                                                      (chunk,)))

@@ -289,15 +289,18 @@ def test_param_probe_does_not_end_learner_boot_grace():
 
 
 def test_actor_host_refuses_what_is_not_ported():
+    """The serving tier waits for its ROADMAP item; obs.enabled is
+    ported and gets past the refusals (here to the wait for a learner
+    that is not there)."""
     from ape_x_dqn_tpu_torch.runtime.actor_host import run_actor_host
 
     cfg = get_config("cartpole_smoke")
-    for bad, item in ((cfg.replace(obs=type(cfg.obs)(enabled=True)),
-                       "items 17 and 19"),
-                      (cfg.replace(serving=type(cfg.serving)(
-                          multi_tenant=True)), "item 16")):
-        with pytest.raises(NotImplementedError, match=item):
-            run_actor_host(bad, "127.0.0.1", 1, device="cpu")
+    with pytest.raises(NotImplementedError, match="item 16"):
+        run_actor_host(cfg.replace(serving=type(cfg.serving)(
+            multi_tenant=True)), "127.0.0.1", 1, device="cpu")
+    with pytest.raises(TimeoutError, match="never published"):
+        run_actor_host(cfg.replace(obs=type(cfg.obs)(enabled=True)),
+                       "127.0.0.1", 1, device="cpu", wait_for_params_s=0.5)
 
 
 def test_actor_host_default_device_is_cuda():

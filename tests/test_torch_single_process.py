@@ -93,8 +93,6 @@ def test_throughput_matches_jax():
 
 
 @pytest.mark.parametrize("argv,waits_for", [
-    (["--profile-dir", "prof"], "item 17"),              # the profiler
-    (["--single-process", "--profile-dir", "prof"], "item 17"),
     (["--coordinator", "h:1", "--num-processes", "2", "--process-id", "0"],
      "item 14"),
 ])
@@ -118,8 +116,21 @@ def test_single_process_refuses_driver_only_options(argv, flag, capsys):
     assert flag in err and "--single-process" in err and "ROADMAP" in err
 
 
-def test_obs_enabled_raises_rather_than_running_unobserved():
+def test_obs_enabled_raises_rather_than_running_unobserved(tmp_path):
+    """An obs-enabled config runs observed (it used to raise while the
+    facade was missing): the split dispatch publishes the stage windows,
+    the staleness histograms, the learning-health gauges and the spans."""
     cfg = get_config("cartpole_smoke")
-    cfg = cfg.replace(obs=type(cfg.obs)(enabled=True))
-    with pytest.raises(NotImplementedError, match="item 17"):
-        train_single_process(cfg, total_env_frames=10, device="cpu")
+    cfg = cfg.replace(obs=type(cfg.obs)(
+        enabled=True, publish_every_steps=50,
+        trace_path=str(tmp_path / "trace.json")))
+    metrics = Metrics()
+    out = train_single_process(cfg, total_env_frames=1300, device="cpu",
+                               metrics=metrics)
+    assert out["grad_steps"] > 100
+    last = metrics.latest()
+    assert last["hist/sample_age_steps"]["count"] > 0
+    assert last["hist/param_lag_steps"]["count"] > 0
+    assert 0 < last["gauge/mfu_learn_k"] <= 1
+    assert 0 < last["gauge/hbm_bw_frac_sample_k"] <= 1
+    assert "gauge/learn_q_mean" in last and "span/learner.learn" in last
