@@ -14,7 +14,6 @@ so the two packages share one vocabulary of presets and knobs without
 the port importing the JAX package; tests/test_torch_isolation.py pins
 every preset equal to the original. The comments that cite measured
 rates or HBM sizes describe the JAX package on its TPU, not this port.
-Only the cold-tier validation differs: the tier is not ported yet.
 """
 
 from __future__ import annotations
@@ -154,13 +153,22 @@ class ReplayConfig:
                 f"replay.cold_tier_capacity must be >= 0 "
                 f"(got {self.cold_tier_capacity}); 0 disables the tier")
         if self.cold_tier_capacity > 0:
-            # guided error at CONFIG time: the tiered cold store has no
-            # PyTorch counterpart yet, so a tiered config cannot run here
-            raise ValueError(
-                f"replay.cold_tier_capacity={self.cold_tier_capacity}: "
-                f"the tiered cold store is not part of the PyTorch "
-                f"package yet; set replay.cold_tier_capacity=0 to run "
-                f"single-tier.")
+            # guided error at CONFIG time, not mid-eviction: the cold
+            # tier cannot run without the delta+deflate building blocks
+            # (a stale/missing native .so is fine — comm/native.py
+            # degrades to the bit-identical numpy fallback, and
+            # ColdStore logs a one-liner saying so)
+            from ape_x_dqn_tpu_torch.replay.cold_store import codec_status
+            ok, detail = codec_status()
+            if not ok:
+                raise ValueError(
+                    f"replay.cold_tier_capacity={self.cold_tier_capacity} "
+                    f"needs the delta+deflate codec, which failed to "
+                    f"import: {detail}. Fix the install (ape_x_dqn_tpu_torch."
+                    f"comm.native must be importable — no compiler or "
+                    f".so is required, the numpy fallback is "
+                    f"bit-identical) or set replay.cold_tier_capacity=0 "
+                    f"to run single-tier.")
         if self.cold_tier_disk_capacity < 0:
             raise ValueError(
                 f"replay.cold_tier_disk_capacity must be >= 0 (got "

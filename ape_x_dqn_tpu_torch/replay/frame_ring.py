@@ -18,8 +18,10 @@ gather kernel (ops/frame_gather.py), one launch per side.
 Dead padding slots (next_off 0) carry tree priority 0, are never
 sampled, and get IS weight 0 if a clamp-landed draw hits one.
 
-Writes are IN PLACE on the state (the JAX version returns new arrays);
-the lockstep, evict and `add_at` forms wait for their slices.
+Writes are IN PLACE on the state (the JAX version returns new arrays).
+The cold tier's hooks (`evict_plan`, `read_region`, `add_at`) work in
+whole segments, the unit a transition's frames alias within; the
+lockstep forms wait for the multi-GPU slice.
 
 The actor side (`FrameSegmentBuilder`, `frame_segment_spec`) cuts each
 env's transition stream into the segments this replay stores; it is
@@ -40,7 +42,9 @@ from ape_x_dqn_tpu_torch.replay.packing import (ItemSpec, frame_mode,
                                                 pad128, ring_write_start,
                                                 torch_dtype)
 from ape_x_dqn_tpu_torch.replay.prioritized import (PrioritizedReplay,
-                                                    ReplayState, ring_cursor,
+                                                    ReplayState, min_mass_window,
+                                                    ring_cursor,
+                                                    ring_cursor_at,
                                                     ring_cursor_dev,
                                                     write_rows_at)
 
@@ -217,13 +221,16 @@ class FrameRingReplay(PrioritizedReplay):
     # -- transitions -------------------------------------------------------
 
     def add_body(self, state: ReplayState, items: Any,
-                 td_abs: torch.Tensor) -> None:
+                 td_abs: torch.Tensor,
+                 seg0: torch.Tensor | None = None) -> None:
         """ONE contiguous block of G*F frame rows / G*B transition
         slots at the DEVICE segment cursor, with skip-to-head wrap, the
         tree write-back (dead pads get priority 0) and the device cursor
-        advance: in place, device operations only."""
+        advance: in place, device operations only. A device `seg0`
+        (0-dim) directs the block to that segment instead (`add_at`)."""
         g = td_abs.shape[0]
-        seg0 = ring_cursor_dev(state, g, self.S, size_scale=self.B)
+        seg0 = ring_cursor_dev(state, g, self.S, size_scale=self.B,
+                               start=seg0)
         dev = state.tree.device
         tidx = seg0 * self.B + torch.arange(g * self.B, device=dev)
         rows = items["seg_frames"].to(dev, torch.uint8).reshape(
@@ -247,6 +254,13 @@ class FrameRingReplay(PrioritizedReplay):
                                      size_scale=self.B)
         state.set_host_cursor(pos1, size1)
 
+    def advance_host_at(self, state: ReplayState, seg0: int,
+                        block: int) -> None:
+        """The host ints after a directed add of `block` segments at
+        segment `seg0`."""
+        state.set_host_cursor(*ring_cursor_at(state.size, seg0, block,
+                                              self.S, size_scale=self.B))
+
     def add(self, state: ReplayState, items: Any,
             td_abs: torch.Tensor) -> ReplayState:
         """Write G whole segments at the segment cursor, in place.
@@ -258,6 +272,45 @@ class FrameRingReplay(PrioritizedReplay):
         ring_write_start(state.pos, td_abs.shape[0], self.S)
         self.add_body(state, items, td_abs)
         self.advance_host(state, td_abs.shape[0])
+        return state
+
+    # -- tiered cold store hooks (segment units) -----------------------------
+
+    def evict_plan(self, state: ReplayState, block: int) -> torch.Tensor:
+        """Start SEGMENT (0-dim int64, on the device) of the minimum-
+        priority-mass run of `block` contiguous segments: the leaves are
+        reduced per segment first, since a transition's frames alias
+        across its segment and only whole segments can leave."""
+        seg_mass = state.tree[self.capacity:].reshape(self.S, self.B) \
+            .sum(dim=-1)
+        return min_mass_window(seg_mass, block)
+
+    def read_region(self, state: ReplayState, seg0: torch.Tensor,
+                    block: int) -> tuple[dict, torch.Tensor]:
+        """-> (staging-layout segments {"seg_frames": [g, F, H, W],
+        fields [g, B]}, stored leaf priorities [g, B]) of the `block`
+        segments at the device `seg0`, as fresh tensors: the exact shape
+        `add_body` takes, so a cold round trip restages bit-identically."""
+        g, dev = block, state.tree.device
+        st = state.storage
+        rows = st["frames"].index_select(
+            0, seg0 * self.F + torch.arange(g * self.F, device=dev))
+        items = {"seg_frames": rows[:, :self.frame_bytes].reshape(
+            g, self.F, self.h, self.w)}
+        tidx = seg0 * self.B + torch.arange(g * self.B, device=dev)
+        for k in FIELDS:
+            items[k] = st[k].index_select(0, tidx).reshape(g, self.B)
+        pri = state.tree.index_select(0, self.capacity + tidx)
+        return items, pri.reshape(g, self.B)
+
+    def add_at(self, state: ReplayState, items: Any, td_abs: torch.Tensor,
+               seg0: torch.Tensor | int) -> ReplayState:
+        """Directed segment add: overwrite the G segments at seg0 (an
+        evict_plan result) instead of the FIFO segment cursor."""
+        seg0_dev = torch.as_tensor(seg0, dtype=torch.int64,
+                                   device=state.tree.device)
+        self.add_body(state, items, td_abs, seg0=seg0_dev)
+        self.advance_host_at(state, int(seg0), td_abs.shape[0])
         return state
 
     def stack_rows(self, state: ReplayState, idx: torch.Tensor

@@ -1,7 +1,6 @@
 """Byte-row packing and in-place ring writes for device replay.
 
-Counterpart of ``ape_x_dqn_tpu/replay/packing.py`` (the cold-store
-helpers wait for the tiers' slice). Pixel rows keep the JAX package's
+Counterpart of ``ape_x_dqn_tpu/replay/packing.py``. Pixel rows keep the JAX package's
 128-byte padding, so a frame row is ``pad128(H*W)`` bytes in both
 packages (7168 for 84x84, 28,288 for a flat 84x84x4 stack); on the H100
 that also keeps every row 16-byte aligned for the gather kernel.
@@ -20,6 +19,12 @@ filled count grows as min(max(size, start + block), capacity) so
 never-written tail slots are never counted as filled. Cursors are host
 Python ints: only host calls advance them, so reading them costs no
 device sync.
+
+The cold-segment codec (`cold_plan`, `cold_pack`, `cold_unpack`) turns
+one eviction region of the tiered cold store (replay/cold_store.py)
+into one host byte string and back: host numpy and zlib, with the
+XOR-delta rows of comm/native.py. Its bytes are the original's for the
+same region.
 """
 
 from __future__ import annotations
@@ -45,6 +50,13 @@ class ItemSpec(NamedTuple):
 def torch_dtype(dtype) -> torch.dtype:
     """A numpy dtype (or anything numpy names) -> the torch dtype."""
     return torch.from_numpy(np.zeros(0, np.dtype(dtype))).dtype
+
+
+def numpy_dtype(dtype) -> np.dtype:
+    """A torch dtype, or anything numpy names -> the numpy dtype."""
+    if isinstance(dtype, torch.dtype):
+        return torch.zeros(0, dtype=dtype).numpy().dtype
+    return np.dtype(dtype)
 
 
 def pad128(n: int) -> int:
@@ -148,3 +160,101 @@ def make_packer(item_spec: dict[str, ItemSpec]
     if packer.packs_anything:
         return packer, packer.storage_spec(item_spec)
     return None, {k: item_spec[k] for k in sorted(item_spec)}
+
+
+# -- cold-segment serialization (replay/cold_store.py) ----------------------
+#
+# A cold segment is one eviction region (`n` staging units of the item
+# spec plus their stored priorities) flattened to ONE host byte string:
+# per leaf, XOR-delta rows (uint8 pixel leaves, through comm/native.py)
+# and zlib deflate, framed with pack_records. A 1-byte mode prefix per
+# leaf records what was applied, with a per-leaf never-inflate guard: a
+# leaf that deflate would grow is stored raw (mode 0), so a payload can
+# exceed its raw bytes only by the framing (9 bytes a leaf). Round trips
+# are bitwise in every mode.
+
+_COLD_RAW = 0        # leaf bytes verbatim
+_COLD_DEFLATE = 1    # zlib only
+_COLD_DELTA = 2      # XOR-delta rows, then zlib
+
+
+def cold_plan(item_spec: dict, ptail: tuple = ()) -> list[tuple]:
+    """Per-leaf serialization plan for one staging unit: [(key, shape,
+    numpy dtype, delta_rows)]. delta_rows is the per-unit leading axis
+    the XOR delta runs over (the frames of a segment, the image rows of
+    a stacked obs), 0 for the other leaves. "priorities" (trailing shape
+    `ptail`, float32) comes last: it rides every segment so a recall
+    restages at its eviction-time priority mass. Leaves in the item
+    spec's order (the staging layout's)."""
+    plan = []
+    entries = [(k, tuple(s.shape), numpy_dtype(s.dtype))
+               for k, s in item_spec.items()]
+    entries.append(("priorities", tuple(ptail), np.dtype(np.float32)))
+    for key, shape, dtype in entries:
+        unit_bytes = math.prod(shape) * dtype.itemsize if shape \
+            else dtype.itemsize
+        delta_rows = (int(shape[0])
+                      if (dtype == np.uint8 and len(shape) >= 2
+                          and unit_bytes >= 4096) else 0)
+        plan.append((key, shape, dtype, delta_rows))
+    return plan
+
+
+def cold_pack(items: dict, plan: list[tuple],
+              level: int = 1) -> tuple[bytes, int]:
+    """{key: [n, *shape] host arrays} -> (payload, raw_bytes), following
+    `plan` (host numpy, zlib and the comm/native.py delta rows)."""
+    import zlib
+
+    from ape_x_dqn_tpu_torch.comm.native import delta_encode, pack_records
+
+    chunks = []
+    raw_total = 0
+    for key, shape, dtype, delta_rows in plan:
+        a = np.ascontiguousarray(np.asarray(items[key], dtype=dtype))
+        raw_total += a.nbytes
+        if delta_rows:
+            n = a.shape[0]
+            body = zlib.compress(
+                delta_encode(a.reshape(n * delta_rows, -1)), level)
+            mode = _COLD_DELTA
+        else:
+            body = zlib.compress(a.tobytes(), level)
+            mode = _COLD_DEFLATE
+        if len(body) >= a.nbytes:  # never-inflate guard (per leaf)
+            body, mode = a.tobytes(), _COLD_RAW
+        chunks.append(bytes([mode]) + body)
+    return pack_records(chunks), raw_total
+
+
+def cold_unpack(payload: bytes, plan: list[tuple], n: int) -> dict:
+    """Inverse of cold_pack: payload -> {key: [n, *shape] arrays},
+    bitwise what went in (maybe read-only views over the decompressed
+    bytes)."""
+    import zlib
+
+    from ape_x_dqn_tpu_torch.comm.native import (delta_undo_inplace,
+                                                 unpack_records)
+
+    recs = unpack_records(payload, max_records=len(plan) + 1)
+    if len(recs) != len(plan):
+        raise ValueError(
+            f"cold segment holds {len(recs)} leaves, plan expects "
+            f"{len(plan)}: segment written under a different item spec")
+    out = {}
+    for (key, shape, dtype, delta_rows), rec in zip(plan, recs):
+        mode, body = rec[0], rec[1:]
+        if mode == _COLD_RAW:
+            raw = body
+        elif mode == _COLD_DEFLATE:
+            raw = zlib.decompress(body)
+        elif mode == _COLD_DELTA:
+            rows = np.frombuffer(zlib.decompress(body), np.uint8) \
+                .reshape(n * delta_rows, -1).copy()
+            delta_undo_inplace(rows)
+            raw = rows
+        else:
+            raise ValueError(f"unknown cold leaf mode {mode}")
+        buf = raw.tobytes() if isinstance(raw, np.ndarray) else raw
+        out[key] = np.frombuffer(buf, dtype=dtype).reshape((n, *shape))
+    return out

@@ -17,6 +17,13 @@ device operations only (the ingest add's captured graph,
 runtime/step_graph.py: AddGraph), and `advance_host` moves the host ints
 by the block size the caller knows. `add` is the two in order.
 
+The tiered cold store (replay/cold_store.py) composes three more: the
+start of the ring's lowest-priority-mass region (`evict_plan`), that
+region in staging layout with its stored leaf priorities
+(`read_region`), and a DIRECTED add over exactly that region (`add_at`:
+`add_body` with a device `start`, after which the cursor resumes behind
+the region, as in the original). With the tier off none of them runs.
+
 Conventions (Schaul et al. 2016; Horgan et al. 2018):
 - stored priority = (|td| + eps)^alpha  (alpha applied at write time)
 - IS weight w_i = (N * P(i))^-beta, normalized by max over the batch
@@ -99,19 +106,44 @@ def ring_cursor(pos: int, size: int, block: int, capacity: int,
 
 
 def ring_cursor_dev(state: ReplayState, block: int, capacity: int,
-                    size_scale: int = 1) -> torch.Tensor:
+                    size_scale: int = 1,
+                    start: torch.Tensor | None = None) -> torch.Tensor:
     """The device twin of `ring_cursor`, read from and written to the
     device mirrors: -> the block's start (0-dim int64, skip-to-head),
     and `pos_dev`/`size_dev` advanced in place. No host value is read,
-    so a captured graph writes where the cursor is when it replays."""
+    so a captured graph writes where the cursor is when it replays.
+    A device `start` directs the write there instead (an `evict_plan`
+    result): the cursor then resumes after the block."""
     pos, size = state.pos_dev, state.size_dev
-    start = torch.where(pos + block <= capacity, pos, torch.zeros_like(pos))
+    if start is None:
+        start = torch.where(pos + block <= capacity, pos,
+                            torch.zeros_like(pos))
+    else:
+        start = start.to(pos.dtype)
     end = start + block
     size1 = torch.clamp(torch.maximum(size, end * size_scale),
                         max=capacity * size_scale)
     pos.copy_(torch.remainder(end, capacity))
     size.copy_(size1)
     return start
+
+
+def ring_cursor_at(size: int, start: int, block: int, capacity: int,
+                   size_scale: int = 1) -> tuple[int, int]:
+    """The host cursor after a DIRECTED write of `block` units at
+    `start`: -> (new_pos, new_size)."""
+    return ((start + block) % capacity,
+            ring_write_size(size, start * size_scale, block * size_scale,
+                            capacity * size_scale))
+
+
+def min_mass_window(mass: torch.Tensor, block: int) -> torch.Tensor:
+    """Start of the `block`-long contiguous window of `mass` with the
+    least sum (a float32 cumsum, then the first argmin over [0,
+    len - block]: the window never wraps). 0-dim int64, on the device."""
+    c = torch.cat([torch.zeros(1, dtype=mass.dtype, device=mass.device),
+                   torch.cumsum(mass, 0)])
+    return torch.argmin(c[block:] - c[:-block])
 
 
 def write_rows_at(buf: torch.Tensor, block: torch.Tensor,
@@ -164,6 +196,13 @@ class _FlatStorage:
                                      self.capacity)
         state.set_host_cursor(pos1, size1)
 
+    def advance_host_at(self, state: ReplayState, start: int,
+                        block: int) -> None:
+        """The host ints after a directed add of `block` slots at
+        `start` (`add_body` with a `start` moved the device mirrors)."""
+        state.set_host_cursor(*ring_cursor_at(state.size, start, block,
+                                              self.capacity))
+
     def _gather(self, storage: dict, idx: torch.Tensor) -> dict:
         """Items at slots idx [B]: packed byte-row leaves through the
         row-gather kernel (one launch each), the others by indexing;
@@ -210,15 +249,17 @@ class PrioritizedReplay(_FlatStorage):
     # -- transitions -------------------------------------------------------
 
     def add_body(self, state: ReplayState, items: Any,
-                 td_abs: torch.Tensor) -> None:
+                 td_abs: torch.Tensor,
+                 start: torch.Tensor | None = None) -> None:
         """One contiguous block per leaf at the DEVICE cursor with
         skip-to-head wrap, the tree write-back and the device cursor
         advance, in place and with device operations only. A block size
         that does not divide the capacity retires the tail slots a skip
         leaves behind: `size` never counts them and the tree never
-        carries priority there."""
+        carries priority there. A device `start` (0-dim) directs the
+        block there instead (`add_at`)."""
         b = td_abs.shape[0]
-        start = ring_cursor_dev(state, b, self.capacity)
+        start = ring_cursor_dev(state, b, self.capacity, start=start)
         self._write_rows(state.storage, items, start)
         dev = state.tree.device
         idx = start + torch.arange(b, device=dev)
@@ -235,6 +276,35 @@ class PrioritizedReplay(_FlatStorage):
         ring_write_start(state.pos, td_abs.shape[0], self.capacity)
         self.add_body(state, items, td_abs)
         self.advance_host(state, td_abs.shape[0])
+        return state
+
+    # -- tiered cold store hooks (replay/cold_store.py) ---------------------
+
+    def evict_plan(self, state: ReplayState, block: int) -> torch.Tensor:
+        """Start slot (0-dim int64, on the device) of the minimum-
+        priority-mass contiguous `block`-slot window."""
+        return min_mass_window(state.tree[self.capacity:], block)
+
+    def read_region(self, state: ReplayState, start: torch.Tensor,
+                    block: int) -> tuple[dict, torch.Tensor]:
+        """-> (items [block, ...] in staging layout, stored leaf
+        priorities [block]) of the `block` slots at the device `start`,
+        as fresh tensors."""
+        idx = start + torch.arange(block, device=state.tree.device)
+        items = {k: buf.index_select(0, idx)
+                 for k, buf in state.storage.items()}
+        if self._packer is not None:
+            items = self._packer.decode(items)
+        return items, state.tree.index_select(0, self.capacity + idx)
+
+    def add_at(self, state: ReplayState, items: Any, td_abs: torch.Tensor,
+               start: torch.Tensor | int) -> ReplayState:
+        """Directed `add`: overwrite the `B` slots at `start` (an
+        evict_plan result) instead of the FIFO cursor position."""
+        start_dev = torch.as_tensor(start, dtype=torch.int64,
+                                    device=state.tree.device)
+        self.add_body(state, items, td_abs, start=start_dev)
+        self.advance_host_at(state, int(start), td_abs.shape[0])
         return state
 
     def draw(self, state: ReplayState, batch: int,

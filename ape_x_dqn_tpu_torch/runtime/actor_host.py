@@ -18,9 +18,14 @@ its experience batches are stamped with the peer id and a batch id
 (obs/fleet.py: StampingTransport), a `TelemetryEmitter` ships snapshot
 frames of its Obs to the learner every ``obs.telemetry_every_s`` (the
 learner's aggregator merges them under ``peer/<id>/...``), and its
-flight recorder dumps under the peer's name. The multi-tenant serving
-tier (``serving.multi_tenant``) is refused: it waits for ROADMAP Queue A
-item 16.
+flight recorder dumps under the peer's name.
+
+With ``serving.multi_tenant`` the host's policy registers in a serving
+tier of its own (parallel/inference_server.py) under ``env.id``, its
+hellos carry that tenant tag, and with ``serving.backpressure`` the
+tier's admission controller drives the transport's drop gate; under
+``remediation.mode=enforce`` a watchdog releases a transport latch the
+tier no longer holds.
 
 Entry points:
 - run_actor_host(cfg, host, port, ...) — library call.
@@ -49,7 +54,7 @@ from ape_x_dqn_tpu_torch.models.dpg import (PARTS, server_params,
 from ape_x_dqn_tpu_torch.obs.core import build_obs
 from ape_x_dqn_tpu_torch.obs.fleet import StampingTransport, TelemetryEmitter
 from ape_x_dqn_tpu_torch.parallel.inference_server import (
-    BatchedInferenceServer)
+    BatchedInferenceServer, build_serving_tier)
 from ape_x_dqn_tpu_torch.runtime.family import (
     actor_class, family_of, server_apply_fn, warmup_example)
 from ape_x_dqn_tpu_torch.utils.metrics import Metrics
@@ -61,13 +66,6 @@ def default_peer_id(actor_offset: int = 0) -> str:
     hostname + pid + this host's slot in the global actor schedule."""
     return (f"{socket_mod.gethostname()}-{os.getpid()}"
             f"-a{actor_offset}")
-
-
-def _refuse_unported(cfg) -> None:
-    if cfg.serving.multi_tenant:
-        raise NotImplementedError(
-            "serving.multi_tenant (the serving tier) is not ported to the "
-            "PyTorch package yet: it waits for ROADMAP Queue A item 16")
 
 
 def load_pulled_params(family: str, net: Any, tree: dict) -> dict:
@@ -124,20 +122,24 @@ def run_actor_host(cfg, host: str, port: int,
 
     device: where the host's inference server runs (a CUDA request
     without a card raises)."""
-    _refuse_unported(cfg)
     dev = resolve_device(device)
     n = num_actors or cfg.actors.num_actors
     stop_event = stop_event or threading.Event()
     peer = peer_id or default_peer_id(actor_offset)
     comm = cfg.comm
+    serving = cfg.serving
     transport = SocketTransport(
         host, port, wire_codec=comm.wire_codec,
         reconnect_base_s=comm.reconnect_base_s,
         reconnect_cap_s=comm.reconnect_cap_s,
         params_push=comm.params_push, param_codec=comm.param_codec,
+        serve_policy=(cfg.env.id if serving.multi_tenant else ""),
+        serve_class=serving.default_class,
         shm=comm.shm, shm_slots=comm.shm_slots,
         shm_slot_bytes=comm.shm_slot_bytes)
-    # the raw socket transport, before any StampingTransport wrap
+    # the raw socket transport, before any StampingTransport wrap: the
+    # serving tier's backpressure callback must reach the object that
+    # owns send_experience's drop gate
     raw_transport = transport
     # local obs: metrics stay in-memory (the learner's JSONL is the
     # run's single artifact; this host's view crosses the wire as
@@ -186,11 +188,26 @@ def run_actor_host(cfg, host: str, port: int,
     for module in (net if family == "dpg" else (net,)):
         module.to(dev).requires_grad_(False)
     first = load_pulled_params(family, net, params)
-    server = BatchedInferenceServer(
-        server_apply_fn(family, net), first,
-        max_batch=cfg.inference.max_batch,
-        deadline_ms=cfg.inference.deadline_ms, device=dev,
-        obs=obs if obs.enabled else None)
+    tier = None
+    if serving.multi_tenant:
+        # the serving tier: this host's policy registers under env.id;
+        # the admission controller pushes backpressure into the
+        # transport's drop gate when the queue crosses the SLO line
+        tier = build_serving_tier(
+            serving, max_batch=cfg.inference.max_batch,
+            deadline_ms=cfg.inference.deadline_ms,
+            obs=obs if obs.enabled else None, device=dev)
+        if serving.backpressure:
+            tier.on_backpressure = raw_transport.set_backpressure
+        server = tier.register_policy(
+            cfg.env.id, server_apply_fn(family, net), first,
+            family=family, priority=serving.default_class)
+    else:
+        server = BatchedInferenceServer(
+            server_apply_fn(family, net), first,
+            max_batch=cfg.inference.max_batch,
+            deadline_ms=cfg.inference.deadline_ms, device=dev,
+            obs=obs if obs.enabled else None)
     server.update_params(first, version)
     if emitter is not None:
         emitter.start()
@@ -261,6 +278,35 @@ def run_actor_host(cfg, host: str, port: int,
                               daemon=True)
     puller.start()
 
+    # the remediation plane on the host side: the learner's engine
+    # cannot reach this host's transport latch, so an ENFORCE-mode host
+    # watches it itself: a backpressure latch that the local admission
+    # controller no longer holds (released, or never engaged) for
+    # remediation.release_after_s is released here
+    rcfg = cfg.remediation
+    bp_thread: threading.Thread | None = None
+    if (rcfg.mode == "enforce" and tier is not None
+            and serving.backpressure):
+        def bp_watchdog() -> None:
+            stale_since: float | None = None
+            while not stop_event.wait(1.0):
+                stale = (raw_transport.backpressure_engaged
+                         and not tier.backpressure_engaged)
+                if not stale:
+                    stale_since = None
+                    continue
+                now = time.monotonic()
+                if stale_since is None:
+                    stale_since = now
+                elif now - stale_since >= rcfg.release_after_s:
+                    raw_transport.set_backpressure(False)
+                    obs.count("remediation_actions")
+                    stale_since = None
+
+        bp_thread = threading.Thread(target=bp_watchdog,
+                                     name="remediation-bp", daemon=True)
+        bp_thread.start()
+
     per_actor = frames_per_actor or (
         cfg.total_env_frames // max(cfg.actors.num_actors, 1))
     errors: list[tuple[int, Exception]] = []
@@ -298,6 +344,8 @@ def run_actor_host(cfg, host: str, port: int,
             t.join(timeout=5.0)
     stop_event.set()
     puller.join(timeout=2)
+    if bp_thread is not None:
+        bp_thread.join(timeout=2)
     server.stop()
     if emitter is not None:
         emitter.stop()  # ships one shutdown-fresh frame

@@ -70,9 +70,8 @@ the ingest add is one captured graph per (replay, g) on the card
 (runtime/step_graph.py: AddGraph). Before anything is allocated on the
 card, `check_hbm_fits` prices the run (utils/hbm.py) and raises when it
 cannot fit. What the original builds and the port does not have yet
-raises, naming its ROADMAP Queue A item: the multi-GPU learner (14), the
-serving tier (16) and the legacy staging path (11); the port's config
-already refuses the cold tier (15). All three families run here: flat
+raises, naming its ROADMAP Queue A item: the multi-GPU learner (14) and
+the legacy staging path (11). All three families run here: flat
 DQN, R2D2 (recurrent actors, stateful {obs, c, h} server queries, whole
 sequences as staging units and the `SequenceLearner`,
 runtime/sequence_learner.py) and Ape-X DPG (continuous actors, {a, q}
@@ -88,6 +87,23 @@ quarantine a silent remote peer), with the remediation engine
 (``remediation.mode`` observe or enforce, runtime/remediation.py) first
 in line. ``profile_dir`` opens one ``torch.profiler`` window over
 ``profile_steps`` grad-steps.
+
+Serving tier (``serving.multi_tenant``, parallel/inference_server.py):
+the driver builds a `MultiPolicyInferenceServer` and registers its
+policy under ``env.id``; `self.server` is then that tenant's
+`TenantClient`, with the single-policy server's surface, and the
+remediation engine's queue-SLO rule acts on the tier's backpressure.
+
+Tiered cold replay (``replay.cold_tier_capacity``, replay/cold_store.py,
+with a disk rung under it, replay/disk_store.py): once the ring is full
+every staged block is an eviction swap (`_ship_staged_cold`): the
+ring's lowest-priority-mass region is read out, compressed into the
+host store, and overwritten by the block with a directed add; on the
+card the plan and read, and the directed add, replay captured graphs
+(runtime/step_graph.py). When the ingest queue runs dry, the refill tick
+recalls the heaviest cold segments through the same stager
+(`_cold_refill_tick`). The summary's ``cold_tier`` block holds the door
+closure ``evicted == stored + dropped`` in transitions.
 """
 
 from __future__ import annotations
@@ -109,7 +125,8 @@ from ape_x_dqn_tpu_torch.models import build_network
 from ape_x_dqn_tpu_torch.obs.core import ProfileWindow, build_obs
 from ape_x_dqn_tpu_torch.obs.fleet import MAX_SPAN_IDS, FleetAggregator
 from ape_x_dqn_tpu_torch.parallel.inference_server import (
-    BatchedInferenceServer)
+    BatchedInferenceServer, MultiPolicyInferenceServer, build_serving_tier)
+from ape_x_dqn_tpu_torch.replay.cold_store import ColdStore
 from ape_x_dqn_tpu_torch.runtime.build import build_prioritized_replay
 from ape_x_dqn_tpu_torch.runtime.evaluation import (
     EvalWorker, RollingSuiteScore, eval_game_rotation, final_eval_game,
@@ -135,12 +152,16 @@ from ape_x_dqn_tpu_torch.utils.rng import component_generator
 def _refuse_unported(cfg) -> None:
     """Raise for what the original driver builds and the port does not
     have yet, rather than running without it."""
+    if cfg.replay.cold_tier_capacity > 0 \
+            and not getattr(cfg.replay, "ingest_zero_copy", True):
+        raise ValueError(
+            "the cold tier refills through the zero-copy ingest "
+            "stager — replay.ingest_zero_copy=False and "
+            "cold_tier_capacity > 0 are incompatible")
     waits = []
     if cfg.parallel.dp * cfg.parallel.tp > 1:
         waits.append(("parallel.dp * parallel.tp > 1 (the multi-GPU "
                       "learner)", 14))
-    if cfg.serving.multi_tenant:
-        waits.append(("serving.multi_tenant (the serving tier)", 16))
     if not getattr(cfg.replay, "ingest_zero_copy", True):
         waits.append(("replay.ingest_zero_copy=False (the legacy staging "
                       "path)", 11))
@@ -209,11 +230,26 @@ class ApexDriver:
         # the learner updates its tensors in place: the server gets a
         # copy (publish_params clones) and keeps it to itself
         server_params = self.learner.publish_params(self.state)
-        self.server = BatchedInferenceServer(
-            server_apply_fn(self.family, self.net), server_params,
-            max_batch=cfg.inference.max_batch,
-            deadline_ms=cfg.inference.deadline_ms,
-            obs=self.obs, device=self.device)
+        # serving.multi_tenant swaps the single-policy server for the
+        # serving tier: this driver's policy registers under env.id and
+        # self.server is its TenantClient, with the same surface, so the
+        # actor, eval and publication paths do not know about tenancy
+        self.serving: MultiPolicyInferenceServer | None = None
+        if cfg.serving.multi_tenant:
+            self.serving = build_serving_tier(
+                cfg.serving, max_batch=cfg.inference.max_batch,
+                deadline_ms=cfg.inference.deadline_ms, obs=self.obs,
+                device=self.device)
+            self.server = self.serving.register_policy(
+                cfg.env.id, server_apply_fn(self.family, self.net),
+                server_params, family=self.family,
+                priority=cfg.serving.default_class)
+        else:
+            self.server = BatchedInferenceServer(
+                server_apply_fn(self.family, self.net), server_params,
+                max_batch=cfg.inference.max_batch,
+                deadline_ms=cfg.inference.deadline_ms,
+                obs=self.obs, device=self.device)
         self.transport = transport if transport is not None \
             else LoopbackTransport()
         # a transport that serves remote hosts gets host (numpy) params;
@@ -330,6 +366,53 @@ class ApexDriver:
             coalesce=getattr(cfg.replay, "ingest_coalesce", 4),
             buffers=getattr(cfg.replay, "stage_buffers", 2),
             ship=self._ship_staged, pin=self.device.type == "cuda")
+        # tiered cold store (replay/cold_store.py), off by default: with
+        # the tier on and the ring full, every ship evicts the ring's
+        # lowest-priority-mass region to the host store, and the idle
+        # refill tick recalls the heaviest cold segments through the
+        # stager. The cold counters count transitions and are touched by
+        # the ingest thread only; the closure evicted == stored +
+        # dropped counts door outcomes (a displaced segment was stored
+        # first: the store counts displacements apart)
+        self._cold: ColdStore | None = None
+        self._disk = None        # disk rung (replay/disk_store.py)
+        self._cold_evicted = 0   # ingest thread only
+        self._cold_stored = 0    # ingest thread only
+        self._cold_dropped = 0   # ingest thread only
+        self._cold_recalled = 0  # ingest thread only
+        # the same door outcomes per dp shard (one shard on one card)
+        self._cold_evicted_per_shard = np.zeros(self.dp, np.int64)
+        self._cold_stored_per_shard = np.zeros(self.dp, np.int64)
+        self._cold_dropped_per_shard = np.zeros(self.dp, np.int64)
+        # last-seen store counters for the delta-emitted obs counters
+        self._cold_dropped_seen = 0
+        self._cold_displaced_seen = 0
+        self._disk_seen: dict = {}
+        # the swap's pinned host buffers for the evicted region (ingest
+        # thread only)
+        self._region_host: dict[str, torch.Tensor] = {}
+        cold_cap = cfg.replay.cold_tier_capacity
+        if cold_cap > 0:
+            if self.family != "dqn" or not getattr(
+                    self.replay, "has_priorities", False):
+                raise NotImplementedError(
+                    "the cold tier needs prioritized flat/frame-ring "
+                    "DQN replay (priority-mass eviction has no meaning "
+                    "without a sum tree); set cold_tier_capacity=0 for "
+                    f"family={self.family!r}, kind={cfg.replay.kind!r}")
+            if cfg.replay.cold_tier_disk_capacity > 0:
+                from ape_x_dqn_tpu_torch.replay.disk_store import DiskStore
+                self._disk = DiskStore(
+                    cfg.replay.cold_tier_disk_dir,
+                    cfg.replay.cold_tier_disk_capacity,
+                    queue_depth=cfg.replay.cold_tier_disk_queue,
+                    file_bytes=cfg.replay.cold_tier_disk_file_bytes,
+                    compact_frac=cfg.replay.cold_tier_disk_compact_frac)
+            self._cold = ColdStore(
+                item_spec, cold_cap, unit_items=self._unit_items,
+                ptail=ptail,
+                compress_level=cfg.replay.cold_tier_compress_level,
+                spill=self._disk)
         # the --profile-dir capture: one torch.profiler window over
         # profile_steps grad-steps from the first train dispatch
         self._profile = (ProfileWindow(cfg.profile_dir, cfg.profile_steps)
@@ -759,24 +842,38 @@ class ApexDriver:
         return True
 
     def _remediation_backpressure(self, engaged: bool) -> bool:
-        """Queue-SLO actuator: the serving tier's backpressure flag.
-        There is no serving tier yet (ROADMAP Queue A item 16), so the
-        action is skipped (False), as the original's is without one."""
-        return False
+        """Queue-SLO actuator: nudge the serving tier's backpressure
+        flag (the same gauge and transport callback as the admission
+        controller's own transitions; the controller keeps running and
+        re-transitions if its depth-based hysteresis disagrees).
+        Skipped (False) without a tier."""
+        if self.serving is None:
+            return False
+        return self.serving.force_backpressure(engaged)  # apexlint: unaccounted(counted centrally in RemediationEngine._apply)
 
     def _remediation_set_priority(self, tenant: str, cls: int) -> bool:
-        """Learn-health actuator: re-temper this driver's tenant
-        priority class in the serving tier; skipped (False) while there
-        is none, as in the original."""
-        return False
+        """Learn-health actuator: re-temper THIS driver's tenant
+        priority class. Only the tenant whose TenantClient this driver
+        owns is re-temperable: co-tenants' clients belong to their
+        registrants."""
+        if self.serving is None \
+                or getattr(self.server, "policy_id", None) != tenant:
+            return False
+        hi = self.cfg.serving.priority_classes - 1
+        self.server.priority = min(max(int(cls), 0), hi)
+        return True
 
     def _remediation_sensors(self) -> dict:
-        """Fresh gauge-sensor snapshot for the engine's tick: ingest
-        drop pressure (delta since the last tick) and the local slot
-        population (supervisor-tick thread only — the delta bookkeeping
-        needs no lock). The serving queue's sensors wait for the
-        serving tier."""
+        """Fresh gauge-sensor snapshot for the engine's tick: the
+        serving queue's depth against its SLO and the backpressure flag
+        (with the tier on), ingest drop pressure (delta since the last
+        tick) and the local slot population (supervisor-tick thread
+        only — the delta bookkeeping needs no lock)."""
         s: dict = {}
+        if self.serving is not None:
+            s["queue_depth"] = self.serving.queue_depth
+            s["queue_slo"] = self.cfg.serving.queue_slo_items
+            s["backpressure"] = self.serving.backpressure_engaged
         with self._lock:
             running = [i for i, t in self._slot_threads.items()
                        if t.is_alive() and i not in self._quarantined
@@ -830,6 +927,9 @@ class ApexDriver:
                     # queue ran dry: ship the complete staged blocks so
                     # coalescing costs bounded latency
                     self._stager.drain()
+                    # idle bandwidth goes to cold recalls: high-mass
+                    # cold segments restage through the same stager
+                    self._cold_refill_tick()
                     continue
                 self._ingest_one(batch, batch_rows(batch))
             # ship the staged full blocks; the partial tail is dropped
@@ -969,6 +1069,9 @@ class ApexDriver:
         add body, eagerly. -> the event (none on the CPU), which the
         stager synchronises on before it rewrites the memory."""
         count = g * self.dp * self._stage_chunk
+        if self._cold is not None and self._replay_filled >= self.capacity:
+            # ring full + tier on: every ship becomes an eviction swap
+            return self._ship_staged_cold(views, g)
         lead = (g, self._stage_chunk) if g > 1 else (self._stage_chunk,)
         staged = self.learner.land_add(g, views, lead)
         handles = []
@@ -996,6 +1099,191 @@ class ApexDriver:
                 self.capacity)
         self.obs.gauge("ingest_coalesce_width", g)
         return handles
+
+    def _ship_staged_cold(self, views: dict, g: int) -> list:
+        """Eviction-swap ship (cold tier on, ring full), block by block:
+        each block's eviction plan must see the tree the previous swap
+        left. Per block, under _state_lock on the ingest stream: the
+        evict graph picks the ring's lowest-priority-mass region and
+        reads it in staging layout (`learner.evict_landed`), the region
+        and its start are copied to pinned host buffers and waited for
+        (the barrier that keeps the reads ahead of the overwrite), and
+        the add_at graph overwrites exactly that region with the block,
+        reading the start on the device. Outside the lock the region
+        goes through the ColdStore's door. -> the event of the last
+        host-to-device copy (none on the CPU)."""
+        chunk = self._stage_chunk
+        lead = (chunk,)
+        handles = []
+        for j in range(g):
+            block = {k: v[j * chunk:(j + 1) * chunk]
+                     for k, v in views.items()}
+            inputs = self.learner.land_add_at(block, lead)
+            with self._state_lock:
+                if self._learn_done is not None:
+                    # the swap writes what the last train dispatch reads
+                    self._ingest_stream.wait_event(self._learn_done)
+                with self.obs.span("replay.evict", units=chunk):
+                    start, ev_items, ev_pri = self.learner.evict_landed(
+                        self.state, chunk)
+                    region = self._fetch_region(start, ev_items, ev_pri)
+                    self.state = self.learner.add_at_landed(
+                        self.state, inputs, start,
+                        int(region.pop("start")))
+            ev_pri = region.pop("priorities")
+            live = int((ev_pri > 0).sum())
+            self._cold_evicted += live
+            self._cold_evicted_per_shard[0] += live
+            if self._cold.put(region, ev_pri, live) == "stored":
+                self._cold_stored += live
+                self._cold_stored_per_shard[0] += live
+            else:
+                self._cold_dropped += live
+                self._cold_dropped_per_shard[0] += live
+            self.obs.count("cold_evictions")
+        if self.device.type == "cuda":
+            ev = torch.cuda.Event()
+            ev.record()
+            handles.append(ev)
+        self.ingest_rows.add(g * chunk * self.dp * self._unit_items)
+        # _replay_filled stays at capacity: eviction swaps slots 1:1
+        self.obs.gauge("ingest_coalesce_width", g)
+        self._emit_cold_gauges()
+        return handles
+
+    def _fetch_region(self, start: torch.Tensor, items: dict,
+                      pri: torch.Tensor) -> dict:
+        """The evicted region on the host ({item keys, "priorities",
+        "start"} as numpy): on CUDA one non-blocking copy per leaf into
+        pinned buffers kept for the swap, then a wait on an event
+        recorded after them on this (the ingest) stream, so every read
+        has landed before the directed add is enqueued and before the
+        next swap rewrites the buffers."""
+        leaves = dict(items, priorities=pri, start=start)
+        if self.device.type != "cuda":
+            return {k: v.numpy() for k, v in leaves.items()}
+        for k, v in leaves.items():
+            buf = self._region_host.get(k)
+            if buf is None:
+                buf = self._region_host[k] = torch.empty(
+                    v.shape, dtype=v.dtype, pin_memory=True)
+            buf.copy_(v, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+        done.synchronize()
+        return {k: self._region_host[k].numpy() for k in leaves}
+
+    def _cold_refill_tick(self) -> None:
+        """Idle-time recall (ingest thread, queue dry): pop up to
+        cold_tier_refill of the highest-priority-mass cold segments,
+        invert their stored leaf values back to |td| (the add re-applies
+        (|td|+eps)^alpha), and restage them through the stager, so
+        recalled data rides the one-copy staging->add path of fresh
+        actor experience. Then promote the heaviest disk segments back
+        through the RAM door."""
+        if self._cold is None:
+            return
+        # bound the burst by what the active staging buffer absorbs
+        # without shipping: a recalled or promoted segment is at most one
+        # stage_chunk of units (the eviction block)
+        room = self._stager.free_units() // max(1, self._stage_chunk)
+        k = min(self.cfg.replay.cold_tier_refill, room)
+        did = False
+        if k > 0 and len(self._cold):
+            alpha, eps = self.replay.alpha, self.replay.eps
+            for batch in self._cold.recall(k):
+                pri = np.asarray(batch["priorities"], np.float32)
+                td = np.maximum(pri ** (1.0 / alpha) - eps, 0.0) \
+                    .astype(np.float32)
+                self._stager.put(dict(batch, priorities=td))
+                self._cold_recalled += int((pri > 0).sum())
+                self.obs.count("cold_recalls")
+            did = True
+        # disk promotions AFTER recalls: the heaviest disk segments
+        # climb back through the RAM door (put_segment; its displaced
+        # victims spill back down), gated on the door's current floor
+        # so a promotion never bounces
+        if self._disk is not None:
+            kd = self.cfg.replay.cold_tier_disk_promote
+            if kd > 0:
+                floor = self._cold.displacement_floor()
+                for seg in self._disk.promote(kd, floor):
+                    self._cold.put_segment(seg)
+                    did = True
+        if did:
+            self._emit_cold_gauges()
+
+    def _emit_cold_gauges(self) -> None:
+        cold = self._cold
+        self.obs.gauge("cold_segments", float(len(cold)))
+        self.obs.gauge("cold_bytes", float(cold.bytes_compressed))
+        self.obs.gauge("cold_compression_ratio",
+                       cold.compression_ratio())
+        # door outcomes as delta-emitted counters: report --check warns
+        # when drops outrun displacements (store thrashing, the signal
+        # the disk rung exists to absorb)
+        d = cold.dropped - self._cold_dropped_seen
+        if d:
+            self.obs.count("cold_dropped", d)
+            self._cold_dropped_seen = cold.dropped
+        d = cold.displaced - self._cold_displaced_seen
+        if d:
+            self.obs.count("cold_displaced", d)
+            self._cold_displaced_seen = cold.displaced
+        if self._disk is None:
+            return
+        s = self._disk.stats()
+        self.obs.gauge("cold_disk_segments", float(s["segments"]))
+        self.obs.gauge("cold_disk_transitions", float(s["transitions"]))
+        self.obs.gauge("cold_disk_bytes", float(s["bytes"]))
+
+        def delta(key: str) -> int:
+            d = s[key] - self._disk_seen.get(key, 0)
+            if d:
+                self._disk_seen[key] = s[key]
+            return d
+
+        # literal metric names (not a name loop), one per INSTRUMENTS
+        # row of obs/report.py
+        d = delta("spilled")
+        if d:
+            self.obs.count("cold_disk_spills", d)
+        d = delta("promoted")
+        if d:
+            self.obs.count("cold_disk_promotions", d)
+        d = delta("queue_full")
+        if d:
+            self.obs.count("cold_disk_queue_full", d)
+        d = delta("io_errors")
+        if d:
+            self.obs.count("cold_disk_errors", d)
+
+    def _cold_summary(self) -> dict:
+        """The run summary's cold_tier block: the transition-denominated
+        door closure evicted == stored + dropped (per shard too), the
+        store's state, the swap graphs' replays and the disk rung's
+        stats."""
+        cold = self._cold
+        out = {
+            "evicted": self._cold_evicted,
+            "stored": self._cold_stored,
+            "dropped": self._cold_dropped,
+            "recalled": self._cold_recalled,
+            "displaced_segments": cold.displaced,
+            "segments": len(cold),
+            "transitions": cold.transitions,
+            "bytes": cold.bytes_compressed,
+            "compression_ratio": cold.compression_ratio(),
+            "evicted_per_shard": self._cold_evicted_per_shard.tolist(),
+            "stored_per_shard": self._cold_stored_per_shard.tolist(),
+            "dropped_per_shard": self._cold_dropped_per_shard.tolist(),
+            "swap_graph_replays": {
+                k: g.replays
+                for k, g in sorted(self.learner.swap_graphs().items())},
+        }
+        if self._disk is not None:
+            out["disk"] = self._disk.stats()
+        return out
 
     def _add_span_args(self, count: int) -> dict:
         """The replay.add span's args: the units, and the origin
@@ -1428,6 +1716,17 @@ class ApexDriver:
                 except Exception as e:
                     self.loop_errors.append(("checkpoint", e))
             self.server.stop()
+            if self._disk is not None:
+                # let queued spills land before the thread stops; a hard
+                # kill here is what the recovery scan is for, so failures
+                # are logged, never raised
+                try:
+                    self._disk.drain(timeout=5.0)
+                except TimeoutError as e:
+                    # queued spills that never landed are lost segments
+                    self.obs.count("cold_disk_errors")
+                    self.loop_errors.append(("disk_drain", e))
+                self._disk.close()
             self.obs.close(self._grad_steps_total)
         with self._lock:
             avg_ret = (float(np.mean(self.episode_returns))
@@ -1460,6 +1759,16 @@ class ApexDriver:
         }
         if self.remediation is not None:
             out["remediation"] = self.remediation.summary()
+        if self.serving is not None:
+            # the tier's totals and this driver's tenant under the names
+            # of its serve/<id>/ gauges
+            pid = self.server.policy_id
+            mine = {("queue_depth" if k == "pending" else k): v
+                    for k, v in self.server.stats.items()}
+            out["serving"] = dict(self.serving.stats, **{
+                f"serve/{pid}/{k}": v for k, v in mine.items()})
+        if self._cold is not None:
+            out["cold_tier"] = self._cold_summary()
         wire = self._wire_summary()
         if wire is not None:
             out["wire"] = wire

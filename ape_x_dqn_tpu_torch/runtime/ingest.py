@@ -218,3 +218,11 @@ class IngestStager:
     def occupancy(self) -> float:
         """Fill fraction of the active staging buffer."""
         return self._cursor / self.rows
+
+    def free_units(self) -> int:
+        """Rows the active buffer absorbs before a put triggers the
+        coalesced ship. The cold tier's idle refill tick bounds its
+        recall and promotion burst by it, so restaging recalled segments
+        never forces an add mid-idle (which would take _state_lock
+        against the learner's dispatches)."""
+        return self.rows - self._cursor

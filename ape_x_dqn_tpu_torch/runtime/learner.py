@@ -22,8 +22,10 @@ renormalisation, K SGD steps, then ONE priority write-back. The
 double-buffered form (LearnerConfig.sample_prefetch) keeps one
 macro-step's sample in flight: `sample_k` draws the NEXT sample from the
 current tree before `learn_k` trains on the pending one; these two run
-eagerly on every device. `evict_region` and `add_at` wait for the tiers'
-slice.
+eagerly on every device. `evict_region` and `add_at` are the tiered
+cold store's eviction swap, eagerly; the driver replays them as captured
+graphs on the card (runtime/step_graph.py: `evict_landed`,
+`add_at_landed`).
 """
 
 from __future__ import annotations
@@ -414,6 +416,22 @@ class SingleChipLearner(GraphedEndpoints):
         for j in range(td_abs.shape[0]):
             self.replay.add(state.replay, {k: v[j] for k, v in items.items()},
                             td_abs[j])
+        return state
+
+    # -- the tiered cold store's endpoints (runtime/driver.py) --------------
+
+    def evict_region(self, state: TrainState, block: int):
+        """-> (start, staging-layout items, stored leaf priorities) of
+        the ring's lowest-priority-mass `block`-unit region, on the
+        device (fresh tensors: the caller fetches them before `add_at`
+        overwrites the region)."""
+        return self._evict_body(state, block)
+
+    def add_at(self, state: TrainState, items: Any, td_abs: torch.Tensor,
+               start) -> TrainState:
+        """Directed ingest add: overwrite the evict_region start instead
+        of the FIFO cursor (cold tier on and the ring full)."""
+        self.replay.add_at(state.replay, items, td_abs, start)
         return state
 
     def publish_params(self, state: TrainState) -> dict[str, torch.Tensor]:

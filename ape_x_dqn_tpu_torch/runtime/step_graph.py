@@ -42,6 +42,15 @@ static device buffers that the caller's host-to-device copies land in
 (`land`); the host cursor is the learner's to advance. One graph per
 (replay, g).
 
+`EvictGraph` and an `AddGraph` of the directed add are the tiered cold
+store's eviction swap (the counterparts of the JAX learner's
+`evict_region` and `add_at` jits): the evict graph writes the start of
+the ring's lowest-priority-mass region, the region in staging layout
+and its leaf priorities into static outputs; the add_at graph overwrites
+that region with a staged block, reading the start from a static device
+input that the caller fills from the evict graph's output on the device
+(no host int). One of each per replay layout.
+
 Every capture is logged in `CAPTURES` (name, milliseconds, the caching
 allocator's growth across it), which the observability layer publishes
 as `graph_captures`, `graph_capture_ms` and `hbm/<graph>/...`
@@ -274,6 +283,42 @@ class AddGraph(_Captured):
         self.replays += 1
 
 
+class EvictGraph(_Captured):
+    """The eviction plan and read of one `block`: `body(state)` ->
+    (start, items, priorities), device operations only. On the card with
+    capture on, the first call runs it eagerly on a side stream, the
+    second captures and replays it, later calls replay; the outputs of a
+    replay are the graph's static tensors, which the next replay
+    overwrites (the caller copies them out first). Elsewhere the call is
+    the body."""
+
+    def __init__(self, body: Callable[[Any], tuple], name: str = "evict",
+                 steps: int = 1):
+        super().__init__(name, steps)
+        self.body = body
+        self.replays = 0
+        self._out: tuple | None = None   # static outputs
+
+    def __call__(self, state, device: torch.device, capture: bool) -> tuple:
+        def run(s, _):
+            return self.body(s)
+
+        if device.type != "cuda" or not capture:
+            return self._eager(run, state, None)
+        if self._graph is None or self._bound is not state:
+            if self._warm is not state:
+                out = self._warm_up(run, state, None, device)
+                cur = torch.cuda.current_stream(device)
+                start, items, pri = out
+                for t in (start, pri, *items.values()):
+                    t.record_stream(cur)
+                return out
+            self._out = self._capture(run, state, None, device)
+        self._graph.replay()
+        self.replays += 1
+        return self._out
+
+
 class GraphedEndpoints:
     """The graph bookkeeping a learner shares: one `StepGraph` per
     endpoint body, the `capture` switch and the noise draw before a
@@ -357,4 +402,68 @@ class GraphedEndpoints:
         block = td.shape[1] if g > 1 else td.shape[0]
         for _ in range(g):
             self.replay.advance_host(state.replay, block)
+        return state
+
+    # -- the cold tier's eviction swap -------------------------------------
+
+    def swap_graphs(self) -> dict:
+        """{"evict": EvictGraph, "add_at": AddGraph} built so far."""
+        return dict(self.__dict__.get("_swap_graphs", {}))
+
+    def _swap_graph(self, key: str, block: int):
+        graphs = self.__dict__.setdefault("_swap_graphs", {})
+        if key not in graphs:
+            name = f"{type(self).__name__}.{key}_b{block}"
+            replay = self.replay
+            if key == "evict":
+                graphs[key] = EvictGraph(
+                    lambda s: self._evict_body(s, block), name=name,
+                    steps=block)
+            else:
+                graphs[key] = AddGraph(
+                    lambda s, ins: replay.add_body(
+                        s.replay,
+                        {k: v for k, v in ins.items()
+                         if k not in ("priorities", "start")},
+                        ins["priorities"], ins["start"]),
+                    name=name, steps=block)
+        return graphs[key]
+
+    def _evict_body(self, state, block: int) -> tuple:
+        start = self.replay.evict_plan(state.replay, block)
+        items, pri = self.replay.read_region(state.replay, start, block)
+        return start, items, pri
+
+    def evict_landed(self, state, block: int) -> tuple:
+        """The eviction plan and read of `block` units: -> (start 0-dim,
+        staging-layout items, leaf priorities) on the device; on the
+        card with capture on, the evict graph's static outputs, which
+        its next replay overwrites."""
+        return self._swap_graph("evict", block)(
+            state, self.replay.device, self.capture)
+
+    def land_add_at(self, views: dict, lead: tuple) -> dict:
+        """The host-to-device copies of one directed add (views {key:
+        [block, ...]} with "priorities", reshaped to `lead` + the leaf
+        shape): into the add_at graph's static inputs when graphed,
+        else fresh device tensors; with a "start" slot the add reads."""
+        graph = self._swap_graph("add_at", lead[0])
+        inputs = graph.land(views, lead, self.replay.device, self.graphed)
+        if "start" not in inputs:
+            inputs["start"] = torch.zeros((), dtype=torch.int64,
+                                          device=self.replay.device)
+        return inputs
+
+    def add_at_landed(self, state, inputs: dict, start: torch.Tensor,
+                      start_host: int):
+        """The directed add of one landed block at the device `start`
+        (an evict result, copied into inputs["start"] on the device):
+        one replay of the add_at graph on the card, the body elsewhere;
+        then the host cursor follows the directed write from
+        `start_host`, the same start fetched to the host by the caller.
+        -> state."""
+        inputs["start"].copy_(start)
+        block = inputs["priorities"].shape[0]
+        self._swap_graph("add_at", block)(state, inputs, self.capture)
+        self.replay.advance_host_at(state.replay, int(start_host), block)
         return state

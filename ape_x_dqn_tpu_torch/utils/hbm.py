@@ -21,6 +21,12 @@ the port's own:
   H100 80GB HBM3 at a 700 W limit by ``chip_smoke.py``, which prints
   each phase's measured peak (``torch.cuda.max_memory_allocated``)
   beside the budget (PERF.md §6).
+- `serving_transient_bytes` prices the serving tier's coalesced forward
+  (``serving.multi_tenant`` with ``serving.coalesce``) on its own: it
+  gathers one tenant's float32 params per batch row, largest bucket x
+  params for the one family registered, up to 1.66 GB for an LSTM
+  Q-net of 6.5M params at bucket 64, which the headroom was not
+  measured with.
 """
 
 from __future__ import annotations
@@ -68,11 +74,13 @@ class HbmBudget:
     headroom: int
     capacity: int          # effective per-device item capacity (pow2)
     detail: dict
+    serving_transient: int = 0
 
     @property
     def total(self) -> int:
         return (self.replay_storage + self.replay_tree
-                + self.model_state + self.headroom)
+                + self.model_state + self.headroom
+                + self.serving_transient)
 
     def table(self) -> str:
         gib = 1024 ** 3
@@ -80,6 +88,7 @@ class HbmBudget:
                 ("sum-tree", self.replay_tree),
                 ("model+opt state", self.model_state),
                 ("transient headroom", self.headroom),
+                ("serving gather", self.serving_transient),
                 ("TOTAL per device", self.total)]
         body = "\n".join(f"  {k:<20} {v / gib:8.2f} GiB" for k, v in rows)
         extra = ", ".join(f"{k}={v}" for k, v in self.detail.items())
@@ -150,6 +159,20 @@ def model_state_bytes(param_count: int, adam: bool = True) -> int:
     return param_count * per
 
 
+def serving_transient_bytes(cfg: Any, param_count: int) -> int:
+    """The serving tier's coalesced forward gathers one tenant's params
+    per row of the padded batch (float32): the largest bucket (the
+    next power of two of max_batch, or of a vector actor's larger
+    request) x params, for the one family a driver or actor host
+    registers. 0 without the tier or coalescing."""
+    serving = getattr(cfg, "serving", None)
+    if serving is None or not (serving.multi_tenant and serving.coalesce):
+        return 0
+    bucket = next_pow2(max(cfg.inference.max_batch,
+                           cfg.actors.envs_per_actor, 1))
+    return bucket * param_count * 4
+
+
 def run_budget(cfg: Any, obs_shape: tuple[int, ...], obs_dtype=np.uint8,
                param_count: int = 5_000_000) -> HbmBudget:
     """Budget a RunConfig per device. `param_count` defaults to a
@@ -159,7 +182,9 @@ def run_budget(cfg: Any, obs_shape: tuple[int, ...], obs_dtype=np.uint8,
     return HbmBudget(replay_storage=storage, replay_tree=tree,
                      model_state=model_state_bytes(param_count),
                      headroom=TRANSIENT_HEADROOM, capacity=cap,
-                     detail=detail)
+                     detail=detail,
+                     serving_transient=serving_transient_bytes(
+                         cfg, param_count))
 
 
 def device_hbm_bytes(device=None) -> int | None:

@@ -126,7 +126,45 @@ non-zero:
              staleness and roofline sections; a SIGUSR2 to this process
              mid-run left a blackbox-*.json and no handler; the run's
              HBM budget covers its measured peak; the gather launched
-15. the memory table (each preset's budget beside its measured peak and
+15. serve    the multi-tenant serving tier alone at the pong preset's
+             width (the dueling Nature CNN on 84x84x4 uint8, bf16):
+             eight tenants of one family, each from its own seed,
+             classes [0,0,1,1,2,2,2,2], max_batch 64, vector requests of
+             16: one mixed batch through the gathered forward, and one
+             of 8 rows per tenant through the tier's TenantClients,
+             against each tenant's plain forward (bf16, 1e-2, beside
+             the least difference between two tenants on a row) and
+             at least one gathered forward; closed-loop
+             forwards/s of the single-tenant server and of the tier;
+             an open-loop overload at twice the tier's rate, whose books
+             close (offered == admitted + shed) with class 0 unshed.
+             Then `--config pong --actors 4 --set
+             serving.multi_tenant=true --set serving.default_class=0
+             --set serving.queue_slo_items=128 --set
+             remediation.mode=enforce --set obs.enabled=true
+             --total-env-frames 40000
+             --wall-clock-limit 90`, with a second tenant's open-loop
+             load in class 2 for 15 s: a clean end, the learner's graph
+             and the gather, the tenant's serve/<id>/ gauges in the
+             summary and the JSONL, a set_backpressure action in the
+             remediation record, gathered forwards in the driver
+16. tiers    `--config pong --set replay.capacity=16384 --set
+             replay.min_fill=8192 --set replay.cold_tier_capacity=16384
+             --set replay.cold_tier_disk_dir=<tmp> --set
+             replay.cold_tier_disk_capacity=262144 --total-env-frames
+             60000 --wall-clock-limit 150` (8 vector actors x 16 envs):
+             the door closure evicted == stored + dropped, evictions and
+             recalls, disk spills and promotions, the hot ring exactly
+             full with its host and device cursors equal, the evict and
+             add_at graphs replayed, the gather launched; one region
+             read by read_region through cold_pack and cold_unpack,
+             restaged into a fresh ring on the card bitwise; host ms per
+             swap and its split by part (the lock wait, the block's
+             copy, the evict dispatch, the region's fetch and sync, the
+             add_at dispatch, ColdStore.put), the compression ratio,
+             cold against ring bytes per
+             transition, frames/s against apex's
+17. the memory table (each preset's budget beside its measured peak and
              the card), the kernels line, the card line, and the
              contract's last line.
 
@@ -206,6 +244,44 @@ OBS_WALL_S = 90
 OBS_SIGNAL_AFTER_S = 30.0
 OBS_SETS: tuple[str, ...] = ()
 OBS_HOST_SETS: tuple[str, ...] = ("obs.enabled=true",)
+# serve: the tier alone (8 tenants of the pong net, priority classes
+# [0,0,1,1,2,2,2,2], max_batch 64, vector requests of 16), closed loop
+# for SERVE_LOOP_S per server, then an open-loop overload at twice the
+# tier's measured capacity for SERVE_OVERLOAD_S; then the pong driver
+# with the tier (4 local vector actors, a small SLO line, remediation
+# enforcing) and a second tenant's open-loop load of SERVE_FLOOD_ITEMS-
+# item requests in class 2 for SERVE_FLOOD_S, from SERVE_FLOOD_AT_S into
+# the run (two actor requests and one of its own fill a batch of 64, so
+# the driver's tier runs gathered forwards too)
+SERVE_CLASSES = (0, 0, 1, 1, 2, 2, 2, 2)
+SERVE_VECTOR = 16
+# a row against its tenant's plain forward, in bfloat16: the card's
+# error was 9.8e-4 and a row of another tenant differs by ~0.17 (the
+# phase prints both beside this limit)
+SERVE_TOL = 1e-2
+SERVE_LOOP_S = 4.0
+SERVE_OVERLOAD_S = 4.0
+SERVE_OVERLOAD_X = 2.0     # the open loop's rate over the measured one
+SERVE_ACTORS = 4
+SERVE_FRAMES = 40000
+SERVE_WALL_S = 90
+SERVE_SLO_ITEMS = 128
+SERVE_FLOOD_AT_S = 20.0
+SERVE_FLOOD_S = 15.0
+SERVE_FLOOD_ITEMS = 32
+SERVE_FLOOD_RATE = 1200.0  # requests per second
+SERVE_SETS: tuple[str, ...] = ()
+# tiers: the pong driver over a 16,384-transition ring with the RAM
+# cold tier (16,384 transitions) and the disk rung (262,144)
+TIERS_CAPACITY = 16384
+TIERS_FRAMES = 60000
+TIERS_WALL_S = 150
+TIERS_SETS: tuple[str, ...] = ()
+# frames/s of the driver phases, by phase (the tiers phase reads apex's)
+RATES: dict[str, float] = {}
+# the card's name and power limit (nvidia-smi), set by main and printed
+# beside the serve and tiers phases' numbers
+CARD = ""
 
 
 def log(msg: str) -> None:
@@ -872,6 +948,7 @@ def phase_apex(seed: int) -> dict:
     launches = {"gather_rows": fg.gather_rows.launches}
     left = [t.name for t in threading.enumerate()
             if t.ident not in threads_before]
+    RATES["apex"] = out["frames"] / wall
 
     driver = seen.pop("driver")
     peak_gb = note_memory("pong", driver.hbm_budget)
@@ -1951,6 +2028,536 @@ def phase_obs(seed: int) -> dict:
     return launches
 
 
+def serve_net(dev):
+    """The pong preset's dueling Nature CNN at full width (84x84x4, 18
+    actions, bfloat16 compute) and one params dict per tenant, each from
+    its own seed, on the card."""
+    from ape_x_dqn_tpu_torch.models import build_network, init_params
+    from ape_x_dqn_tpu_torch.runtime.family import server_apply_fn
+    from ape_x_dqn_tpu_torch.utils.rng import component_generator
+
+    cfg, spec = pong_setup(dev)
+    params = []
+    for seed in range(len(SERVE_CLASSES)):
+        net = init_params(build_network(cfg.network, spec),
+                          component_generator(seed, "net_init"))
+        params.append({k: v.detach().to(dev)
+                       for k, v in net.state_dict().items()})
+    apply = server_apply_fn("dqn", build_network(cfg.network, spec).to(dev))
+    return cfg, spec, apply, params
+
+
+def closed_loop(clients: list, x: np.ndarray, seconds: float) -> float:
+    """One thread per client, each querying SERVE_VECTOR-item requests
+    back to back for `seconds`: -> items served per second."""
+    served = [0] * len(clients)
+    stop = time.perf_counter() + seconds
+
+    def run(i):
+        while time.perf_counter() < stop:
+            clients[i].query_batch(x, SERVE_VECTOR)
+            served[i] += SERVE_VECTOR
+
+    threads = [threading.Thread(target=run, args=(i,))
+               for i in range(len(clients))]
+    t0 = time.perf_counter()
+    for t in threads:
+        t.start()
+    for t in threads:
+        t.join()
+    return sum(served) / (time.perf_counter() - t0)
+
+
+def phase_serve_tier(dev) -> dict:
+    """The serving tier alone, at the pong preset's width: eight tenants
+    of one family (classes SERVE_CLASSES), max_batch 64, vector
+    requests of 16. (1) One mixed batch of 64 rows through the gathered
+    forward, and one of 8 rows per tenant through the tier's
+    TenantClients, against each tenant's plain forward on its own rows
+    (bf16: SERVE_TOL, beside the least difference between two tenants
+    on a row). (2) Closed-loop forwards/s of the single-tenant server (one
+    policy, eight client threads) and of the tier (one thread per
+    tenant): a number, not a check. (3) An open-loop overload at twice
+    the tier's measured rate on a fresh tier: the books close (offered
+    == admitted + shed), class 0 sheds nothing; the top class's p99."""
+    from ape_x_dqn_tpu_torch.parallel.inference_server import (
+        BatchedInferenceServer, MultiPolicyInferenceServer,
+        _make_gather_apply)
+
+    t0 = time.perf_counter()
+    cfg, spec, apply, params = serve_net(dev)
+    n = len(params)
+    rng = np.random.default_rng(0)
+    x64 = rng.integers(0, 255, (64, *spec.obs_shape)).astype(np.uint8)
+    rows = rng.integers(0, n, 64)
+    stacked = {k: torch.stack([p[k] for p in params]) for k in params[0]}
+    with torch.inference_mode():
+        # every tenant's plain forward on all 64 rows, before any tier's
+        # dispatch thread runs: `apply` swaps one module's parameters
+        # while it runs, so it has one caller at a time
+        want = np.stack([apply(params[t], torch.from_numpy(x64).to(
+            dev)).float().cpu().numpy() for t in range(n)])
+        got = _make_gather_apply(apply)(
+            stacked, torch.from_numpy(rows).to(dev),
+            torch.from_numpy(x64).to(dev)).float().cpu().numpy()
+    # what a row mapped to the wrong tenant would show: the least, over
+    # rows and pairs of tenants, of the largest difference in a row
+    spread = min(float(np.abs(want[a] - want[b]).max(axis=1).min())
+                 for a in range(n) for b in range(n) if a != b)
+    check(spread > 10 * SERVE_TOL, f"serve: tenants differ by only "
+          f"{spread:.3g} on a row, too little for the {SERVE_TOL} limit")
+    err = float(np.abs(got - want[rows, np.arange(64)]).max())
+    check(err <= SERVE_TOL, f"serve: the gathered forward's rows != their "
+          f"tenants' plain forward: max_abs_err {err:.3g} > {SERVE_TOL}")
+    x = x64[:SERVE_VECTOR]
+    example = np.zeros(spec.obs_shape, np.uint8)
+    mb, dl = cfg.inference.max_batch, cfg.inference.deadline_ms
+
+    def tier_of(slo):
+        tier = MultiPolicyInferenceServer(
+            max_batch=mb, deadline_ms=dl, queue_slo_items=slo, device=dev,
+            priority_classes=3)
+        clients = [tier.register_policy(f"pong{i}", apply, params[i],
+                                        family="dqn",
+                                        priority=SERVE_CLASSES[i])
+                   for i in range(n)]
+        clients[0].warmup(example, extra_sizes=(SERVE_VECTOR,))
+        return tier, clients
+
+    # the tier's own path: one mixed batch, 8 rows from each tenant,
+    # through TenantClient.submit (the staging, padding rows, the
+    # stacked-param cache, the per-request slicing of the reply)
+    tier, clients = tier_of(1 << 20)
+    try:
+        gathered = tier.stats["gather_batches"]
+        per = 64 // n
+        tickets = [clients[i].submit(x64[per * i:per * (i + 1)], per)
+                   for i in range(n)]
+        tier_err = max(
+            float(np.abs(t.wait(60.0) - want[i, per * i:per * (i + 1)])
+                  .max()) for i, t in enumerate(tickets))
+        gathered = tier.stats["gather_batches"] - gathered
+    finally:
+        tier.stop()
+    check(tier_err <= SERVE_TOL, f"serve: the tier's replies != each "
+          f"tenant's plain forward: max_abs_err {tier_err:.3g} > "
+          f"{SERVE_TOL}")
+    check(gathered >= 1, "serve: the mixed batch ran no gathered forward")
+    err = max(err, tier_err)
+    single = BatchedInferenceServer(apply, params[0], max_batch=mb,
+                                    deadline_ms=dl, device=dev)
+    try:
+        single.warmup(example, extra_sizes=(SERVE_VECTOR,))
+        single_rate = closed_loop([single] * n, x, SERVE_LOOP_S)
+    finally:
+        single.stop()
+    tier, clients = tier_of(1 << 20)  # no shedding in the closed loop
+    try:
+        tier_rate = closed_loop(clients, x, SERVE_LOOP_S)
+        closed = tier.stats
+    finally:
+        tier.stop()
+    # the open-loop overload at twice the measured capacity
+    tier, clients = tier_of(cfg.serving.queue_slo_items)
+    try:
+        per_s = SERVE_OVERLOAD_X * tier_rate / SERVE_VECTOR
+        tickets = []
+        t_start = time.perf_counter()
+        i = 0
+        while time.perf_counter() - t_start < SERVE_OVERLOAD_S:
+            due = int((time.perf_counter() - t_start) * per_s)
+            while i < due:
+                tickets.append(clients[i % n].submit(x, SERVE_VECTOR))
+                i += 1
+            time.sleep(0.001)
+        for t in tickets:
+            t.event.wait(60.0)
+        s = tier.stats
+        top = [tier.tenant_stats(f"pong{j}") for j in range(n)
+               if SERVE_CLASSES[j] == 0]
+    finally:
+        tier.stop()
+    check(s["offered"] == len(tickets), f"serve: offered {s['offered']} "
+          f"!= {len(tickets)} submitted")
+    check(s["offered"] == s["admitted"] + s["shed"],
+          f"serve: the shed accounting does not close: {s}")
+    check(s["shed_by_class"][0] == 0, f"serve: class 0 shed: {s}")
+    check(s["shed"] > 0, f"serve: twice the capacity shed nothing: {s}")
+    top_p99 = max(t.get("p99_ms", 0.0) for t in top)
+    out = {"single_rate": single_rate, "tier_rate": tier_rate,
+           "ratio": tier_rate / single_rate, "max_abs_err": err,
+           "tenant_spread": spread,
+           "overload": s, "top_p99_ms": top_p99,
+           "closed_gather_batches": closed["gather_batches"]}
+    log(f"serve: tier alone, pong net at full width ({spec.obs_shape} "
+        f"uint8, 18 actions, {cfg.network.compute_dtype}), {n} tenants "
+        f"of one family, classes {list(SERVE_CLASSES)}, max_batch {mb}, "
+        f"vector {SERVE_VECTOR}: gathered forward vs each tenant's plain "
+        f"forward and the tier's replies to one mixed batch (8 x 8 rows, {gathered} gathered forward(s)) max_abs_err={err:.3g} (tol {SERVE_TOL}, tenants differ by >= {spread:.3g} on a row); closed loop "
+        f"forwards/s single-tenant {single_rate:.1f} vs tier "
+        f"{tier_rate:.1f} (ratio {tier_rate / single_rate:.4f}; tier "
+        f"batches {closed['batches']}, gathered {closed['gather_batches']}, "
+        f"avg_batch {closed['avg_batch']:.2f}); open loop at "
+        f"{SERVE_OVERLOAD_X}x capacity "
+        f"({per_s:.1f} requests/s for {SERVE_OVERLOAD_S} s): offered "
+        f"{s['offered']} = admitted {s['admitted']} + shed {s['shed']} "
+        f"(by class {s['shed_by_class']}), top class p99 "
+        f"{top_p99:.2f} ms; {time.perf_counter() - t0:.2f} s; card {CARD}")
+    return out
+
+
+def phase_serve_driver(seed: int) -> dict:
+    """The pong driver through the CLI with the serving tier
+    (`serving.multi_tenant=true`): 4 local vector actors of 16 envs in
+    class 0, a small SLO line (SERVE_SLO_ITEMS), `remediation.mode=
+    enforce`, obs on with a JSONL. Wrapped:
+    ApexDriver.__init__ keeps the driver, ApexDriver.run registers a
+    second tenant of the family in class 2 and starts its open-loop load
+    of SERVE_FLOOD_ITEMS-item requests (SERVE_FLOOD_RATE a second, for
+    SERVE_FLOOD_S from SERVE_FLOOD_AT_S), which sheds and holds the
+    queue at the SLO line, so the queue-SLO rule acts. Checks: a clean end, the learner's
+    graph and the gather, the tenant's serve/<id>/ gauges in the summary
+    and the JSONL, a set_backpressure action in the remediation record,
+    the tier's books. -> the launch counts of this run."""
+    from ape_x_dqn_tpu_torch.ops import frame_gather as fg
+    from ape_x_dqn_tpu_torch.runtime.driver import ApexDriver
+    from ape_x_dqn_tpu_torch.runtime.family import server_apply_fn
+
+    tmp = tempfile.mkdtemp(prefix="apex-chip-smoke-serve-")
+    jsonl = os.path.join(tmp, "run.jsonl")
+    seen: dict = {}
+    flood = {"submitted": 0, "shed": 0, "served": 0}
+    orig = (ApexDriver.__init__, ApexDriver.run)
+
+    def driver_init(self, *a, **kw):
+        orig[0](self, *a, **kw)
+        seen["driver"] = self
+
+    def driver_run(self, *a, **kw):
+        load = self.serving.register_policy(
+            "pong-load", server_apply_fn(self.family, self.net),
+            self.learner.publish_params(self.state), family=self.family,
+            priority=2)
+        example = np.zeros(self.spec.obs_shape, self.spec.obs_dtype)
+        load.warmup(example, extra_sizes=(self.cfg.actors.envs_per_actor,))
+        x = np.random.default_rng(seed).integers(
+            0, 255, (SERVE_FLOOD_ITEMS, *self.spec.obs_shape)
+        ).astype(np.uint8)
+        done = threading.Event()
+
+        def flood_loop():
+            if done.wait(SERVE_FLOOD_AT_S):
+                return
+            tickets, t_start, i = [], time.perf_counter(), 0
+            while not done.is_set():
+                el = time.perf_counter() - t_start
+                if el >= SERVE_FLOOD_S:
+                    break
+                while i < int(el * SERVE_FLOOD_RATE):
+                    tickets.append(load.submit(x, SERVE_FLOOD_ITEMS))
+                    i += 1
+                time.sleep(0.002)
+            for t in tickets:
+                t.event.wait(30.0)
+                if isinstance(t.result, Exception):
+                    flood["shed"] += 1
+                else:
+                    flood["served"] += 1
+            flood["submitted"] = len(tickets)
+
+        th = threading.Thread(target=flood_loop, name="serve-flood")
+        th.start()
+        try:
+            return orig[1](self, *a, **kw)
+        finally:
+            done.set()
+            th.join(timeout=60)
+
+    argv = ["--config", "pong", "--seed", str(seed), "--actors",
+            str(SERVE_ACTORS), "--set", "serving.multi_tenant=true",
+            "--set", "serving.default_class=0",
+            "--set", f"serving.queue_slo_items={SERVE_SLO_ITEMS}",
+            "--set", "serving.stats_every_s=1",
+            "--set", "remediation.mode=enforce",
+            "--set", "obs.enabled=true", "--metrics-file", jsonl,
+            "--total-env-frames", str(SERVE_FRAMES), "--wall-clock-limit",
+            str(SERVE_WALL_S), "--device", DEVICE]
+    for s_ in SERVE_SETS:
+        argv += ["--set", s_]
+    threads_before = {t.ident for t in threading.enumerate()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ApexDriver.__init__, ApexDriver.run = driver_init, driver_run
+    fg.gather_rows.launches = 0       # count the main path's run only
+    try:
+        with timed_adds() as adds:
+            out, wall = run_cli(argv)
+    finally:
+        ApexDriver.__init__, ApexDriver.run = orig
+    launches = {"gather_rows": fg.gather_rows.launches}
+    left = [t.name for t in threading.enumerate()
+            if t.ident not in threads_before]
+    driver = seen.pop("driver")
+    peak_gb = note_memory("serve", driver.hbm_budget)
+    RATES["serve"] = out["frames"] / wall
+    check(out["actor_errors"] == [] and out["loop_errors"] == [],
+          f"actor_errors {out['actor_errors']}, loop_errors "
+          f"{out['loop_errors']}")
+    check(not left, f"driver threads still running after the run: {left}")
+    check_graphed(driver, ("k", 4), gathers=2)
+    check(launches["gather_rows"] > 0, "gather_rows never launched")
+    tier = out.get("serving") or {}
+    pid = driver.cfg.env.id
+    gauges = [f"serve/{pid}/{k}" for k in ("offered", "admitted", "shed",
+                                           "queue_depth", "p50_ms",
+                                           "p99_ms")]
+    check(all(g in tier for g in gauges),
+          f"the summary lacks the tenant's gauges: {sorted(tier)}")
+    check(tier["offered"] == tier["admitted"] + tier["shed"]
+          and tier["shed_by_class"][0] == 0,
+          f"serve: the tier's books: {tier}")
+    last: dict = {}
+    with open(jsonl) as fh:
+        for line in fh:
+            last.update(json.loads(line))
+    check(all(f"gauge/{g}" in last for g in gauges),
+          f"the JSONL lacks the tenant's gauges: "
+          f"{sorted(k for k in last if k.startswith('gauge/serve'))}")
+    rem = out.get("remediation") or {}
+    acts = [r for r in rem.get("recent", [])
+            if "backpressure" in str(r[2])]
+    check(acts, f"no set_backpressure action in the remediation record: "
+          f"{json.dumps(rem)[:2000]}")
+    check(flood["submitted"] > 0 and flood["shed"] > 0,
+          f"the second tenant's load shed nothing: {flood}")
+    check(tier["gather_batches"] > 0, f"serve: the driver's tier ran no "
+          f"gathered forward: {tier}")
+    log(f"serve: driver `{' '.join(argv)}`: frames={out['frames']} "
+        f"frames/s={out['frames'] / wall:.1f} grad_steps="
+        f"{out['grad_steps']}; tier {json.dumps(tier)}; the second "
+        f"tenant's load {flood}; remediation set_backpressure actions "
+        f"{acts[:4]} (counts {rem.get('counts')}); ingest_dropped="
+        f"{out['ingest_dropped']}; {adds_summary(adds, out)}; "
+        f"launches={launches}; peak_mem_gb={peak_gb:.2f}; {wall:.2f} s; "
+        f"card {CARD}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    del driver
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+class _TimedLock:
+    """A driver's _state_lock with the wait to acquire it timed on the
+    threads that set `on.active` (the swap's); others pass through."""
+
+    def __init__(self, lock, on, waits: list):
+        self._lock, self._on, self._waits = lock, on, waits
+
+    def __enter__(self):
+        t0 = time.perf_counter()
+        self._lock.acquire()
+        if getattr(self._on, "active", False):
+            self._waits.append(time.perf_counter() - t0)
+        return self
+
+    def __exit__(self, *exc):
+        self._lock.release()
+        return False
+
+
+SWAP_PARTS = ("lock", "land", "evict", "fetch", "add_at", "put")
+
+
+def split_swap(driver, on) -> dict:
+    """Time the parts of each eviction swap of `driver` on the host
+    clock, by wrapping its instance's calls: the wait for _state_lock,
+    the block's host-to-device copy (land_add_at), the evict graph's
+    dispatch, the fetch of the region (its copies and the host sync,
+    which also waits for the learner's macro-step the ingest stream
+    waits on), the add_at graph's dispatch, ColdStore.put (the zlib
+    pack and the door). -> {part: [seconds per call]}."""
+    parts: dict = {k: [] for k in SWAP_PARTS}
+    driver._state_lock = _TimedLock(driver._state_lock, on, parts["lock"])
+
+    def timed(obj, name, part):
+        fn = getattr(obj, name)
+
+        def call(*a, **kw):
+            t0 = time.perf_counter()
+            out = fn(*a, **kw)
+            parts[part].append(time.perf_counter() - t0)
+            return out
+
+        setattr(obj, name, call)
+
+    timed(driver.learner, "land_add_at", "land")
+    timed(driver.learner, "evict_landed", "evict")
+    timed(driver, "_fetch_region", "fetch")
+    timed(driver.learner, "add_at_landed", "add_at")
+    timed(driver._cold, "put", "put")
+    return parts
+
+
+def phase_tiers(seed: int) -> dict:
+    """The pong driver through the CLI with the tiered cold replay, at
+    full width (Nature CNN, 84x84x4, batch 512, K=4). Cuts:
+    replay.capacity 16,384 (the ring fills early), min_fill 8,192, 8
+    vector actors x 16 envs, 60,000 frames, 150 s. Tier:
+    cold_tier_capacity 16,384 (the RAM store fills and displaces),
+    cold_tier_disk_capacity 262,144 in a temporary directory. Wrapped:
+    ApexDriver.__init__ keeps the driver and splits its swaps
+    (split_swap), ApexDriver._ship_staged_cold is timed per swap on the
+    host clock. Checks: the door closure, the
+    recalls and evictions, the disk rung's spills and promotions, the
+    hot ring exactly full with host and device cursors equal, the swap
+    graphs' replays, the gather; then one region read by read_region
+    through cold_pack and cold_unpack, restaged into a fresh ring on
+    the card, bitwise. -> the launch counts of this run."""
+    from ape_x_dqn_tpu_torch.ops import frame_gather as fg
+    from ape_x_dqn_tpu_torch.replay.frame_ring import FrameRingReplay
+    from ape_x_dqn_tpu_torch.replay.packing import (cold_pack, cold_plan,
+                                                    cold_unpack)
+    from ape_x_dqn_tpu_torch.runtime.driver import ApexDriver
+
+    tmp = tempfile.mkdtemp(prefix="apex-chip-smoke-tiers-")
+    seen: dict = {}
+    swaps: list[float] = []
+    on = threading.local()
+    orig = (ApexDriver.__init__, ApexDriver._ship_staged_cold)
+
+    def driver_init(self, *a, **kw):
+        orig[0](self, *a, **kw)
+        seen["driver"] = self
+        seen["parts"] = split_swap(self, on)
+
+    def ship_cold(self, views, g):
+        t0 = time.perf_counter()
+        on.active = True
+        try:
+            out = orig[1](self, views, g)
+        finally:
+            on.active = False
+        swaps.extend([(time.perf_counter() - t0) / g] * g)
+        return out
+
+    argv = ["--config", "pong", "--seed", str(seed),
+            "--set", f"replay.capacity={TIERS_CAPACITY}",
+            "--set", f"replay.min_fill={TIERS_CAPACITY // 2}",
+            "--set", f"replay.cold_tier_capacity={TIERS_CAPACITY}",
+            # the directory first: each --set validates the config
+            "--set", f"replay.cold_tier_disk_dir={os.path.join(tmp, 'disk')}",
+            "--set", f"replay.cold_tier_disk_capacity={16 * TIERS_CAPACITY}",
+            "--total-env-frames", str(TIERS_FRAMES), "--wall-clock-limit",
+            str(TIERS_WALL_S), "--device", DEVICE]
+    for s_ in TIERS_SETS:
+        argv += ["--set", s_]
+    threads_before = {t.ident for t in threading.enumerate()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ApexDriver.__init__, ApexDriver._ship_staged_cold = driver_init, ship_cold
+    fg.gather_rows.launches = 0       # count the main path's run only
+    try:
+        with timed_adds() as adds:
+            out, wall = run_cli(argv)
+    finally:
+        ApexDriver.__init__, ApexDriver._ship_staged_cold = orig
+    launches = {"gather_rows": fg.gather_rows.launches}
+    left = [t.name for t in threading.enumerate()
+            if t.ident not in threads_before]
+    driver = seen.pop("driver")
+    peak_gb = note_memory("tiers", driver.hbm_budget)
+    RATES["tiers"] = out["frames"] / wall
+    check(out["actor_errors"] == [] and out["loop_errors"] == [],
+          f"actor_errors {out['actor_errors']}, loop_errors "
+          f"{out['loop_errors']}")
+    check(not left, f"driver threads still running after the run: {left}")
+    check_graphed(driver, ("k", 4), gathers=2)
+    check(launches["gather_rows"] > 0, "gather_rows never launched")
+    ct = out.get("cold_tier") or {}
+    disk = ct.get("disk") or {}
+    check(ct.get("evicted", 0) > 0 and ct.get("recalled", 0) > 0,
+          f"tiers: no eviction or no recall: {ct}")
+    check(ct["evicted"] == ct["stored"] + ct["dropped"],
+          f"tiers: the door closure evicted == stored + dropped fails: "
+          f"{ct}")
+    check(disk.get("spilled", 0) > 0 and disk.get("promoted", 0) > 0
+          and disk.get("io_errors", 1) == 0,
+          f"tiers: the disk rung did not spill and promote: {disk}")
+    graphs = ct.get("swap_graph_replays", {})
+    check(graphs.get("evict", 0) > 0 and graphs.get("add_at", 0) > 0,
+          f"tiers: the swap graphs never replayed: {graphs}")
+    replay, rs = driver.replay, driver.state.replay
+    check(driver._replay_filled == driver.capacity == rs.size
+          and (rs.pos, rs.size) == (int(rs.pos_dev), int(rs.size_dev)),
+          f"tiers: the hot ring is not exactly full or its cursors "
+          f"disagree: filled {driver._replay_filled}, size {rs.size}, "
+          f"pos {rs.pos}, device {int(rs.pos_dev)}/{int(rs.size_dev)}, "
+          f"capacity {driver.capacity}")
+    # the pinned card check: read a region, pack, unpack, restage
+    chunk = driver._stage_chunk
+    with torch.no_grad():
+        start = replay.evict_plan(rs, chunk)
+        items, pri = replay.read_region(rs, start, chunk)
+        host = {k: v.cpu().numpy() for k, v in items.items()}
+        pri_h = pri.cpu().numpy()
+    plan = cold_plan(driver._item_spec, (replay.B,))
+    payload, raw = cold_pack(dict(host, priorities=pri_h), plan)
+    back = cold_unpack(payload, plan, chunk)
+    for k in host:
+        check(np.array_equal(back[k], host[k]), f"tiers: cold round trip "
+              f"changed {k}")
+    check(np.array_equal(back["priorities"], pri_h),
+          "tiers: cold round trip changed the priorities")
+    fresh = FrameRingReplay(chunk * replay.B, replay.B, replay.n,
+                            (replay.h, replay.w, replay.stack),
+                            alpha=replay.alpha, eps=replay.eps,
+                            device=rs.tree.device)
+    fst = fresh.init()
+    td = np.maximum(pri_h ** (1.0 / replay.alpha) - replay.eps, 0.0)
+    fresh.add(fst, {k: torch.from_numpy(np.array(v))
+                    for k, v in back.items() if k != "priorities"},
+              torch.from_numpy(td.astype(np.float32)))
+    got, _ = fresh.read_region(fst, torch.zeros((), dtype=torch.int64,
+                                                device=rs.tree.device),
+                               chunk)
+    for k in host:
+        check(np.array_equal(got[k].cpu().numpy(), host[k]),
+              f"tiers: the restaged region's {k} != the region read")
+    ring_bytes = (sum(v.numel() * v.element_size()
+                      for v in rs.storage.values()) / driver.capacity)
+    cold_bpt = ct["bytes"] / max(ct["transitions"], 1)
+    ms = np.asarray(swaps) * 1e3
+    parts = seen.pop("parts")
+    total = max(sum(swaps), 1e-9)
+    split = ", ".join(
+        f"{k} {np.median(v) * 1e3 if v else math.nan:.2f} "
+        f"({sum(v) / total:.1%})" for k, v in parts.items())
+    rest = 1.0 - sum(sum(v) for v in parts.values()) / total
+    apex_fps = RATES.get("apex", math.nan)
+    log(f"tiers: `{' '.join(argv)}`: frames={out['frames']} "
+        f"frames/s={out['frames'] / wall:.1f} (apex: {apex_fps:.1f}) "
+        f"grad_steps={out['grad_steps']}; swaps {len(ms)}, host ms per "
+        f"swap median {np.median(ms) if len(ms) else math.nan:.2f} p90 "
+        f"{np.percentile(ms, 90) if len(ms) else math.nan:.2f}, split "
+        f"by part as median ms per call (share of all swap host time): "
+        f"{split}, the rest {rest:.1%}; cold "
+        f"tier {json.dumps(ct)}; compression ratio "
+        f"{ct['compression_ratio']:.2f}; cold bytes per transition "
+        f"{cold_bpt:.1f} vs the ring's {ring_bytes:.1f} "
+        f"({cold_bpt / ring_bytes:.4f}); one region of {chunk} segments "
+        f"read by read_region, packed ({len(payload)} of {raw} B), "
+        f"unpacked and restaged into a fresh ring on the card bitwise; "
+        f"ingest_dropped={out['ingest_dropped']}; "
+        f"{adds_summary(adds, out)}; launches={launches}; "
+        f"peak_mem_gb={peak_gb:.2f}; {wall:.2f} s; card {CARD}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    del driver, replay, rs, fresh, fst, items, pri, got
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def memory_table() -> list[str]:
     """The HBM budget of each preset's run beside its measured peak and
     the card's memory; the transient the budget must cover (the peak
@@ -1958,7 +2565,8 @@ def memory_table() -> list[str]:
     gib = 1024 ** 3
     card = torch.cuda.get_device_properties(0).total_memory
     lines = [f"memory: card {card / gib:.2f} GiB; per run: budget GiB "
-             f"(replay + tree + model + headroom) vs measured peak GiB "
+             f"(replay + tree + model + headroom + the serving tier's "
+             f"gather) vs measured peak GiB "
              f"(torch.cuda.max_memory_allocated), transient = peak - "
              f"replay - tree - model"]
     for name, (budget, peak) in MEMORY.items():
@@ -1971,7 +2579,9 @@ def memory_table() -> list[str]:
             f"{budget.replay_storage / gib:.2f}, tree "
             f"{budget.replay_tree / gib:.3f}, model "
             f"{budget.model_state / gib:.3f}, headroom "
-            f"{budget.headroom / gib:.2f}) vs peak {peak / gib:.2f}; "
+            f"{budget.headroom / gib:.2f}, serving gather "
+            f"{budget.serving_transient / gib:.2f}) vs peak "
+            f"{peak / gib:.2f}; "
             f"transient {(peak - fixed) / gib:.2f}; "
             f"{'fits' if budget.total <= card else 'EXCEEDS the card'}; "
             f"{'covers' if budget.total >= peak else 'BELOW'} the peak")
@@ -1990,7 +2600,8 @@ def main() -> int:
         return 2
     t_start = time.perf_counter()
     dev = torch.device("cuda", 0)
-    card = card_line()
+    global CARD
+    card = CARD = card_line()
     log(f"device: {torch.cuda.get_device_name(0)}; nvidia-smi: {card}; "
         f"torch {torch.__version__}, CUDA {torch.version.cuda}")
 
@@ -2042,6 +2653,15 @@ def main() -> int:
     t0 = time.perf_counter()
     obs = phase_obs(args.seed)
     log(f"obs: {time.perf_counter() - t0:.2f} s")
+    # 15. the multi-tenant serving tier, alone and in the driver
+    t0 = time.perf_counter()
+    phase_serve_tier(dev)
+    serve = phase_serve_driver(args.seed)
+    log(f"serve: {time.perf_counter() - t0:.2f} s")
+    # 16. the tiered cold replay through the driver
+    t0 = time.perf_counter()
+    tiers = phase_tiers(args.seed)
+    log(f"tiers: {time.perf_counter() - t0:.2f} s")
     for line in memory_table():
         log(line)
 
@@ -2055,7 +2675,8 @@ def main() -> int:
         check(site["launches"] > 0, f"gather_rows never launched on the "
               f"{site['site']} path")
     for path, counts in (("apex", apex), ("remote", remote),
-                         ("resume", resume), ("obs", obs)):
+                         ("resume", resume), ("obs", obs),
+                         ("serve", serve), ("tiers", tiers)):
         check(counts["gather_rows"] > 0, f"gather_rows never launched on "
               f"the {path} path")
     top = sites[2]
@@ -2069,7 +2690,9 @@ def main() -> int:
                                  "pong-sp": flat["gather_rows"],
                                  "remote": remote["gather_rows"],
                                  "resume": resume["gather_rows"],
-                                 "obs": obs["gather_rows"]},
+                                 "obs": obs["gather_rows"],
+                                 "serve": serve["gather_rows"],
+                                 "tiers": tiers["gather_rows"]},
             "max_abs_err": max(s_["max_abs_err"] for s_ in sites),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": "bytes",

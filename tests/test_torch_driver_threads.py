@@ -204,17 +204,15 @@ def test_counters_survive_thread_contention():
 
 
 def test_driver_refuses_what_is_not_ported():
-    """The multi-GPU learner, the legacy staging path and the serving
-    tier raise, naming their ROADMAP item; the profiler capture and the
-    remediation plane (items 17 and 19) build."""
+    """The multi-GPU learner and the legacy staging path raise, naming
+    their ROADMAP item; the profiler capture and the remediation plane
+    (items 17 and 19) build."""
     base = _tiny_cfg()
     for cfg, item in (
             (base.replace(parallel=ParallelConfig(dp=2, tp=1)), 14),
             (base.replace(replay=ReplayConfig(
                 kind="prioritized", capacity=2048, ingest_zero_copy=False)),
-             11),
-            (base.replace(serving=type(base.serving)(multi_tenant=True)),
-             16)):
+             11)):
         with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
             ApexDriver(cfg, device="cpu")
     for cfg in (base.replace(profile_dir="prof"),
@@ -224,6 +222,54 @@ def test_driver_refuses_what_is_not_ported():
         assert (driver.remediation is not None) == (
             cfg.remediation.mode == "observe")
         assert (driver._profile is not None) == bool(cfg.profile_dir)
+
+
+def test_multi_tenant_driver_runs_to_a_clean_end(tmp_path):
+    """serving.multi_tenant: the driver's policy registers in the
+    serving tier under env.id and its actors query through the tenant's
+    client, to a clean end; with obs on, the JSONL carries the tenant's
+    serve/<id>/ gauges, and the remediation engine reads the tier's
+    queue sensors (a small SLO line, enforce mode; the actors ride class
+    0, which is never shed) and moves its backpressure and the
+    tenant's class through the driver's actuators."""
+    log_path = str(tmp_path / "run.jsonl")
+    base = _tiny_cfg(num_actors=2, envs_per_actor=4)
+    cfg = base.replace(
+        serving=type(base.serving)(multi_tenant=True, queue_slo_items=4,
+                                   default_class=0, stats_every_s=0.2),
+        remediation=type(base.remediation)(mode="enforce"),
+        obs=type(base.obs)(enabled=True),
+        inference=InferenceConfig(max_batch=16, deadline_ms=1.0))
+    driver = ApexDriver(cfg, metrics=Metrics(log_path=log_path),
+                        device="cpu")
+    assert driver.serving is not None
+    assert driver.server.policy_id == cfg.env.id
+    sensors = driver._remediation_sensors()
+    assert sensors["queue_slo"] == 4 and "queue_depth" in sensors
+    out = driver.run(total_env_frames=1600, max_grad_steps=40,
+                     wall_clock_limit_s=120)
+    assert out["actor_errors"] == [] and out["loop_errors"] == [], out
+    assert out["grad_steps"] >= 40 and out["frames"] >= 64, out
+    tier = out["serving"]
+    assert tier["tenants"] == 1 and tier["items"] > 0, tier
+    assert tier["offered"] == tier["admitted"] + tier["shed"], tier
+    assert tier["shed_by_class"][0] == 0
+    pid = cfg.env.id
+    assert tier[f"serve/{pid}/offered"] == tier["offered"] > 0, tier
+    assert tier[f"serve/{pid}/version"] > 0, tier
+    assert driver.server.params_version > 0  # publications reached it
+    with open(log_path) as fh:
+        keys = set().union(*(json.loads(line) for line in fh))
+    for name in ("offered", "admitted", "queue_depth", "p99_ms"):
+        assert f"gauge/serve/{pid}/{name}" in keys, sorted(keys)[:40]
+    assert out["remediation"]["mode"] == "enforce"
+    # the actuators reach the tier
+    engaged = driver.serving.backpressure_engaged
+    assert driver._remediation_backpressure(not engaged) is True
+    assert driver.serving.backpressure_engaged is (not engaged)
+    assert driver._remediation_set_priority(cfg.env.id, 2) is True
+    assert driver.server.priority == 2
+    assert driver._remediation_set_priority("another-tenant", 1) is False
 
 
 # -- the CLI's default mode ------------------------------------------------

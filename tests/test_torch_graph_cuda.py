@@ -24,6 +24,8 @@ run (the default scatter keeps either, unordered; ROADMAP Queue C). A
 leaf that straddles a stratum boundary can be drawn by both strata
 however full the replay is."""
 
+import gc
+
 import numpy as np
 import pytest
 import torch
@@ -61,6 +63,11 @@ def cuda_device():
     yield torch.device("cuda")
     torch.backends.cudnn.deterministic = old[0]
     torch.use_deterministic_algorithms(old[1], warn_only=old[2])
+    # a learner and its graphs form a reference cycle: free this test's
+    # graphs now, not at a collection that may fall inside a later
+    # test's capture (destroying a graph there invalidates the capture)
+    gc.collect()
+    torch.cuda.synchronize()
 
 
 def _net(module, seed="net_init"):
@@ -401,3 +408,90 @@ def test_an_add_capture_that_fails_raises(cuda_device):
     with pytest.raises(RuntimeError):
         learner.add_landed(state, 1, learner.land_add(1, views(),
                                                       (chunk,)))
+
+
+# -- the cold tier's eviction swap ------------------------------------------
+
+
+def _swaps(layout: str, dev, capture: bool, n: int = 6):
+    """Fill the replay past a wrap with adds, then `n` eviction swaps
+    as the driver runs them (evict, region to the host, directed add at
+    the device start). -> (learner, the host cursor, the replay's
+    tensors, the regions and starts read out)."""
+    replay, rs, chunk, block = _add_replay(layout, dev)
+    learner = DQNLearner(replay, LearnerConfig())
+    learner.capture = capture
+    state = type("S", (), {"replay": rs})()
+    rng = np.random.default_rng(17)
+
+    def pinned(items):
+        return {k: torch.from_numpy(v).pin_memory() for k, v in items.items()}
+
+    cursor_units = getattr(replay, "S", replay.capacity)
+    wrapped = False
+    for _ in range(4):
+        before = rs.pos
+        learner.add_landed(state, 1, learner.land_add(
+            1, pinned(block((chunk,), rng)), (chunk,)))
+        wrapped |= before + chunk > cursor_units
+    assert wrapped
+    regions = []
+    for _ in range(n):
+        inputs = learner.land_add_at(pinned(block((chunk,), rng)),
+                                     (chunk,))
+        start, items, pri = learner.evict_landed(state, chunk)
+        host = {k: v.cpu() for k, v in items.items()}
+        host.update(priorities=pri.cpu(), start=start.cpu())
+        learner.add_at_landed(state, inputs, start, int(host["start"]))
+        assert (rs.pos, rs.size) == (int(rs.pos_dev), int(rs.size_dev))
+        regions.append(host)
+    torch.cuda.synchronize()
+    snap = {f"storage/{k}": v.clone() for k, v in rs.storage.items()}
+    snap.update(tree=rs.tree.clone(), pos_dev=rs.pos_dev.clone(),
+                size_dev=rs.size_dev.clone())
+    return learner, (rs.pos, rs.size), snap, regions
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["frame_ring", "flat"])
+def test_swap_graphs_match_the_eager_swap(cuda_device, layout):
+    """The evict graph (plan and read) and the add_at graph (the
+    directed add reading the start on the device), after a fill that
+    wraps and six swaps: the regions read out, their starts, the host
+    cursor and the replay's storage, tree and device cursor are
+    bitwise the eager bodies'."""
+    gl, gcur, gsnap, greg = _swaps(layout, cuda_device, True)
+    el, ecur, esnap, ereg = _swaps(layout, cuda_device, False)
+    assert gcur == ecur
+    for name in gsnap:
+        assert torch.equal(gsnap[name], esnap[name]), f"{layout}: {name}"
+    for i, (g, e) in enumerate(zip(greg, ereg)):
+        for k in e:
+            assert torch.equal(g[k], e[k]), f"{layout}: swap {i} {k}"
+    swaps = gl.swap_graphs()
+    assert sorted(swaps) == ["add_at", "evict"]
+    # a warm-up, a capture (and its replay), then replays
+    assert all(s.captured and s.replays == 5 for s in swaps.values())
+    assert not any(s.captured for s in el.swap_graphs().values())
+
+
+@pytest.mark.cuda
+def test_a_swap_capture_that_fails_raises(cuda_device):
+    """An evict body that synchronises with the host cannot be captured:
+    the capturing call raises, with no eager fallback."""
+    replay, rs, chunk, block = _add_replay("flat", cuda_device)
+
+    class Syncing(DQNLearner):
+        def _evict_body(self, state, block):
+            out = super()._evict_body(state, block)
+            int(out[0])
+            return out
+
+    learner = Syncing(replay, LearnerConfig())
+    state = type("S", (), {"replay": rs})()
+    learner.add_landed(state, 1, learner.land_add(1, {
+        k: torch.from_numpy(v) for k, v in
+        block((chunk,), np.random.default_rng(0)).items()}, (chunk,)))
+    learner.evict_landed(state, chunk)               # the eager warm-up
+    with pytest.raises(RuntimeError):
+        learner.evict_landed(state, chunk)           # the capture

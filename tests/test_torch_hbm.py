@@ -70,3 +70,23 @@ def test_the_driver_checks_before_it_allocates(monkeypatch):
                             *a, **{**kw, "hbm_bytes": GB80}))
     with pytest.raises(ValueError, match="needs"):
         driver_mod.ApexDriver(_pong(1 << 24), device="cpu")
+
+
+def test_serving_gather_is_priced_apart():
+    """With the serving tier coalescing, the budget adds the gathered
+    forward's params: the largest bucket (max_batch 64 for pong) x one
+    tenant's float32 params; nothing without the tier or without
+    coalescing, so every preset's default budget is unchanged."""
+    pong = tcfgs.get_config("pong")
+    params = 1_686_566
+    assert thbm.serving_transient_bytes(pong, params) == 0
+    tier = pong.replace(serving=dataclasses.replace(
+        pong.serving, multi_tenant=True))
+    assert thbm.serving_transient_bytes(tier, params) == 64 * params * 4
+    budget = thbm.run_budget(tier, (84, 84, 4), np.uint8, params)
+    plain = thbm.run_budget(pong, (84, 84, 4), np.uint8, params)
+    assert budget.total - plain.total == 64 * params * 4
+    assert "serving gather" in budget.table()
+    off = tier.replace(serving=dataclasses.replace(tier.serving,
+                                                   coalesce=False))
+    assert thbm.serving_transient_bytes(off, params) == 0

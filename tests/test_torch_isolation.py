@@ -5,7 +5,8 @@ configs.py, of the Atari score table and of the native framing codec
 (cpp/framing.cpp) must not drift from the originals, nor its copies of
 the host-only observability and operations modules (obs/registry.py,
 obs/trace.py, obs/fleet.py, obs/blackbox.py, obs/report.py,
-obs/postmortem.py, runtime/remediation.py): their code, docstrings
+obs/postmortem.py, runtime/remediation.py) and of the cold tier's host
+stores (replay/cold_store.py, replay/disk_store.py): their code, docstrings
 aside, is the original's modulo the package name and the stated lines
 that differ on purpose (`ON_PURPOSE`)."""
 
@@ -86,6 +87,9 @@ def test_main_path_import_loads_no_jax():
         "import ape_x_dqn_tpu_torch.obs.report\n"
         "import ape_x_dqn_tpu_torch.obs.postmortem\n"
         "import ape_x_dqn_tpu_torch.runtime.remediation\n"
+        "import ape_x_dqn_tpu_torch.replay.cold_store\n"
+        "import ape_x_dqn_tpu_torch.replay.disk_store\n"
+        "import ape_x_dqn_tpu_torch.parallel.inference_server\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
         "assert not bad, bad\n" % (str(ROOT), FORBIDDEN))
     env = {"PATH": "/usr/bin:/bin", "PYTHONNOUSERSITE": "1"}
@@ -135,6 +139,9 @@ ON_PURPOSE = {
          "        if sys.excepthook == self._excepthook:\n"),),
     "obs/postmortem.py": (),
     "runtime/remediation.py": (),
+    # the cold tier's host stores: import paths only (the rename)
+    "replay/cold_store.py": (),
+    "replay/disk_store.py": (),
     "obs/report.py": (
         ('''    "jit_compile_ms": {"kind": "ctr"},
 ''', '''    "jit_compile_ms": {"kind": "ctr"},

@@ -289,15 +289,37 @@ def test_param_probe_does_not_end_learner_boot_grace():
 
 
 def test_actor_host_refuses_what_is_not_ported():
-    """The serving tier waits for its ROADMAP item; obs.enabled is
-    ported and gets past the refusals (here to the wait for a learner
-    that is not there)."""
+    """The serving tier is ported: an actor host with
+    serving.multi_tenant (its policy in a tier of its own, its hellos
+    tagged with the tenant) feeds a listening learner, which counts the
+    host as a serve peer while it is connected and trains on its
+    frames. obs.enabled gets past the refusals too (here to the wait
+    for a learner that is not there)."""
     from ape_x_dqn_tpu_torch.runtime.actor_host import run_actor_host
 
-    cfg = get_config("cartpole_smoke")
-    with pytest.raises(NotImplementedError, match="item 16"):
-        run_actor_host(cfg.replace(serving=type(cfg.serving)(
-            multi_tenant=True)), "127.0.0.1", 1, device="cpu")
+    cfg = _learner_cfg(num_local_actors=0)
+    server = SocketIngestServer("127.0.0.1", 0)
+    driver = ApexDriver(cfg, transport=server, device="cpu")
+    proc = _spawn_host("cartpole_smoke", server.port, 400,
+                       sets=_CARTPOLE_SETS + ("serving.multi_tenant=true",))
+    peers: list = []
+    try:
+        deadline = time.monotonic() + 60
+        while not peers and proc.poll() is None \
+                and time.monotonic() < deadline:
+            peers = list(server.serve_peers.items())
+            time.sleep(0.05)
+        out = driver.run(total_env_frames=400, max_grad_steps=10**9,
+                         wall_clock_limit_s=120)
+        host = _host_summary(proc, 120)
+        assert host["frames"] == 400 and host["last_param_version"] >= 0
+        assert peers == [(cfg.env.id, cfg.serving.default_class)], peers
+        assert out["loop_errors"] == [], out["loop_errors"]
+        assert out["frames_by_actor"].get(1, 0) > 0, out["frames_by_actor"]
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+        server.stop()
     with pytest.raises(TimeoutError, match="never published"):
         run_actor_host(cfg.replace(obs=type(cfg.obs)(enabled=True)),
                        "127.0.0.1", 1, device="cpu", wait_for_params_s=0.5)
