@@ -15,6 +15,10 @@ like ``MLPQNet``):
   ``hi hf hg ho`` [H, H] with bias) are concatenated in gate order
   i, f, g, o into ``weight_ih`` [4H, F], ``weight_hh`` [4H, H] and
   ``bias_hh`` [4H].
+
+`flax_shapes` goes the other way for names and shapes only: the flax
+path and shape of every parameter a module's state_dict converts from
+(parallel/sharding.py keys its specs by them).
 """
 
 from __future__ import annotations
@@ -113,3 +117,54 @@ def from_flax(params: Any) -> dict[str, torch.Tensor]:
         _linear(sd, f"hidden.{i}", p[name])
     _head(sd, p, dense[-1] if dense else "")
     return sd
+
+
+def _flax_layer(name: str, lstm: bool, n_hidden: int) -> str:
+    """The flax path of a converted Linear/Conv module name."""
+    parts = name.split(".")
+    if parts[0] == "torso" and len(parts) > 1:
+        if parts[1] == "convs":
+            return f"torso/Conv_{parts[2]}"
+        return "torso/torso_out"
+    if parts[0] == "head":
+        if len(parts) == 1:
+            return "head"
+        return (f"head/{parts[1]}" if lstm
+                else f"DuelingHead_0/{parts[1]}")
+    if parts[0] == "hidden":
+        return f"Dense_{parts[1]}"
+    if parts[0] == "out":
+        return f"Dense_{n_hidden}"
+    return parts[0]                       # the LSTM's one-dense torso
+
+
+def flax_shapes(module) -> dict[str, tuple[int, ...]]:
+    """{flax path ("torso/Conv_0/kernel", without the "params"
+    collection): flax shape} of every parameter `from_flax` maps onto
+    `module`'s state_dict, in the flax layout (HWIO conv kernels,
+    [in, out] dense kernels, per-gate LSTM kernels)."""
+    sd = module.state_dict()
+    lstm = "lstm.weight_ih" in sd
+    n_hidden = len({k.split(".")[1] for k in sd if k.startswith("hidden.")})
+    out: dict[str, tuple[int, ...]] = {}
+    for key, v in sd.items():
+        shape = tuple(v.shape)
+        if key.startswith("lstm."):
+            hidden = shape[0] // 4
+            for g in "ifgo":
+                if key == "lstm.weight_ih":
+                    out[f"lstm/i{g}/kernel"] = (shape[1], hidden)
+                elif key == "lstm.weight_hh":
+                    out[f"lstm/h{g}/kernel"] = (shape[1], hidden)
+                else:
+                    out[f"lstm/h{g}/bias"] = (hidden,)
+            continue
+        name, leaf = key.rsplit(".", 1)
+        path = _flax_layer(name, lstm, n_hidden)
+        if leaf == "bias":
+            out[f"{path}/bias"] = shape
+        elif len(shape) == 4:             # [O, I, kh, kw] -> HWIO
+            out[f"{path}/kernel"] = (shape[2], shape[3], shape[1], shape[0])
+        else:                             # [out, in] -> [in, out]
+            out[f"{path}/kernel"] = (shape[1], shape[0])
+    return out

@@ -121,6 +121,35 @@ def replay_health(replay, rs, idx: torch.Tensor,
     return out
 
 
+def replay_health_sharded(replay, rs, idx: torch.Tensor,
+                          pri_then: torch.Tensor | None) -> dict:
+    """`replay_health` for the dist learner's stacked shard states
+    (`replay` is the per-shard replay; `idx` is [dp, n]): the ages from
+    each shard's own cursor, every reduction over all shards (the
+    original's GSPMD psum), the top leaf's share of the global mass."""
+    cap = int(replay.capacity)
+    cursor = replay.cursor_transitions(rs)                  # [dp]
+    age = torch.remainder(cursor[:, None] - 1 - idx, cap).float()
+    ages = percentiles(age.reshape(-1), (50.0, 90.0))
+    out = {"sample_age_p50": ages[0], "sample_age_p90": ages[1]}
+    zero = torch.zeros((), device=idx.device)
+    if not getattr(replay, "has_priorities", True):
+        out["prio_staleness_frac"] = zero
+        out["priority_top_frac"] = zero
+        return out
+    if pri_then is None:
+        out["prio_staleness_frac"] = zero
+    else:
+        then = pri_then.float()
+        now = replay.leaf_priorities(rs, idx)
+        out["prio_staleness_frac"] = (now - then).abs().mean() \
+            / torch.clamp(then.mean(), min=1e-12)
+    leaves = rs.tree[:, cap:]
+    mass = rs.tree[:, 1].sum()
+    out["priority_top_frac"] = leaves.max() / torch.clamp(mass, min=1e-12)
+    return out
+
+
 # -- host-side publication -------------------------------------------------
 
 def publish_learn(obs, vals: dict, tenant: str = "") -> None:

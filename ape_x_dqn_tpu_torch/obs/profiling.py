@@ -31,8 +31,9 @@ means:
   `perf_degradation` event when a window falls below a fraction of its
   baseline.
 
-The original's `publish_multichip` (the dp-scaling gauges) waits for
-the multi-GPU learner.
+- `publish_multichip` — a copy: the dp-scaling gauges (the per-shard
+  replay fill bounds; the dp-scaling efficiency where a caller measured
+  it).
 """
 
 from __future__ import annotations
@@ -188,8 +189,8 @@ class CaptureTelemetry:
 # -- device-time attribution ----------------------------------------------
 
 # the observed stage vocabulary; every member has literal gauge
-# emission sites in _publish_stage below. "train_dist" waits for the
-# multi-GPU learner; the rest as in the original
+# emission sites in _publish_stage below, as in the original
+# ("train_dist" is the dp-sharded learner's dispatch)
 STAGES = ("sample_k", "learn_k", "train", "train_dist", "ingest")
 
 
@@ -331,6 +332,29 @@ def _publish_stage(obs, stage: str, mfu: float, bw_frac: float,
 
 
 # -- perf-regression engine ------------------------------------------------
+
+
+def publish_multichip(obs, efficiency: float | None = None,
+                      fill_min: float | None = None,
+                      fill_max: float | None = None) -> None:
+    """Literal gauge emissions for the dp-scaling plane:
+
+    - dp_scaling_efficiency: grad-steps/s at dp normalized by dp x the
+      dp=1 rate — 1.0 is linear scaling. Published only where a dp=1
+      baseline was measured; live driver runs carry the fill gauges.
+    - replay_shard_fill_min / _max: bounds of per-shard replay
+      occupancy fractions. Lockstep ingest keeps these equal; a gap
+      means shards are filling unevenly and the stratified sampler is
+      over-sampling (and down-weighting) the starved shards.
+
+    None skips a gauge — callers publish what they actually measured.
+    """
+    if efficiency is not None:
+        obs.gauge("dp_scaling_efficiency", efficiency)
+    if fill_min is not None:
+        obs.gauge("replay_shard_fill_min", fill_min)
+    if fill_max is not None:
+        obs.gauge("replay_shard_fill_max", fill_max)
 
 
 class PerfMonitor:

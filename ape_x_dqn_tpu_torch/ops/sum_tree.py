@@ -16,6 +16,13 @@ two so the descent depth is fixed.
   log2(capacity) batched gathers. It reads nothing from the host when
   `size` is a device tensor and `noise` is given, so a captured CUDA
   graph can replay it (runtime/step_graph.py).
+- Both also take `dp` stacked trees ``[dp, 2*capacity]`` (the dp-sharded
+  replay, parallel/dist_learner.py): `sample` then takes noise
+  ``[dp, batch]`` and size ``[dp]`` and returns ``[dp, batch]``, one
+  descent for every shard with `gather` along dim 1; `update` takes
+  ``[dp, n]`` indices and priorities. Each shard's numbers are those of
+  the 1-D form on that shard's tree, which the original computes as a
+  ``jax.vmap`` of it.
 """
 
 from __future__ import annotations
@@ -37,7 +44,9 @@ def capacity_of(tree: torch.Tensor) -> int:
 def update(tree: torch.Tensor, leaf_idx: torch.Tensor,
            priorities: torch.Tensor) -> torch.Tensor:
     """Set priorities at leaf_idx ([B] int) and repair ancestor sums,
-    in place. Returns `tree`."""
+    in place. Returns `tree`. Stacked trees: see `_update_sharded`."""
+    if tree.dim() == 2:
+        return _update_sharded(tree, leaf_idx, priorities)
     cap = capacity_of(tree)
     depth = cap.bit_length() - 1  # log2(cap)
     node = leaf_idx.long() + cap
@@ -68,7 +77,11 @@ def sample(tree: torch.Tensor, batch: int,
     landing spot into the filled region, and probs are re-gathered at
     the clamped leaf so IS weights always describe the leaf actually
     returned.
+
+    Stacked trees ``[dp, 2*capacity]``: see `_sample_sharded`.
     """
+    if tree.dim() == 2:
+        return _sample_sharded(tree, batch, size, noise, generator)
     cap = capacity_of(tree)
     depth = cap.bit_length() - 1
     tot = tree[1]
@@ -87,4 +100,57 @@ def sample(tree: torch.Tensor, batch: int,
         size = torch.as_tensor(size, device=tree.device)
         leaf = torch.minimum(leaf, torch.clamp(size, min=1) - 1)
     probs = tree[cap + leaf] / torch.clamp(tot, min=1e-12)
+    return leaf, probs
+
+
+def _update_sharded(tree: torch.Tensor, leaf_idx: torch.Tensor,
+                    priorities: torch.Tensor) -> torch.Tensor:
+    """`update` on dp stacked trees [dp, 2*cap], in place: leaf_idx and
+    priorities [dp, n], shard d's indices into shard d's tree. The trees
+    are one flat view, each shard's nodes offset by its row."""
+    dp, width = tree.shape
+    cap = width // 2
+    depth = cap.bit_length() - 1
+    flat = tree.view(-1)
+    base = (torch.arange(dp, device=tree.device) * width)[:, None]
+    node = leaf_idx.long() + cap
+    flat[(base + node).reshape(-1)] = priorities.reshape(-1).to(
+        torch.float32)
+    for _ in range(depth):
+        node = node >> 1
+        flat[(base + node).reshape(-1)] = (
+            flat[(base + 2 * node).reshape(-1)]
+            + flat[(base + 2 * node + 1).reshape(-1)])
+    return tree
+
+
+def _sample_sharded(tree: torch.Tensor, batch: int,
+                    size: torch.Tensor | None,
+                    noise: torch.Tensor | None,
+                    generator: torch.Generator | None
+                    ) -> tuple[torch.Tensor, torch.Tensor]:
+    """`sample` on dp stacked trees [dp, 2*cap]: `batch` strata per
+    shard from noise [dp, batch], leaves clamped per shard by size [dp].
+    -> (leaf_idx [dp, batch] int64, probs [dp, batch] = p_i / shard
+    total)."""
+    dp, width = tree.shape
+    cap = width // 2
+    depth = cap.bit_length() - 1
+    tot = tree[:, 1:2]
+    if noise is None:
+        noise = torch.rand((dp, batch), generator=generator,
+                           device=tree.device)
+    u = (torch.arange(batch, dtype=torch.float32, device=tree.device)
+         + noise.to(torch.float32)) / batch * tot
+    idx = torch.ones((dp, batch), dtype=torch.long, device=tree.device)
+    for _ in range(depth):
+        left = tree.gather(1, 2 * idx)
+        go_right = u >= left
+        u = torch.where(go_right, u - left, u)
+        idx = 2 * idx + go_right.long()
+    leaf = idx - cap
+    if size is not None:
+        size = torch.as_tensor(size, device=tree.device).reshape(dp, 1)
+        leaf = torch.minimum(leaf, torch.clamp(size, min=1) - 1)
+    probs = tree.gather(1, cap + leaf) / torch.clamp(tot, min=1e-12)
     return leaf, probs

@@ -45,8 +45,12 @@ exact `BatchedInferenceServer` surface. The device parts follow
 `BatchedInferenceServer`: pinned staging per (leaf, bucket), one
 non-blocking copy in, one device-to-host copy out.
 
-The mesh-sharded mode of both servers waits for the multi-GPU slice
-(ROADMAP Queue A item 14).
+Mesh-sharded mode (both servers): pass a parallel/mesh.py `Mesh` and
+buckets round up to a multiple of the mesh size, so every shard of a
+batch gets identical work, as in the original. The port's meshes hold
+one card (repeated), so the forward runs whole on that card; the split
+of a batch over distinct cards waits for per-card placement (ROADMAP
+Queue A item 14).
 """
 
 from __future__ import annotations
@@ -98,10 +102,12 @@ class BatchedInferenceServer:
                  device: str | torch.device = "cuda"):
         """apply_fn(params, batched inputs) -> batched outputs (tensors,
         or a dict of them). device: where the forward runs (a CUDA
-        request without a card raises). obs: the observability facade
-        (NULL_OBS when omitted)."""
-        _refuse_mesh(mesh)
-        self.device = resolve_device(device)
+        request without a card raises; a mesh's own card when `mesh` is
+        given). obs: the observability facade (NULL_OBS when
+        omitted)."""
+        self.device = resolve_device(mesh.device if mesh is not None
+                                     else device)
+        self._min_bucket = mesh.size if mesh is not None else 1
         self._batcher = _DeviceBatcher(self.device)
         self._warm: set[int] = set()  # warmed buckets (before traffic)
         self._apply = apply_fn
@@ -261,8 +267,9 @@ class BatchedInferenceServer:
                     r.event.set()
 
     def _bucket(self, n: int) -> int:
-        """Padded batch size: the next power of two."""
-        return next_pow2(max(n, 1))
+        """Padded batch size: the next power of two, rounded up to a
+        multiple of the mesh size in sharded mode."""
+        return _mesh_bucket(n, self._min_bucket)
 
     def _forward(self, stacked) -> Any:
         """One forward on the current params -> numpy outputs (one
@@ -305,12 +312,13 @@ class BatchedInferenceServer:
         self._obs.on_server_batch(n, version, self._q.qsize())
 
 
-def _refuse_mesh(mesh: Any) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a mesh-sharded inference server is not ported to the "
-            "PyTorch package yet: it waits for the multi-GPU slice "
-            "(ROADMAP Queue A item 14)")
+def _mesh_bucket(n: int, min_bucket: int) -> int:
+    """The next power of two of n, rounded up to a multiple of
+    `min_bucket` (the mesh size; 1 without a mesh)."""
+    b = next_pow2(max(n, 1))
+    if b % min_bucket:
+        b = -(-b // min_bucket) * min_bucket
+    return b
 
 
 class _DeviceBatcher:
@@ -601,8 +609,9 @@ class MultiPolicyInferenceServer:
         mixed batch runs one plain forward per tenant). device: where
         the forwards run (a CUDA request without a card raises)."""
         assert priority_classes >= 1
-        _refuse_mesh(mesh)
-        self.device = resolve_device(device)
+        self.device = resolve_device(mesh.device if mesh is not None
+                                     else device)
+        self._min_bucket = mesh.size if mesh is not None else 1
         self._batcher = _DeviceBatcher(self.device)  # dispatch thread
         self._classes = int(priority_classes)
         self._max_batch = max_batch
@@ -936,8 +945,9 @@ class MultiPolicyInferenceServer:
         return expired
 
     def _bucket(self, n: int) -> int:
-        """Padded batch size: the next power of two."""
-        return next_pow2(max(n, 1))
+        """Padded batch size: the next power of two, rounded up to a
+        multiple of the mesh size in sharded mode."""
+        return _mesh_bucket(n, self._min_bucket)
 
     def _stacked_locked(self, fam: _Family) -> dict:
         """(Re)build the family's stacked params if a tenant registered

@@ -20,8 +20,13 @@ sampled, and get IS weight 0 if a clamp-landed draw hits one.
 
 Writes are IN PLACE on the state (the JAX version returns new arrays).
 The cold tier's hooks (`evict_plan`, `read_region`, `add_at`) work in
-whole segments, the unit a transition's frames alias within; the
-lockstep forms wait for the multi-GPU slice.
+whole segments, the unit a transition's frames alias within. Every
+method also takes the dp-sharded state (replay/prioritized.py:
+`ShardedReplayState`, from `init_sharded`): frames [dp, S*F, row],
+fields [dp, capacity]; the sample path gathers each side's stacks for
+all shards in one launch over the flat view [dp*S*F, row], since a
+transition d*capacity + i of the flat fields sits in flat segment
+d*S + i // B, whose frame rows start at (d*S + i // B) * F.
 
 The actor side (`FrameSegmentBuilder`, `frame_segment_spec`) cuts each
 env's transition stream into the segments this replay stores; it is
@@ -30,6 +35,7 @@ host numpy, the original's code line for line.
 
 from __future__ import annotations
 
+from types import SimpleNamespace
 from typing import Any
 
 import numpy as np
@@ -41,11 +47,16 @@ from ape_x_dqn_tpu_torch.ops.frame_gather import gather_rows
 from ape_x_dqn_tpu_torch.replay.packing import (ItemSpec, frame_mode,
                                                 pad128, ring_write_start,
                                                 torch_dtype)
+from ape_x_dqn_tpu_torch.replay.packing import shard_rows
 from ape_x_dqn_tpu_torch.replay.prioritized import (PrioritizedReplay,
-                                                    ReplayState, min_mass_window,
+                                                    ReplayState,
+                                                    ShardedReplayState,
+                                                    flat_index,
+                                                    min_mass_window,
                                                     ring_cursor,
                                                     ring_cursor_at,
                                                     ring_cursor_dev,
+                                                    sharded,
                                                     write_rows_at)
 
 FIELDS = ("action", "reward", "discount", "next_off")
@@ -200,23 +211,34 @@ class FrameRingReplay(PrioritizedReplay):
 
     # -- state construction ------------------------------------------------
 
-    def init(self) -> ReplayState:
+    def _storage(self, lead: tuple = ()) -> dict[str, torch.Tensor]:
         dev = self.device
-        storage = {
-            "frames": torch.zeros((self.S * self.F, self.frame_row),
-                                  dtype=torch.uint8, device=dev),
-            "action": torch.zeros(self.capacity, dtype=torch.int32,
-                                  device=dev),
-            "reward": torch.zeros(self.capacity, dtype=torch.float32,
-                                  device=dev),
-            "discount": torch.zeros(self.capacity, dtype=torch.float32,
-                                    device=dev),
-            "next_off": torch.zeros(self.capacity, dtype=torch.int32,
-                                    device=dev),
-        }
-        return ReplayState(storage=storage,
-                           tree=sum_tree.init(self.capacity, dev),
+        fields = {"action": torch.int32, "reward": torch.float32,
+                  "discount": torch.float32, "next_off": torch.int32}
+        storage = {"frames": torch.zeros(
+            (*lead, self.S * self.F, self.frame_row), dtype=torch.uint8,
+            device=dev)}
+        for k, dtype in fields.items():
+            storage[k] = torch.zeros((*lead, self.capacity), dtype=dtype,
+                                     device=dev)
+        return storage
+
+    def init(self) -> ReplayState:
+        return ReplayState(storage=self._storage(),
+                           tree=sum_tree.init(self.capacity, self.device),
                            pos=0, size=0)
+
+    def init_sharded(self, dp: int, item_spec: Any = None
+                     ) -> ShardedReplayState:
+        """dp empty rings of `capacity` transitions each, stacked (the
+        item spec is fixed by the ring's geometry)."""
+        return ShardedReplayState(
+            storage=self._storage((dp,)),
+            tree=torch.zeros((dp, 2 * self.capacity), dtype=torch.float32,
+                             device=self.device))
+
+    def _ring_slots(self) -> int:
+        return self.S
 
     # -- transitions -------------------------------------------------------
 
@@ -227,39 +249,46 @@ class FrameRingReplay(PrioritizedReplay):
         slots at the DEVICE segment cursor, with skip-to-head wrap, the
         tree write-back (dead pads get priority 0) and the device cursor
         advance: in place, device operations only. A device `seg0`
-        (0-dim) directs the block to that segment instead (`add_at`)."""
-        g = td_abs.shape[0]
+        (0-dim) directs the block to that segment instead (`add_at`).
+        Stacked shards: items [dp, G, ...] and td_abs [dp, G, B], at
+        every shard's cursor or at [dp] segments `seg0`."""
+        g = td_abs.shape[-2]
+        lead = tuple(td_abs.shape[:-2])
         seg0 = ring_cursor_dev(state, g, self.S, size_scale=self.B,
                                start=seg0)
         dev = state.tree.device
-        tidx = seg0 * self.B + torch.arange(g * self.B, device=dev)
+        tidx = seg0[..., None] * self.B + torch.arange(g * self.B,
+                                                       device=dev)
         rows = items["seg_frames"].to(dev, torch.uint8).reshape(
-            g * self.F, self.frame_bytes)
+            *lead, g * self.F, self.frame_bytes)
         if self.frame_row != self.frame_bytes:
             rows = F.pad(rows, (0, self.frame_row - self.frame_bytes))
         st = state.storage
         write_rows_at(st["frames"], rows, seg0 * self.F)
         for k in FIELDS:
-            write_rows_at(st[k], items[k].reshape(g * self.B),
+            write_rows_at(st[k], items[k].reshape(*lead, g * self.B),
                           seg0 * self.B)
-        td = td_abs.to(dev, torch.float32).reshape(g * self.B)
-        valid = items["next_off"].to(dev).reshape(g * self.B) > 0
+        td = td_abs.to(dev, torch.float32).reshape(*lead, g * self.B)
+        valid = items["next_off"].to(dev).reshape(*lead, g * self.B) > 0
         pri = torch.where(valid, (td + self.eps) ** self.alpha,
                           torch.zeros_like(td))
         sum_tree.update(state.tree, tidx, pri)
 
     def advance_host(self, state: ReplayState, block: int) -> None:
-        """The host ints after one add of `block` segments."""
-        _, pos1, size1 = ring_cursor(state.pos, state.size, block, self.S,
-                                     size_scale=self.B)
-        state.set_host_cursor(pos1, size1)
+        """The host ints after one add of `block` segments per shard."""
+        state.set_cursors([ring_cursor(p, s, block, self.S,
+                                       size_scale=self.B)[1:]
+                           for p, s in state.cursors()])
 
-    def advance_host_at(self, state: ReplayState, seg0: int,
+    def advance_host_at(self, state: ReplayState, seg0,
                         block: int) -> None:
         """The host ints after a directed add of `block` segments at
-        segment `seg0`."""
-        state.set_host_cursor(*ring_cursor_at(state.size, seg0, block,
-                                              self.S, size_scale=self.B))
+        segment `seg0` (an int, or one per shard)."""
+        starts = np.broadcast_to(np.asarray(seg0, np.int64),
+                                 (len(state.cursors()),))
+        state.set_cursors([ring_cursor_at(s, int(st), block, self.S,
+                                          size_scale=self.B)
+                           for (_, s), st in zip(state.cursors(), starts)])
 
     def add(self, state: ReplayState, items: Any,
             td_abs: torch.Tensor) -> ReplayState:
@@ -280,8 +309,10 @@ class FrameRingReplay(PrioritizedReplay):
         """Start SEGMENT (0-dim int64, on the device) of the minimum-
         priority-mass run of `block` contiguous segments: the leaves are
         reduced per segment first, since a transition's frames alias
-        across its segment and only whole segments can leave."""
-        seg_mass = state.tree[self.capacity:].reshape(self.S, self.B) \
+        across its segment and only whole segments can leave. Stacked
+        shards: [dp] starts, each shard planned on its own tree."""
+        leaves = state.tree[..., self.capacity:]
+        seg_mass = leaves.reshape(*leaves.shape[:-1], self.S, self.B) \
             .sum(dim=-1)
         return min_mass_window(seg_mass, block)
 
@@ -290,7 +321,10 @@ class FrameRingReplay(PrioritizedReplay):
         """-> (staging-layout segments {"seg_frames": [g, F, H, W],
         fields [g, B]}, stored leaf priorities [g, B]) of the `block`
         segments at the device `seg0`, as fresh tensors: the exact shape
-        `add_body` takes, so a cold round trip restages bit-identically."""
+        `add_body` takes, so a cold round trip restages bit-identically.
+        Stacked shards: [dp, g, ...] from [dp] segments."""
+        if seg0.dim():
+            return self._read_region_sharded(state, seg0, block)
         g, dev = block, state.tree.device
         st = state.storage
         rows = st["frames"].index_select(
@@ -302,6 +336,23 @@ class FrameRingReplay(PrioritizedReplay):
             items[k] = st[k].index_select(0, tidx).reshape(g, self.B)
         pri = state.tree.index_select(0, self.capacity + tidx)
         return items, pri.reshape(g, self.B)
+
+    def _read_region_sharded(self, state: ShardedReplayState,
+                             seg0: torch.Tensor, g: int
+                             ) -> tuple[dict, torch.Tensor]:
+        dp = seg0.shape[0]
+        flat = state.flat_storage()
+        rows = flat["frames"].index_select(
+            0, shard_rows(seg0 * self.F, g * self.F, self.S * self.F))
+        items = {"seg_frames": rows[:, :self.frame_bytes].reshape(
+            dp, g, self.F, self.h, self.w)}
+        tidx = shard_rows(seg0 * self.B, g * self.B, self.capacity)
+        for k in FIELDS:
+            items[k] = flat[k].index_select(0, tidx).reshape(dp, g, self.B)
+        leaves = shard_rows(seg0 * self.B + self.capacity, g * self.B,
+                            2 * self.capacity)
+        pri = state.tree.view(-1).index_select(0, leaves)
+        return items, pri.reshape(dp, g, self.B)
 
     def add_at(self, state: ReplayState, items: Any, td_abs: torch.Tensor,
                seg0: torch.Tensor | int) -> ReplayState:
@@ -353,11 +404,26 @@ class FrameRingReplay(PrioritizedReplay):
                      noise: torch.Tensor | None = None,
                      generator: torch.Generator | None = None
                      ) -> tuple[Any, torch.Tensor, torch.Tensor]:
-        """-> (flat transition batch, leaf indices [B], probs [B])."""
+        """-> (flat transition batch, leaf indices [B], probs [B]);
+        stacked shards: [dp, B] from noise [dp, B]."""
         idx, probs = sum_tree.sample(state.tree, batch,
                                      size=state.size_dev, noise=noise,
                                      generator=generator)
+        if sharded(state):
+            dp, n = idx.shape
+            flat = SimpleNamespace(storage=state.flat_storage())
+            items = self._gather(flat, flat_index(idx, self.capacity))
+            return ({k: v.reshape(dp, n, *v.shape[1:])
+                     for k, v in items.items()}, idx, probs)
         return self._gather(state, idx), idx, probs
+
+    def _next_off(self, state: ReplayState,
+                  idx: torch.Tensor) -> torch.Tensor:
+        """next_off at transition indices idx (stacked shards: [dp, n],
+        shard d's from shard d's ring)."""
+        if sharded(state):
+            return state.storage["next_off"].gather(1, idx)
+        return state.storage["next_off"][idx]
 
     def update_priorities(self, state: ReplayState, idx: torch.Tensor,
                           td_abs: torch.Tensor) -> ReplayState:
@@ -365,7 +431,7 @@ class FrameRingReplay(PrioritizedReplay):
         # a dead slot must stay dead: a clamp-landed draw would otherwise
         # write (garbage-TD)^alpha here and resurrect it into the
         # sampling distribution permanently
-        pri = torch.where(state.storage["next_off"][idx] > 0, pri,
+        pri = torch.where(self._next_off(state, idx) > 0, pri,
                           torch.zeros_like(pri))
         sum_tree.update(state.tree, idx, pri)
         return state
@@ -373,7 +439,7 @@ class FrameRingReplay(PrioritizedReplay):
     def valid_mask(self, state: ReplayState,
                    idx: torch.Tensor) -> torch.Tensor:
         """[B] f32: 1 on live transitions, 0 on dead pad slots."""
-        return (state.storage["next_off"][idx] > 0).to(torch.float32)
+        return (self._next_off(state, idx) > 0).to(torch.float32)
 
     def cursor_transitions(self, state: ReplayState) -> torch.Tensor:
         """Write cursor in transition units (`pos` counts segments; 0-dim,
@@ -381,5 +447,6 @@ class FrameRingReplay(PrioritizedReplay):
         return state.pos_dev * self.B
 
     def live_transitions(self, state: ReplayState) -> torch.Tensor:
-        """Count of live (non-pad) transition slots."""
+        """Count of live (non-pad) transition slots: 0-dim, or [dp] for
+        stacked shards (only the slot axis is reduced)."""
         return (state.storage["next_off"] > 0).sum(dim=-1)

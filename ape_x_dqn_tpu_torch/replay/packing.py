@@ -84,6 +84,32 @@ def ring_write_size(size: int, start: int, block: int,
     return min(max(size, start + block), capacity)
 
 
+def shard_rows(starts: torch.Tensor, n: int,
+               rows_per_shard: int) -> torch.Tensor:
+    """Rows [starts[d], starts[d] + n) of every shard d, as indices into
+    the shard-major flat view [dp * rows_per_shard, ...] of a [dp,
+    rows_per_shard, ...] buffer: [dp * n] int64, shard by shard."""
+    dev = starts.device
+    first = starts.long() + torch.arange(
+        starts.shape[0], device=dev) * rows_per_shard
+    return (first[:, None] + torch.arange(n, device=dev)).reshape(-1)
+
+
+def dus_rows_per_shard(buf: torch.Tensor, block: torch.Tensor,
+                       starts: torch.Tensor) -> None:
+    """Per-shard ring write, IN PLACE: shard d of a [dp, rows, ...]
+    buffer gets block[d] ([dp, b, ...]) at row starts[d] (a [dp] device
+    tensor), through one `index_copy_` on the buffer's flat view for
+    every shard (the original writes dp unrolled dynamic_update_slices).
+    A lockstep add passes equal starts; the cold tier's directed add
+    each shard's own."""
+    dp, rows = buf.shape[:2]
+    b = block.shape[1]
+    buf.flatten(0, 1).index_copy_(
+        0, shard_rows(starts, b, rows),
+        block.reshape(dp * b, *block.shape[2:]).to(buf.device, buf.dtype))
+
+
 def packable(spec: ItemSpec) -> bool:
     """Pack uint8 pixel leaves big enough that row padding matters.
     Small leaves (scalars, action vectors) stay in their natural

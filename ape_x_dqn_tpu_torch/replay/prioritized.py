@@ -29,6 +29,17 @@ Conventions (Schaul et al. 2016; Horgan et al. 2018):
 - IS weight w_i = (N * P(i))^-beta, normalized by max over the batch
 - new transitions arrive WITH priorities
 
+The dp-sharded learner (parallel/dist_learner.py) keeps `dp` shards
+stacked on a leading axis of every tensor, as the original's
+`DistTrainState` does: `init_sharded` makes a `ShardedReplayState`
+(storage [dp, capacity, ...], tree [dp, 2*capacity], a cursor and a
+fill per shard). The same methods then work per shard over that axis:
+`add_lockstep` writes equal [dp, B] blocks at every shard's (equal)
+cursor, `add_at_lockstep` each shard's block at its own start, and the
+sampling half draws [dp, n] with one descent and ONE gather launch over
+the shard-major flat view [dp * capacity, row] of the stacked storage
+(index d * capacity + i). `capacity` stays the per-shard capacity.
+
 Two layouts share the sampling and priority half: flat storage
 (`PrioritizedReplay` itself: one slot per transition, pixel leaves
 packed into byte rows by replay/packing.py and gathered by the
@@ -41,13 +52,17 @@ from __future__ import annotations
 
 from typing import Any
 
+import numpy as np
 import torch
 
 from ape_x_dqn_tpu_torch.ops import sum_tree
 from ape_x_dqn_tpu_torch.ops.frame_gather import gather_rows
-from ape_x_dqn_tpu_torch.replay.packing import (PixelPacker, make_packer,
+from ape_x_dqn_tpu_torch.replay.packing import (PixelPacker,
+                                                dus_rows_per_shard,
+                                                make_packer,
                                                 ring_write_size,
-                                                ring_write_start)
+                                                ring_write_start,
+                                                shard_rows)
 from ape_x_dqn_tpu_torch.utils.misc import resolve_device
 
 
@@ -90,6 +105,88 @@ class ReplayState:
         """Move the host ints alone: an add body already wrote the
         device mirrors (on its stream, maybe inside a graph)."""
         self._pos, self._size = int(pos), int(size)
+
+    def cursors(self) -> list[tuple[int, int]]:
+        """[(pos, size)] per shard (one shard)."""
+        return [(self._pos, self._size)]
+
+    def set_cursors(self, cursors: list[tuple[int, int]]) -> None:
+        """`set_host_cursor` from `cursors()`'s form."""
+        (pos, size), = cursors
+        self.set_host_cursor(pos, size)
+
+
+class ShardedReplayState(ReplayState):
+    """dp replay shards stacked on a leading axis: storage [dp, rows,
+    ...], tree [dp, 2*capacity], and per shard a write cursor and a
+    fill: host int64 arrays `pos` and `size` [dp] whose setters write
+    their device mirrors `pos_dev` and `size_dev` [dp] in place.
+    Lockstep adds keep every shard's cursor equal; the cold tier's
+    directed writes move each shard's own."""
+
+    def __init__(self, storage: dict[str, torch.Tensor],
+                 tree: torch.Tensor):
+        self.storage = storage
+        self.tree = tree
+        dp = tree.shape[0]
+        self.pos_dev = torch.zeros(dp, dtype=torch.int64, device=tree.device)
+        self.size_dev = torch.zeros(dp, dtype=torch.int64,
+                                    device=tree.device)
+        self.pos = 0
+        self.size = 0
+
+    @property
+    def dp(self) -> int:
+        return self.tree.shape[0]
+
+    def _ints(self, value) -> np.ndarray:
+        return np.broadcast_to(np.asarray(value, np.int64),
+                               (self.dp,)).copy()
+
+    @property
+    def pos(self) -> np.ndarray:
+        return self._pos
+
+    @pos.setter
+    def pos(self, value) -> None:
+        self._pos = self._ints(value)
+        self.pos_dev.copy_(torch.from_numpy(self._pos))
+
+    @property
+    def size(self) -> np.ndarray:
+        return self._size
+
+    @size.setter
+    def size(self, value) -> None:
+        self._size = self._ints(value)
+        self.size_dev.copy_(torch.from_numpy(self._size))
+
+    def set_host_cursor(self, pos, size) -> None:
+        self._pos, self._size = self._ints(pos), self._ints(size)
+
+    def cursors(self) -> list[tuple[int, int]]:
+        return list(zip(self._pos.tolist(), self._size.tolist()))
+
+    def set_cursors(self, cursors: list[tuple[int, int]]) -> None:
+        pos, size = zip(*cursors)
+        self.set_host_cursor(pos, size)
+
+    def flat_storage(self) -> dict[str, torch.Tensor]:
+        """Each leaf's shard-major flat view [dp * rows, ...]: shard d's
+        row i is row d * rows + i (views: writes reach the shards)."""
+        return {k: v.flatten(0, 1) for k, v in self.storage.items()}
+
+
+def sharded(state: ReplayState) -> bool:
+    return isinstance(state, ShardedReplayState)
+
+
+def flat_index(idx: torch.Tensor, rows_per_shard: int) -> torch.Tensor:
+    """Per-shard slot indices [dp, n] -> rows of the shard-major flat
+    view (`ShardedReplayState.flat_storage`), [dp * n] int64."""
+    dp = idx.shape[0]
+    off = torch.arange(dp, device=idx.device)[:, None] * rows_per_shard
+    return (idx.long() + off).reshape(-1)
 
 
 def ring_cursor(pos: int, size: int, block: int, capacity: int,
@@ -140,17 +237,23 @@ def ring_cursor_at(size: int, start: int, block: int, capacity: int,
 def min_mass_window(mass: torch.Tensor, block: int) -> torch.Tensor:
     """Start of the `block`-long contiguous window of `mass` with the
     least sum (a float32 cumsum, then the first argmin over [0,
-    len - block]: the window never wraps). 0-dim int64, on the device."""
-    c = torch.cat([torch.zeros(1, dtype=mass.dtype, device=mass.device),
-                   torch.cumsum(mass, 0)])
-    return torch.argmin(c[block:] - c[:-block])
+    len - block]: the window never wraps). 0-dim int64, on the device;
+    [dp] for stacked shards' masses [dp, len], one start per shard."""
+    zero = torch.zeros((*mass.shape[:-1], 1), dtype=mass.dtype,
+                       device=mass.device)
+    c = torch.cat([zero, torch.cumsum(mass, -1)], -1)
+    return torch.argmin(c[..., block:] - c[..., :-block], dim=-1)
 
 
 def write_rows_at(buf: torch.Tensor, block: torch.Tensor,
                   start: torch.Tensor) -> None:
     """Rows [start, start + len(block)) of `buf` <- `block`, IN PLACE
     (the JAX version's dynamic_update_slice returns a new array), with
-    `start` a device scalar."""
+    `start` a device scalar; a [dp] `start` writes stacked shards
+    (packing.dus_rows_per_shard)."""
+    if start.dim():
+        dus_rows_per_shard(buf, block, start)
+        return
     idx = start + torch.arange(block.shape[0], device=buf.device)
     buf.index_copy_(0, idx, block.to(buf.device, buf.dtype))
 
@@ -168,40 +271,81 @@ class _FlatStorage:
     def _set_item_spec(self, item_spec: Any) -> None:
         self._packer, self._storage_spec = make_packer(item_spec)
 
-    def _init_storage(self, item_spec: Any) -> dict[str, torch.Tensor]:
+    def _init_storage(self, item_spec: Any,
+                      lead: tuple = ()) -> dict[str, torch.Tensor]:
         if item_spec is not None:
             self._set_item_spec(item_spec)
         if self._storage_spec is None:
             raise ValueError(
                 f"{type(self).__name__} has no item spec — pass item_spec "
                 f"to the constructor or to init()")
-        return {k: torch.zeros((self.capacity, *s.shape), dtype=s.dtype,
-                               device=self.device)
+        return {k: torch.zeros((*lead, self.capacity, *s.shape),
+                               dtype=s.dtype, device=self.device)
                 for k, s in self._storage_spec.items()}
 
     def _write_rows(self, storage: dict, items: dict,
                     start: torch.Tensor) -> None:
         """Encode a [b, ...] block and write it at slot `start` (a
         device scalar), in place (host tensors are copied to the
-        storage's device)."""
+        storage's device); stacked shards: [dp, b, ...] at [dp]
+        starts."""
         if self._packer is not None:
             items = self._packer.encode(items)
         for k, buf in storage.items():
             write_rows_at(buf, items[k], start)
 
     def advance_host(self, state: ReplayState, block: int) -> None:
-        """The host ints after one add of `block` slots (`add_body`
-        moved the device mirrors)."""
-        _, pos1, size1 = ring_cursor(state.pos, state.size, block,
-                                     self.capacity)
-        state.set_host_cursor(pos1, size1)
+        """The host ints after one add of `block` slots per shard
+        (`add_body` moved the device mirrors)."""
+        state.set_cursors([ring_cursor(p, s, block, self.capacity)[1:]
+                           for p, s in state.cursors()])
 
-    def advance_host_at(self, state: ReplayState, start: int,
+    def advance_host_at(self, state: ReplayState, start,
                         block: int) -> None:
         """The host ints after a directed add of `block` slots at
-        `start` (`add_body` with a `start` moved the device mirrors)."""
-        state.set_host_cursor(*ring_cursor_at(state.size, start, block,
-                                              self.capacity))
+        `start` (an int, or one per shard) (`add_body` with a `start`
+        moved the device mirrors)."""
+        starts = np.broadcast_to(np.asarray(start, np.int64),
+                                 (len(state.cursors()),))
+        state.set_cursors([ring_cursor_at(s, int(st), block, self.capacity)
+                           for (_, s), st in zip(state.cursors(), starts)])
+
+    def init_sharded(self, dp: int, item_spec: Any = None
+                     ) -> ShardedReplayState:
+        """dp empty shards of `capacity` slots each, stacked."""
+        return ShardedReplayState(
+            storage=self._init_storage(item_spec, lead=(dp,)),
+            tree=torch.zeros((dp, 2 * self.capacity), dtype=torch.float32,
+                             device=self.device))
+
+    def add_lockstep(self, state: ShardedReplayState, items: Any,
+                     td_abs: torch.Tensor) -> ShardedReplayState:
+        """`add` for stacked shards whose cursors advance in LOCKSTEP
+        (the dist ingest contract: every add ships equal [dp, B] blocks,
+        so the shard cursors stay equal). items {key: [dp, B, ...]};
+        td_abs [dp, B] ([dp, G, B] segments on the frame ring)."""
+        b = td_abs.shape[1]
+        ring_write_start(int(state.pos[0]), b, self._ring_slots())
+        self.add_body(state, items, td_abs)
+        self.advance_host(state, b)
+        return state
+
+    def add_at_lockstep(self, state: ShardedReplayState, items: Any,
+                        td_abs: torch.Tensor,
+                        start) -> ShardedReplayState:
+        """Directed `add_lockstep`: shard d gets items[d] at start[d]
+        (its own evict_plan result). The shard cursors diverge here,
+        which is safe because the swap runs only on a full ring: every
+        later ship comes back through evict_plan and this add."""
+        start_dev = torch.as_tensor(np.asarray(start), dtype=torch.int64,
+                                    device=state.tree.device)
+        self.add_body(state, items, td_abs, start_dev)
+        self.advance_host_at(state, np.asarray(start), td_abs.shape[1])
+        return state
+
+    def _ring_slots(self) -> int:
+        """The ring's cursor units (slots; the frame ring's segments)."""
+        return self.capacity
 
     def _gather(self, storage: dict, idx: torch.Tensor) -> dict:
         """Items at slots idx [B]: packed byte-row leaves through the
@@ -212,6 +356,16 @@ class _FlatStorage:
                  if packer is not None and packer.packed(k) else buf[idx]
                  for k, buf in storage.items()}
         return packer.decode(items) if packer is not None else items
+
+    def _gather_sharded(self, state: ShardedReplayState,
+                        idx: torch.Tensor) -> dict:
+        """Items at per-shard slots idx [dp, n] -> {key: [dp, n, ...]}:
+        ONE gather launch per packed leaf over the stacked storage's
+        flat view, at int64 rows d * capacity + i."""
+        dp, n = idx.shape
+        items = self._gather(state.flat_storage(),
+                             flat_index(idx, self.capacity))
+        return {k: v.reshape(dp, n, *v.shape[1:]) for k, v in items.items()}
 
 
 class PrioritizedReplay(_FlatStorage):
@@ -257,12 +411,15 @@ class PrioritizedReplay(_FlatStorage):
         that does not divide the capacity retires the tail slots a skip
         leaves behind: `size` never counts them and the tree never
         carries priority there. A device `start` (0-dim) directs the
-        block there instead (`add_at`)."""
-        b = td_abs.shape[0]
+        block there instead (`add_at`). Stacked shards: items [dp, B,
+        ...] and td_abs [dp, B] at every shard's device cursor, or at a
+        [dp] `start`."""
+        b = td_abs.shape[-1]
         start = ring_cursor_dev(state, b, self.capacity, start=start)
         self._write_rows(state.storage, items, start)
         dev = state.tree.device
-        idx = start + torch.arange(b, device=dev)
+        # [b], or [dp, b] at stacked shards' [dp] starts
+        idx = start[..., None] + torch.arange(b, device=dev)
         pri = (td_abs.to(dev, torch.float32) + self.eps) ** self.alpha
         sum_tree.update(state.tree, idx, pri)
 
@@ -282,14 +439,28 @@ class PrioritizedReplay(_FlatStorage):
 
     def evict_plan(self, state: ReplayState, block: int) -> torch.Tensor:
         """Start slot (0-dim int64, on the device) of the minimum-
-        priority-mass contiguous `block`-slot window."""
-        return min_mass_window(state.tree[self.capacity:], block)
+        priority-mass contiguous `block`-slot window; [dp] starts, one
+        per stacked shard, each planned on its own tree."""
+        return min_mass_window(state.tree[..., self.capacity:], block)
 
     def read_region(self, state: ReplayState, start: torch.Tensor,
                     block: int) -> tuple[dict, torch.Tensor]:
         """-> (items [block, ...] in staging layout, stored leaf
         priorities [block]) of the `block` slots at the device `start`,
-        as fresh tensors."""
+        as fresh tensors; stacked shards: [dp, block, ...] from [dp]
+        starts."""
+        if start.dim():
+            dp = start.shape[0]
+            rows = shard_rows(start, block, self.capacity)
+            items = {k: buf.index_select(0, rows).reshape(
+                         dp, block, *buf.shape[1:])
+                     for k, buf in state.flat_storage().items()}
+            if self._packer is not None:
+                items = self._packer.decode(items)
+            leaves = shard_rows(start + self.capacity, block,
+                                2 * self.capacity)
+            return items, state.tree.view(-1).index_select(
+                0, leaves).reshape(dp, block)
         idx = start + torch.arange(block, device=state.tree.device)
         items = {k: buf.index_select(0, idx)
                  for k, buf in state.storage.items()}
@@ -309,20 +480,27 @@ class PrioritizedReplay(_FlatStorage):
 
     def draw(self, state: ReplayState, batch: int,
              generator: torch.Generator | None = None) -> torch.Tensor:
-        """The stratification noise of one draw ([batch] uniform), from
-        `generator`: the learner draws it before a step, outside any
-        captured graph, and hands it in as `noise`."""
-        return torch.rand(batch, generator=generator, device=self.device)
+        """The stratification noise of one draw ([batch] uniform; [dp,
+        batch] for stacked shards), from `generator`: the learner draws
+        it before a step, outside any captured graph, and hands it in
+        as `noise`."""
+        lead = (state.dp,) if sharded(state) else ()
+        return torch.rand((*lead, batch), generator=generator,
+                          device=self.device)
 
     def sample_items(self, state: ReplayState, batch: int,
                      noise: torch.Tensor | None = None,
                      generator: torch.Generator | None = None
                      ) -> tuple[Any, torch.Tensor, torch.Tensor]:
         """-> (item batch, leaf indices [B], probs [B]), without IS
-        weights (the frame ring shares this calling convention)."""
+        weights (the frame ring shares this calling convention). Stacked
+        shards: [dp, B] from noise [dp, B], probs within each shard (the
+        dist learner weighs them across shards)."""
         idx, probs = sum_tree.sample(state.tree, batch,
                                      size=state.size_dev, noise=noise,
                                      generator=generator)
+        if sharded(state):
+            return self._gather_sharded(state, idx), idx, probs
         return self._gather(state.storage, idx), idx, probs
 
     def sample(self, state: ReplayState, batch: int,
@@ -360,12 +538,15 @@ class PrioritizedReplay(_FlatStorage):
 
     def leaf_priorities(self, state: ReplayState,
                         idx: torch.Tensor) -> torch.Tensor:
-        """Stored p^alpha at the given leaf indices (any idx shape)."""
+        """Stored p^alpha at the given leaf indices (any idx shape;
+        stacked shards: [dp, n], shard d's from shard d's tree)."""
+        if sharded(state):
+            return state.tree.gather(1, self.capacity + idx)
         return state.tree[self.capacity + idx]
 
     def cursor_transitions(self, state: ReplayState) -> torch.Tensor:
         """Write cursor in TRANSITION (= leaf-index) units (0-dim, on
-        the device)."""
+        the device; [dp] for stacked shards)."""
         return state.pos_dev
 
     # -- split entry points of the K-batch learner cycle -------------------

@@ -68,14 +68,32 @@ Nothing compiles in the port, so the original's AOT warm-up becomes one
 forward per server bucket (`_warmup`), which changes no learner state;
 the ingest add is one captured graph per (replay, g) on the card
 (runtime/step_graph.py: AddGraph). Before anything is allocated on the
-card, `check_hbm_fits` prices the run (utils/hbm.py) and raises when it
-cannot fit. What the original builds and the port does not have yet
-raises, naming its ROADMAP Queue A item: the multi-GPU learner (14) and
-the legacy staging path (11). All three families run here: flat
-DQN, R2D2 (recurrent actors, stateful {obs, c, h} server queries, whole
-sequences as staging units and the `SequenceLearner`,
+card, `check_hbm_fits` prices the run (utils/hbm.py), each card at the
+replay shards the mesh puts there, and raises when it cannot fit. All
+three families run here: flat DQN, R2D2 (recurrent actors, stateful
+{obs, c, h} server queries, whole sequences as staging units and the
+`SequenceLearner`,
 runtime/sequence_learner.py) and Ape-X DPG (continuous actors, {a, q}
 server replies and the `DPGLearner`, runtime/dpg_learner.py).
+
+The dp-sharded learner (``parallel.dp * parallel.tp > 1``,
+parallel/dist_learner.py): the DQN and R2D2 families over a (dp, tp)
+mesh (parallel/mesh.py) of `mesh_devices`, by default the visible
+cards, as the original's mesh is over ``jax.devices()``; a list that
+repeats one card puts every shard on it (the presets' own dp=4 x tp=2
+meshes on one card: ``[card] * 8``). The replay is dp shards of
+``next_pow2(capacity // dp)`` stacked on one card; ingest stages blocks
+of dp * stage_chunk units, and each ships as [dp, chunk] (or [g, dp,
+chunk]): unit i of a block goes to shard i // chunk, so the shards fill
+in lockstep; the cold tier's swap runs per shard, with the door closure
+per shard. The summary's ``replay_shards`` holds each shard's fill and
+mass.
+
+Legacy staging (``replay.ingest_zero_copy=False``): batches append to a
+list and concatenate into fixed blocks at each flush (`_flush_stage`,
+`_add_block`), with no `IngestStager`; each block ships through the
+learner's `add`, eagerly. The cold tier refills through the stager and
+refuses it.
 
 Observability (``obs.enabled``, obs/core.py): spans, heartbeats, the
 stall watchdog, the flight recorder, stage windows (CUDA events on the
@@ -122,10 +140,14 @@ from ape_x_dqn_tpu_torch.comm.param_codec import tree_map
 from ape_x_dqn_tpu_torch.comm.transport import LoopbackTransport, batch_rows
 from ape_x_dqn_tpu_torch.envs import make_env
 from ape_x_dqn_tpu_torch.models import build_network
+from ape_x_dqn_tpu_torch.obs import profiling
 from ape_x_dqn_tpu_torch.obs.core import ProfileWindow, build_obs
 from ape_x_dqn_tpu_torch.obs.fleet import MAX_SPAN_IDS, FleetAggregator
+from ape_x_dqn_tpu_torch.parallel.dist_learner import (DistDQNLearner,
+                                                       DistSequenceLearner)
 from ape_x_dqn_tpu_torch.parallel.inference_server import (
     BatchedInferenceServer, MultiPolicyInferenceServer, build_serving_tier)
+from ape_x_dqn_tpu_torch.parallel.mesh import make_mesh
 from ape_x_dqn_tpu_torch.replay.cold_store import ColdStore
 from ape_x_dqn_tpu_torch.runtime.build import build_prioritized_replay
 from ape_x_dqn_tpu_torch.runtime.evaluation import (
@@ -149,38 +171,17 @@ from ape_x_dqn_tpu_torch.utils.misc import next_pow2, resolve_device
 from ape_x_dqn_tpu_torch.utils.rng import component_generator
 
 
-def _refuse_unported(cfg) -> None:
-    """Raise for what the original driver builds and the port does not
-    have yet, rather than running without it."""
-    if cfg.replay.cold_tier_capacity > 0 \
-            and not getattr(cfg.replay, "ingest_zero_copy", True):
-        raise ValueError(
-            "the cold tier refills through the zero-copy ingest "
-            "stager — replay.ingest_zero_copy=False and "
-            "cold_tier_capacity > 0 are incompatible")
-    waits = []
-    if cfg.parallel.dp * cfg.parallel.tp > 1:
-        waits.append(("parallel.dp * parallel.tp > 1 (the multi-GPU "
-                      "learner)", 14))
-    if not getattr(cfg.replay, "ingest_zero_copy", True):
-        waits.append(("replay.ingest_zero_copy=False (the legacy staging "
-                      "path)", 11))
-    if waits:
-        what, item = waits[0]
-        raise NotImplementedError(
-            f"{what} is not ported to the PyTorch package yet: it waits "
-            f"for ROADMAP Queue A item {item}")
-
-
 class ApexDriver:
     def __init__(self, cfg, metrics: Metrics | None = None,
-                 transport=None, device: str | torch.device = "cuda"):
+                 transport=None, device: str | torch.device = "cuda",
+                 mesh_devices: list | None = None):
         """transport: experience ingest + param distribution (defaults
         to the in-process LoopbackTransport; a SocketIngestServer also
         accepts remote actor hosts). device: the card the replay, the
         learner and the inference server live on (a CUDA request
-        without a card raises)."""
-        _refuse_unported(cfg)
+        without a card raises). mesh_devices: the dp-sharded learner's
+        device list (default: the visible cards; parallel/mesh.py),
+        whose one card must be of `device`'s type."""
         self.cfg = cfg
         self.device = resolve_device(device)
         self.metrics = metrics or Metrics()
@@ -194,42 +195,85 @@ class ApexDriver:
         self.family = family_of(cfg)
         setup = family_setup(cfg, self.spec, self.net, obs0)
         modules = self.net if self.family == "dpg" else (self.net,)
+        self.dp = cfg.parallel.dp
+        self.is_dist = cfg.parallel.dp * cfg.parallel.tp > 1
+        self.mesh = None
+        if self.is_dist:
+            # the original's mesh error on too few devices (the CLI's
+            # default device list on a one-card box)
+            self.mesh = make_mesh(dp=cfg.parallel.dp, tp=cfg.parallel.tp,
+                                  devices=mesh_devices)
+            if self.mesh.device.type != self.device.type:
+                raise ValueError(
+                    f"the mesh's device {self.mesh.device} is not a "
+                    f"{self.device.type} device")
+            self.device = resolve_device(self.mesh.device)
         # early, loud fits-check: the replay + model state must fit the
-        # card BEFORE anything is allocated there (utils/hbm.py)
+        # card BEFORE anything is allocated there (utils/hbm.py), with
+        # every replay shard the mesh puts on it
         self.hbm_budget = check_hbm_fits(
             cfg, self.spec.obs_shape, self.spec.obs_dtype,
             param_count=sum(p.numel() for m in modules
                             for p in m.parameters()),
-            device=self.device)
+            device=self.device,
+            shards_per_card=(self.mesh.shards_on(self.device)
+                             if self.mesh is not None else 1))
+        if self.is_dist and self.family == "dpg":
+            raise NotImplementedError(
+                "the distributed learner covers the DQN and R2D2 "
+                "families; DPG nets are small — run dp=tp=1")
         for module in modules:
             module.to(self.device)
         item_spec = setup.item_spec
         self._frame_mode = setup.frame_mode
         self._item_keys = tuple(item_spec.keys())
-        self.dp = 1
-        self.replay = (build_prioritized_replay(
-                           cfg, self.spec, next_pow2(cfg.replay.capacity),
-                           self.device, frame_mode=True)
-                       if self._frame_mode
-                       else build_replay(cfg.replay, self.device))
-        replay_state = (self.replay.init() if self._frame_mode
-                        else self.replay.init(item_spec))
         lgen = component_generator(cfg.seed, "learner", device=self.device)
-        if self.family == "dpg":
-            self.learner = DPGLearner(self.replay, cfg.learner)
+        if self.is_dist:
+            # replay shards + batch shards + one gradient over the mesh;
+            # ingest round-robins staging units across the shards
+            assert cfg.replay.kind in ("prioritized", "sequence"), \
+                "distributed learner requires prioritized replay " \
+                "(kind='prioritized', or kind='sequence' for R2D2)"
+            shard_cap = next_pow2(max(cfg.replay.capacity // self.dp, 2))
+            self.replay = build_prioritized_replay(
+                cfg, self.spec, shard_cap, self.device,
+                frame_mode=self._frame_mode)
+            self.learner = (
+                DistSequenceLearner(self.replay, cfg.learner, cfg.replay,
+                                    self.mesh)
+                if self.family == "r2d2"
+                else DistDQNLearner(self.replay, cfg.learner, self.mesh))
             self.state = self.learner.init(  # guarded-by: _state_lock
-                *self.net, replay_state, lgen)
+                self.net, None if self._frame_mode else item_spec, lgen)
+            self.capacity = shard_cap * self.dp
         else:
-            self.learner = (SequenceLearner(self.replay, cfg.learner,
-                                            cfg.replay)
-                            if self.family == "r2d2"
-                            else DQNLearner(self.replay, cfg.learner))
-            self.state = self.learner.init(  # guarded-by: _state_lock
-                self.net, replay_state, lgen)
-        self.capacity = self.replay.capacity
+            self.replay = (build_prioritized_replay(
+                               cfg, self.spec,
+                               next_pow2(cfg.replay.capacity), self.device,
+                               frame_mode=True)
+                           if self._frame_mode
+                           else build_replay(cfg.replay, self.device))
+            replay_state = (self.replay.init() if self._frame_mode
+                            else self.replay.init(item_spec))
+            if self.family == "dpg":
+                self.learner = DPGLearner(self.replay, cfg.learner)
+                self.state = self.learner.init(  # guarded-by: _state_lock
+                    *self.net, replay_state, lgen)
+            else:
+                self.learner = (SequenceLearner(self.replay, cfg.learner,
+                                                cfg.replay)
+                                if self.family == "r2d2"
+                                else DQNLearner(self.replay, cfg.learner))
+                self.state = self.learner.init(  # guarded-by: _state_lock
+                    self.net, replay_state, lgen)
+            self.capacity = self.replay.capacity
         # the learner updates its tensors in place: the server gets a
         # copy (publish_params clones) and keeps it to itself
         server_params = self.learner.publish_params(self.state)
+        # the mesh-sharded server mode (buckets in multiples of the
+        # mesh size) under inference.shard_over_mesh
+        server_mesh = (self.mesh if self.is_dist
+                       and cfg.inference.shard_over_mesh else None)
         # serving.multi_tenant swaps the single-policy server for the
         # serving tier: this driver's policy registers under env.id and
         # self.server is its TenantClient, with the same surface, so the
@@ -238,8 +282,8 @@ class ApexDriver:
         if cfg.serving.multi_tenant:
             self.serving = build_serving_tier(
                 cfg.serving, max_batch=cfg.inference.max_batch,
-                deadline_ms=cfg.inference.deadline_ms, obs=self.obs,
-                device=self.device)
+                deadline_ms=cfg.inference.deadline_ms, mesh=server_mesh,
+                obs=self.obs, device=self.device)
             self.server = self.serving.register_policy(
                 cfg.env.id, server_apply_fn(self.family, self.net),
                 server_params, family=self.family,
@@ -248,7 +292,7 @@ class ApexDriver:
             self.server = BatchedInferenceServer(
                 server_apply_fn(self.family, self.net), server_params,
                 max_batch=cfg.inference.max_batch,
-                deadline_ms=cfg.inference.deadline_ms,
+                deadline_ms=cfg.inference.deadline_ms, mesh=server_mesh,
                 obs=self.obs, device=self.device)
         self.transport = transport if transport is not None \
             else LoopbackTransport()
@@ -357,15 +401,27 @@ class ApexDriver:
         self._stage_chunk = setup.stage_chunk
         self._unit_items = setup.unit_items
         self._stage_dropped = 0
+        # the same staged drops per dp shard: unit i of a would-be [dp,
+        # chunk] block lands on shard i // stage_chunk, so
+        # sum(_stage_dropped_per_shard) == _stage_dropped
         self._stage_dropped_per_shard = np.zeros(self.dp, np.int64)
+        # the dp-sharded learner's dispatches are their own stage
+        self._train_stage = "train_dist" if self.is_dist else "train"
         self._item_spec = item_spec
         ptail = (cfg.replay.seg_transitions,) if self._frame_mode else ()
-        self._stager = IngestStager(
-            item_spec, ptail,
-            block_units=self.dp * self._stage_chunk,
-            coalesce=getattr(cfg.replay, "ingest_coalesce", 4),
-            buffers=getattr(cfg.replay, "stage_buffers", 2),
-            ship=self._ship_staged, pin=self.device.type == "cuda")
+        # zero-copy staging (runtime/ingest.py), or, with
+        # ingest_zero_copy=False, the legacy list of batches and its
+        # unit count, concatenated at each flush (ingest thread only)
+        self._stage: list[dict] = []
+        self._stage_n = 0
+        self._stager: IngestStager | None = None
+        if getattr(cfg.replay, "ingest_zero_copy", True):
+            self._stager = IngestStager(
+                item_spec, ptail,
+                block_units=self.dp * self._stage_chunk,
+                coalesce=getattr(cfg.replay, "ingest_coalesce", 4),
+                buffers=getattr(cfg.replay, "stage_buffers", 2),
+                ship=self._ship_staged, pin=self.device.type == "cuda")
         # tiered cold store (replay/cold_store.py), off by default: with
         # the tier on and the ring full, every ship evicts the ring's
         # lowest-priority-mass region to the host store, and the idle
@@ -380,7 +436,8 @@ class ApexDriver:
         self._cold_stored = 0    # ingest thread only
         self._cold_dropped = 0   # ingest thread only
         self._cold_recalled = 0  # ingest thread only
-        # the same door outcomes per dp shard (one shard on one card)
+        # the same door outcomes per dp shard (the dist swap runs per
+        # shard, so evicted[d] == stored[d] + dropped[d] holds per shard)
         self._cold_evicted_per_shard = np.zeros(self.dp, np.int64)
         self._cold_stored_per_shard = np.zeros(self.dp, np.int64)
         self._cold_dropped_per_shard = np.zeros(self.dp, np.int64)
@@ -400,6 +457,11 @@ class ApexDriver:
                     "DQN replay (priority-mass eviction has no meaning "
                     "without a sum tree); set cold_tier_capacity=0 for "
                     f"family={self.family!r}, kind={cfg.replay.kind!r}")
+            if self._stager is None:
+                raise ValueError(
+                    "the cold tier refills through the zero-copy ingest "
+                    "stager — replay.ingest_zero_copy=False and "
+                    "cold_tier_capacity > 0 are incompatible")
             if cfg.replay.cold_tier_disk_capacity > 0:
                 from ape_x_dqn_tpu_torch.replay.disk_store import DiskStore
                 self._disk = DiskStore(
@@ -421,7 +483,7 @@ class ApexDriver:
         # sample_age_steps histogram (ingest thread writes, learner
         # thread reads at the publish cadence: a heuristic view)
         ring = getattr(self.replay, "B", 1)
-        self._age = self.obs.age_tracker(self.capacity)
+        self._age = self.obs.age_tracker(self.replay.capacity)
         self._age_block = self._stage_chunk * (ring if self._frame_mode
                                                 else 1)
         self.last_eval: dict | None = None  # guarded-by: _lock
@@ -503,7 +565,8 @@ class ApexDriver:
             # restored contents: the learner can train at once instead
             # of waiting for min_fill again
             with self._lock:
-                self._replay_filled = int(restored["replay"]["size"])
+                self._replay_filled = int(np.sum(
+                    restored["replay"]["size"]))
         self._publish_params()
 
     # -- components --------------------------------------------------------
@@ -926,7 +989,8 @@ class ApexDriver:
                 if batch is None:
                     # queue ran dry: ship the complete staged blocks so
                     # coalescing costs bounded latency
-                    self._stager.drain()
+                    if self._stager is not None:
+                        self._stager.drain()
                     # idle bandwidth goes to cold recalls: high-mass
                     # cold segments restage through the same stager
                     self._cold_refill_tick()
@@ -1049,6 +1113,19 @@ class ApexDriver:
         return {k: getattr(tp, k) for k in keys}
 
     def _stage_one(self, batch: dict, n: int, tag=None) -> None:
+        if self._stager is None:
+            rel = getattr(batch, "release", None)
+            if rel is not None:
+                # a shm slot batch on the legacy path: the deferred
+                # concatenate would pin the ring slot while it waits in
+                # _stage, so copy the rows now and free the slot
+                batch = {k: np.asarray(batch[k]).copy()
+                         for k in self._item_keys + ("priorities",)}
+                rel()
+            self._stage.append(batch)
+            self._stage_n += n
+            self._flush_stage()
+            return
         self._stager.put(batch, tag=tag)
         # below min_fill the learner waits on replay: ship complete
         # blocks at once instead of letting coalescing delay the first
@@ -1058,6 +1135,14 @@ class ApexDriver:
         self.obs.gauge("ingest_staging_occupancy", self._stager.occupancy())
         self.obs.gauge("ingest_decode_ms", self._stager.last_put_decode_ms)
         self.obs.gauge("ingest_ship_ms", self._stager.last_ship_ms)
+
+    def _shard_lead(self, g: int) -> tuple:
+        """The leading axes of g staged blocks: (g,) when g > 1, then
+        (dp,) on the mesh, then the chunk."""
+        lead = (g,) if g > 1 else ()
+        if self.is_dist:
+            lead += (self.dp,)
+        return lead + (self._stage_chunk,)
 
     def _ship_staged(self, views: dict, g: int) -> list:
         """Ship g coalesced staged blocks (the IngestStager callback):
@@ -1072,8 +1157,7 @@ class ApexDriver:
         if self._cold is not None and self._replay_filled >= self.capacity:
             # ring full + tier on: every ship becomes an eviction swap
             return self._ship_staged_cold(views, g)
-        lead = (g, self._stage_chunk) if g > 1 else (self._stage_chunk,)
-        staged = self.learner.land_add(g, views, lead)
+        staged = self.learner.land_add(g, views, self._shard_lead(g))
         handles = []
         if self.device.type == "cuda":
             ev = torch.cuda.Event()
@@ -1110,37 +1194,44 @@ class ApexDriver:
         (the barrier that keeps the reads ahead of the overwrite), and
         the add_at graph overwrites exactly that region with the block,
         reading the start on the device. Outside the lock the region
-        goes through the ColdStore's door. -> the event of the last
-        host-to-device copy (none on the CPU)."""
+        goes through the ColdStore's door. On the mesh each shard plans,
+        reads and overwrites its own region ([dp] starts), and each
+        shard's region goes through the door as its own segment, so the
+        closure holds per shard. -> the event of the last host-to-device
+        copy (none on the CPU)."""
         chunk = self._stage_chunk
-        lead = (chunk,)
+        units = chunk * self.dp
+        lead = self._shard_lead(1)
         handles = []
         for j in range(g):
-            block = {k: v[j * chunk:(j + 1) * chunk]
+            block = {k: v[j * units:(j + 1) * units]
                      for k, v in views.items()}
             inputs = self.learner.land_add_at(block, lead)
             with self._state_lock:
                 if self._learn_done is not None:
                     # the swap writes what the last train dispatch reads
                     self._ingest_stream.wait_event(self._learn_done)
-                with self.obs.span("replay.evict", units=chunk):
+                with self.obs.span("replay.evict", units=units):
                     start, ev_items, ev_pri = self.learner.evict_landed(
                         self.state, chunk)
                     region = self._fetch_region(start, ev_items, ev_pri)
                     self.state = self.learner.add_at_landed(
-                        self.state, inputs, start,
-                        int(region.pop("start")))
+                        self.state, inputs, start, region.pop("start"))
             ev_pri = region.pop("priorities")
-            live = int((ev_pri > 0).sum())
-            self._cold_evicted += live
-            self._cold_evicted_per_shard[0] += live
-            if self._cold.put(region, ev_pri, live) == "stored":
-                self._cold_stored += live
-                self._cold_stored_per_shard[0] += live
-            else:
-                self._cold_dropped += live
-                self._cold_dropped_per_shard[0] += live
-            self.obs.count("cold_evictions")
+            shards = ([({k: v[d] for k, v in region.items()}, ev_pri[d])
+                       for d in range(self.dp)] if self.is_dist
+                      else [(region, ev_pri)])
+            for d, (seg, pri) in enumerate(shards):
+                live = int((pri > 0).sum())
+                self._cold_evicted += live
+                self._cold_evicted_per_shard[d] += live
+                if self._cold.put(seg, pri, live) == "stored":
+                    self._cold_stored += live
+                    self._cold_stored_per_shard[d] += live
+                else:
+                    self._cold_dropped += live
+                    self._cold_dropped_per_shard[d] += live
+                self.obs.count("cold_evictions")
         if self.device.type == "cuda":
             ev = torch.cuda.Event()
             ev.record()
@@ -1290,19 +1381,50 @@ class ApexDriver:
         batch_ids staged into this add (truncated: attribution, not an
         exhaustive ledger)."""
         args: dict = {"units": count}
-        tags = self._stager.shipping_tags
+        tags = self._stager.shipping_tags if self._stager is not None \
+            else ()
         if tags:
             args["batch_ids"] = [t[1] for t in tags[:MAX_SPAN_IDS]]
         return args
 
+    def _add_block(self, take: dict, count: int) -> None:
+        """The legacy path's add of one block of `count` staging units
+        ({key: [count, ...]} numpy, with "priorities"): [dp, chunk, ...]
+        on the mesh, through the learner's eager `add` under the state
+        lock, on the ingest stream after the last train dispatch."""
+        def put(v):
+            t = torch.from_numpy(np.ascontiguousarray(v))
+            if self.is_dist:
+                t = t.reshape(self.dp, self._stage_chunk, *t.shape[1:])
+            return t.to(self.device)
+
+        items = {k: put(v) for k, v in take.items() if k != "priorities"}
+        pris = put(take["priorities"])
+        with self._state_lock:
+            if self._learn_done is not None:
+                self._ingest_stream.wait_event(self._learn_done)
+            with self.obs.span("replay.add", units=count):
+                self.state = self.learner.add(self.state, items, pris)
+        self.ingest_rows.add(count * self._unit_items)
+        with self._lock:
+            self._replay_filled = min(
+                self._replay_filled + count * self._unit_items,
+                self.capacity)
+
     def _flush_stage(self, force: bool = False) -> None:
-        """Ship the complete staged blocks; at force-flush the sub-block
+        """Ship the complete staged blocks ([dp, chunk] on the mesh:
+        consecutive chunks go round-robin to the shards, keeping their
+        priority masses balanced); at force-flush the sub-block
         tail is DROPPED and counted in transitions: live transitions
         (next_off > 0) in frame-ring mode and seq_length per sequence
         for r2d2 (an upper bound: overlapping sequences share steps),
         where env frames ride the ingest messages separately and stay
         counted; units in flat mode, where one unit is one env frame and
-        the frame count comes off with it."""
+        the frame count comes off with it. The same accounting on both
+        staging paths."""
+        if self._stager is None:
+            self._flush_legacy(force)
+            return
         self._stager.drain()
         tail = self._stager.tail_units()
         if force and tail:
@@ -1323,10 +1445,46 @@ class ApexDriver:
             self._stage_dropped_per_shard += per_shard
             self._stager.discard_tail()
 
+    def _flush_legacy(self, force: bool) -> None:
+        """`_flush_stage` on the legacy path: concatenate the staged
+        batches, ship every whole block through `_add_block`, keep the
+        rest; at force-flush drop and count the tail."""
+        block = self.dp * self._stage_chunk
+        while self._stage_n >= block:
+            fields = {
+                k: np.concatenate([np.asarray(b[k]) for b in self._stage])
+                for k in self._item_keys + ("priorities",)}
+            take = {k: v[:block] for k, v in fields.items()}
+            rest = {k: v[block:] for k, v in fields.items()}
+            self._stage = [rest] if rest["priorities"].shape[0] else []
+            self._stage_n -= block
+            self._add_block(take, block)
+        if not (force and self._stage_n):
+            return
+        if self._frame_mode:
+            live = np.concatenate(
+                [(np.asarray(b["next_off"]) > 0).sum(axis=-1)
+                 for b in self._stage])
+            per_shard = self._tail_shard_counts(live)
+        elif self.family == "r2d2":
+            per_shard = self._tail_shard_counts(np.full(
+                self._stage_n, self.cfg.replay.seq_length, np.int64))
+        else:
+            per_shard = self._tail_shard_counts(
+                np.ones(self._stage_n, np.int64))
+            with self._lock:
+                self._frames_total -= self._stage_n
+        self._stage_dropped += int(per_shard.sum())
+        self._stage_dropped_per_shard += per_shard
+        self._stage = []
+        self._stage_n = 0
+
     def _tail_shard_counts(self, per_unit) -> np.ndarray:
-        """Fold unit-indexed drop counts into per-shard totals (staged
+        """Fold unit-indexed drop counts into per-shard totals: staged
         unit i of a would-be [dp, stage_chunk] block belongs to shard
-        i // stage_chunk; one shard on one card)."""
+        i // stage_chunk, the round-robin split the ship reshapes into.
+        The tail is shorter than one block, so the index never
+        overflows dp."""
         out = np.zeros(self.dp, np.int64)
         for i, n in enumerate(np.asarray(per_unit, np.int64)):
             out[i // self._stage_chunk] += int(n)
@@ -1339,7 +1497,13 @@ class ApexDriver:
         starts (pinned buffers, device workspace, library handles).
         Nothing compiles in the port, and nothing here touches the
         learner's state. A remote-only learner (no local actors, no
-        eval) never queries its own server and skips it."""
+        eval) never queries its own server and skips it. With the
+        stage costs wanted (obs on), the cost counters' first use runs
+        here too: it imports torch modules for seconds, which inside the
+        first add or train dispatch silenced that thread's heartbeat past
+        the stall watchdog's timeout on a loaded host."""
+        if profiling.costs_wanted():
+            profiling.count_cost(lambda: torch.zeros(1) + 1)
         if (self.cfg.actors.num_actors > 0 or self.cfg.eval_every_steps > 0
                 or self.cfg.eval_episodes > 0):
             self.server.warmup(
@@ -1439,7 +1603,7 @@ class ApexDriver:
                     if self._learn_stream is not None:
                         # after the adds ingest has enqueued so far
                         self._learn_stream.wait_stream(self._ingest_stream)
-                    with self.obs.stage_window("train", k,
+                    with self.obs.stage_window(self._train_stage, k,
                                                stream=self._learn_stream):
                         with self.obs.span("learner.train", k=k):
                             if k > 1:
@@ -1509,6 +1673,13 @@ class ApexDriver:
             self.obs.learn_health(diag, loss, step=self._grad_steps_total,
                                   tenant=self.cfg.env.id)
             self._observe_sample_ages(diag)
+        if self.is_dist:
+            # lockstep ingest fills every shard alike, so the bounds come
+            # from the host fill mirror (no device read in the loop); the
+            # summary's replay_shards reads the shards themselves
+            fill = replay_size / max(self.capacity, 1)
+            profiling.publish_multichip(self.obs, fill_min=fill,
+                                        fill_max=fill)
         self._attach_stage_costs()
         self.obs.perf_rate("grad_steps_per_s", self.grad_steps.rate(),
                            step=self._grad_steps_total)
@@ -1535,16 +1706,17 @@ class ApexDriver:
         stages once the graphs' warm-ups have counted them
         (runtime/step_graph.py): per grad-step from the step graph that
         covers the most steps, per staged unit from the one-block add."""
-        if not self.obs.stage_attached("train"):
+        if not self.obs.stage_attached(self._train_stage):
             graphs = [g for g in self.learner.step_graphs().values()
                       if g.cost is not None]
             if graphs:
                 g = max(graphs, key=lambda g: g.steps)
-                self.obs.stage_attach("train", g.steps, cost=g.cost)
+                self.obs.stage_attach(self._train_stage, g.steps,
+                                      cost=g.cost)
         if not self.obs.stage_attached("ingest"):
             add = self.learner.add_graphs().get(1)
             if add is not None and add.cost is not None:
-                self.obs.stage_attach("ingest", self._stage_chunk,
+                self.obs.stage_attach("ingest", self.dp * self._stage_chunk,
                                       cost=add.cost)
 
     def _eval_loop(self) -> None:
@@ -1769,6 +1941,10 @@ class ApexDriver:
                 f"serve/{pid}/{k}": v for k, v in mine.items()})
         if self._cold is not None:
             out["cold_tier"] = self._cold_summary()
+        if self.is_dist:
+            # the per-shard fill and mass, read from the shards at
+            # teardown (every loop has joined)
+            out["replay_shards"] = self.learner.shard_stats(self.state)
         wire = self._wire_summary()
         if wire is not None:
             out["wire"] = wire

@@ -35,6 +35,7 @@ import itertools
 from dataclasses import dataclass
 from typing import Any, Iterable
 
+import numpy as np
 import torch
 from torch import nn
 
@@ -89,8 +90,12 @@ def checkpoint_tree(state, with_replay: bool = False) -> dict:
             "rng": state.generator.get_state(), "step": int(state.step)}
     if with_replay:
         r = state.replay
+        # ints; per-shard lists for the dist learner's stacked shards
+        pos, size = ((r.pos.tolist(), r.size.tolist())
+                     if isinstance(r.pos, np.ndarray)
+                     else (int(r.pos), int(r.size)))
         tree["replay"] = {"storage": dict(r.storage), "tree": r.tree,
-                          "pos": int(r.pos), "size": int(r.size)}
+                          "pos": pos, "size": size}
     return tree
 
 
@@ -126,7 +131,7 @@ def restore_checkpoint_tree(state, tree: dict) -> None:
         for k, v in saved["storage"].items():
             r.storage[k].copy_(v)
         r.tree.copy_(saved["tree"])
-        r.pos, r.size = int(saved["pos"]), int(saved["size"])
+        r.pos, r.size = saved["pos"], saved["size"]
     state.generator.set_state(tree["rng"])
     state.step = int(tree["step"])
 
@@ -250,9 +255,13 @@ class SingleChipLearner(GraphedEndpoints):
         self.replay.update_priorities(state.replay, idx, td_abs)
         return metrics
 
+    def _per_draw(self) -> int:
+        """Items one grad-step draws from each replay (shard)."""
+        return self.lcfg.batch_size
+
     def _train_step(self, state: TrainState,
                     noise: torch.Tensor | None = None):
-        noise = self._draw(state, self.lcfg.batch_size, noise)
+        noise = self._draw(state, self._per_draw(), noise)
         metrics = self._run("step", self._step_body, state, noise)
         state.step += 1
         return state, metrics
@@ -319,7 +328,7 @@ class SingleChipLearner(GraphedEndpoints):
         """K grad-steps from ONE stratified sample + ONE priority
         write-back (the K-batch relaxation): chunk j+1 trains on
         priorities that predate chunk j's TD errors."""
-        noise = self._draw(state, k * self.lcfg.batch_size, noise)
+        noise = self._draw(state, k * self._per_draw(), noise)
         metrics = self._run(
             ("k", k), lambda s, u: self._step_body_k(s, k, u), state, noise)
         state.step += k

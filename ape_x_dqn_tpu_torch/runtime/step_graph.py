@@ -329,6 +329,9 @@ class GraphedEndpoints:
     # there (the reference of the graph-vs-eager card tests and of the
     # eager timings), and it is not a fallback
     capture = True
+    # leading shard axes of a staged block: 1 for the dp-sharded
+    # learner's [dp, chunk, ...] blocks (parallel/dist_learner.py)
+    shard_dims = 0
 
     @property
     def graphed(self) -> bool:
@@ -399,7 +402,7 @@ class GraphedEndpoints:
         by the g blocks it wrote. -> state."""
         self._add_graph(g)(state, inputs, self.capture)
         td = inputs["priorities"]
-        block = td.shape[1] if g > 1 else td.shape[0]
+        block = td.shape[(1 if g > 1 else 0) + self.shard_dims]
         for _ in range(g):
             self.replay.advance_host(state.replay, block)
         return state
@@ -445,25 +448,26 @@ class GraphedEndpoints:
     def land_add_at(self, views: dict, lead: tuple) -> dict:
         """The host-to-device copies of one directed add (views {key:
         [block, ...]} with "priorities", reshaped to `lead` + the leaf
-        shape): into the add_at graph's static inputs when graphed,
-        else fresh device tensors; with a "start" slot the add reads."""
-        graph = self._swap_graph("add_at", lead[0])
+        shape; lead (dp, block) for stacked shards): into the add_at
+        graph's static inputs when graphed, else fresh device tensors;
+        with a "start" slot the add reads (one per shard)."""
+        graph = self._swap_graph("add_at", lead[-1])
         inputs = graph.land(views, lead, self.replay.device, self.graphed)
         if "start" not in inputs:
-            inputs["start"] = torch.zeros((), dtype=torch.int64,
+            inputs["start"] = torch.zeros(lead[:-1], dtype=torch.int64,
                                           device=self.replay.device)
         return inputs
 
     def add_at_landed(self, state, inputs: dict, start: torch.Tensor,
-                      start_host: int):
+                      start_host):
         """The directed add of one landed block at the device `start`
         (an evict result, copied into inputs["start"] on the device):
         one replay of the add_at graph on the card, the body elsewhere;
         then the host cursor follows the directed write from
-        `start_host`, the same start fetched to the host by the caller.
-        -> state."""
+        `start_host`, the same start fetched to the host by the caller
+        (one per shard for stacked shards). -> state."""
         inputs["start"].copy_(start)
-        block = inputs["priorities"].shape[0]
+        block = inputs["priorities"].shape[self.shard_dims]
         self._swap_graph("add_at", block)(state, inputs, self.capture)
-        self.replay.advance_host_at(state.replay, int(start_host), block)
+        self.replay.advance_host_at(state.replay, start_host, block)
         return state

@@ -37,6 +37,8 @@ import json
 import os
 from typing import Iterable
 
+import torch
+
 from ape_x_dqn_tpu_torch.configs import RunConfig
 from ape_x_dqn_tpu_torch.utils.metrics import (
     ATARI_HUMAN_RANDOM, Metrics, human_normalized_score, median_hns)
@@ -56,20 +58,22 @@ def suite_games(games: Iterable[str] | None = None,
 
 def _check_mesh_fits(cfg: RunConfig) -> None:
     """Fail BEFORE the first game if the preset's parallel layout needs
-    more than one card: `atari57_apex` carries dp=4 x tp=2, and the
-    port's learner runs on one card (the multi-GPU learner is ROADMAP
-    Queue A item 14); without this check the first game's driver would
-    refuse only after the envs and networks are built."""
+    more devices than this host has: `atari57_apex` carries dp=4 x tp=2,
+    and without this check a one-card host only finds out inside mesh
+    construction after building envs and networks. The devices counted
+    are the visible cards, the driver's default mesh devices
+    (parallel/mesh.py)."""
     need = cfg.parallel.dp * cfg.parallel.tp
     if need <= 1:
         return
-    raise ValueError(
-        f"config wants a dp={cfg.parallel.dp} x tp={cfg.parallel.tp} "
-        f"device mesh ({need} cards), but the PyTorch package runs the "
-        f"learner on one card (the multi-GPU learner waits for ROADMAP "
-        f"Queue A item 14). Run with --set parallel.dp=1 --set "
-        f"parallel.tp=1, or shard the suite across hosts "
-        f"(--games-shard).")
+    have = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if need > have:
+        raise ValueError(
+            f"config wants a dp={cfg.parallel.dp} x tp={cfg.parallel.tp} "
+            f"device mesh ({need} chips) but this host has {have} "
+            f"device(s). On a single-chip host run with "
+            f"--set parallel.dp=1 --set parallel.tp=1, or shard the "
+            f"suite across hosts that have the chips (--games-shard).")
 
 
 def train_one_game(cfg: RunConfig, game: str, game_dir: str,

@@ -27,10 +27,14 @@ the port's own:
   params for the one family registered, up to 1.66 GB for an LSTM
   Q-net of 6.5M params at bucket 64, which the headroom was not
   measured with.
+- `card_budget` prices one card of the dp-sharded learner's mesh at the
+  replay shards the mesh puts there: the original prices a device at
+  one shard, while the port's one-card meshes hold all dp shards.
 """
 
 from __future__ import annotations
 
+import dataclasses
 import math
 from dataclasses import dataclass
 from typing import Any
@@ -202,14 +206,31 @@ def device_hbm_bytes(device=None) -> int | None:
         .total_memory)
 
 
+def card_budget(budget: HbmBudget, shards_per_card: int) -> HbmBudget:
+    """The budget of one card that holds `shards_per_card` replay
+    shards: the dp-sharded learner's mesh may put several (all of them,
+    on a mesh of one card repeated) on a card, and each shard's storage
+    and sum-tree count there; the model state is whole on every card."""
+    if shards_per_card == 1:
+        return budget
+    return dataclasses.replace(
+        budget, replay_storage=budget.replay_storage * shards_per_card,
+        replay_tree=budget.replay_tree * shards_per_card,
+        capacity=budget.capacity * shards_per_card,
+        detail=dict(budget.detail, shards_per_card=shards_per_card))
+
+
 def check_hbm_fits(cfg: Any, obs_shape: tuple[int, ...], obs_dtype=np.uint8,
                    param_count: int = 5_000_000, device=None,
-                   hbm_bytes: int | None = None) -> HbmBudget:
+                   hbm_bytes: int | None = None,
+                   shards_per_card: int = 1) -> HbmBudget:
     """Raise ValueError (loudly, with the budget table and the fix)
-    when the config's per-device footprint exceeds the card's memory.
+    when the config's footprint on one card (with `shards_per_card` of
+    its replay shards, `card_budget`) exceeds the card's memory.
     Returns the budget either way on success; returns without a check
     when there is no card to budget (`device_hbm_bytes` None)."""
-    budget = run_budget(cfg, obs_shape, obs_dtype, param_count)
+    budget = card_budget(run_budget(cfg, obs_shape, obs_dtype, param_count),
+                         shards_per_card)
     limit = hbm_bytes if hbm_bytes is not None else device_hbm_bytes(device)
     if limit is None:
         return budget

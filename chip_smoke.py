@@ -15,7 +15,10 @@ non-zero:
              packed 84x84x4 stacks, the latter from 32,768 rows and from
              a full 2^20-row leaf of 29.66 GB; the r2d2 replay's
              585,728-byte packed single-frame sequences, 256 rows from a
-             full 65,536-row leaf of 38.39 GB), with its time, the plain
+             full 65,536-row leaf of 38.39 GB; the dp-sharded learners'
+             draws over all four shards' flat view: 8192 frame rows from
+             atari57_apex's 2,883,584 and 256 sequences from r2d2's
+             4 x 16,384), with its time, the plain
              version's, one library call's, a contiguous copy of the
              same bytes, and its bound
 4. reference one K=4 macro-step of a small float32 learner on the
@@ -64,7 +67,7 @@ non-zero:
              cartpole_smoke --single-process` for 9,000 frames on the
              card: the repo's quick learning bar (last20 > 60)
 9. pong-sp   the same CLI with `--config pong --set
-             learner.sample_prefetch=True` for 24,000 frames: the
+             learner.sample_prefetch=True` for 22,000 frames: the
              dueling Nature-CNN at full width over a 2^20-slot flat
              prioritized replay (59.3 GB of packed pixel rows), K=4 with
              the double-buffered sampler; launch counts zeroed just
@@ -164,7 +167,33 @@ non-zero:
              add_at dispatch, ColdStore.put), the compression ratio,
              cold against ring bytes per
              transition, frames/s against apex's
-17. the memory table (each preset's budget beside its measured peak and
+17. dist     the dp-sharded learners alone on their presets' own dp=4
+             x tp=2 meshes of this card ([card] * 8, every shard on it):
+             DistDQNLearner over atari57_apex's frame ring (batch 512,
+             K=4, 4 shards of 524,288 transitions) and
+             DistSequenceLearner over r2d2's replay (64 x 80, K=4, 4
+             shards of 16,384 sequences): the graph against the eager
+             body bitwise after 1 and 5 macro-steps, a dp=1 dist learner
+             against the single-card learner (bf16, 3e-2), eager and
+             graph grad-steps/s beside main's and r2d2's, the peak
+             memory against the budget of four shards, shard_stats.
+             Then both presets through ApexDriver on those meshes
+             (atari57_apex: 8 actors x 16 envs, min_fill 20,000, 60,000
+             frames, 120 s; r2d2: 8 actors, min_fill 256, 30,000
+             frames, 180 s): a clean end, grad-steps, graph replays, the
+             gather once per draw and side over all shards, the
+             per-shard drop closure, replay_shards in lockstep,
+             publications advancing; frames/s and host ms per add
+             beside apex's and r2d2's
+18. legacy   `--config pong --set replay.ingest_zero_copy=False --set
+             actors.num_actors=4 --set replay.min_fill=2048
+             --wall-clock-limit 30`: the legacy staging path (no stager)
+             to a clean end, frames reaching replay, the learner
+             training; host ms per flush's add
+19. dist_cold the tiers: configuration at dp=2 through ApexDriver: at
+             least one swap per shard, evicted == stored + dropped per
+             shard, the swap graphs replayed
+20. the memory table (each preset's budget beside its measured peak and
              the card), the kernels line, the card line, and the
              contract's last line.
 
@@ -207,6 +236,9 @@ PROFILE_STEPS = 3
 RATE_STEPS = 8
 # r2d2: macro-steps of the learner alone after the driver's run
 R2D2_ALONE = 4
+# pong-sp: frames of the single-process run; the first min_fill (20,000)
+# only fill the replay, then every frame trains (~2,000 grad-steps)
+PONG_SP_FRAMES = 22000
 # dpg: grad-steps of the learner alone after the driver's run
 DPG_ALONE = 64
 # the entry points' device (the CLI's and the actor hosts')
@@ -277,8 +309,37 @@ TIERS_CAPACITY = 16384
 TIERS_FRAMES = 60000
 TIERS_WALL_S = 150
 TIERS_SETS: tuple[str, ...] = ()
-# frames/s of the driver phases, by phase (the tiers phase reads apex's)
+# frames/s of the driver phases, by phase (the tiers phase reads apex's),
+# and the learners' rates alone (main_*, r2d2_*: the dist phase reads
+# them); the ingest add's host ms median, by driver phase
 RATES: dict[str, float] = {}
+ADD_MS: dict[str, float] = {}
+# dist: the dp-sharded learners alone on their presets' dp=4 x tp=2
+# meshes of this card (graph vs eager bitwise after 1 and DIST_STEPS
+# macro-steps; the fill: DIST_FILL_SEGS segments a shard on the frame
+# ring, DIST_FILL_SEQS sequences a shard on r2d2's replay), then the
+# drivers: atari57_apex cut as apex: is (8 actors x 16 envs, 60,000
+# frames, 120 s; min_fill 20,000), r2d2 cut as r2d2: is (8 actors,
+# min_fill 256, 30,000 frames, 180 s)
+DIST_STEPS = 5
+DIST_FILL_SEGS = 512
+DIST_FILL_SEQS = 128
+DIST_APEX_SETS = ("actors.num_actors=8", "replay.min_fill=20000")
+DIST_APEX_FRAMES = 60000
+DIST_APEX_WALL_S = 120
+DIST_R2D2_SETS = ("actors.num_actors=8", "replay.min_fill=256")
+DIST_R2D2_FRAMES = 30000
+DIST_R2D2_WALL_S = 180
+# legacy: pong with the legacy staging path, 4 actors, 30 s (a small
+# min_fill so the learner trains, and the gather runs, in that time)
+LEGACY_SETS = ("replay.ingest_zero_copy=False", "actors.num_actors=4",
+               "replay.min_fill=2048")
+LEGACY_WALL_S = 30
+# dist_cold: the tiers: configuration at dp=2 (two shards of 8,192)
+DIST_COLD_FRAMES = 60000
+DIST_COLD_WALL_S = 90
+# the bf16 tolerance of the CPU parity tests (tests/test_torch_models.py)
+BF16_TOL = 3e-2
 # the card's name and power limit (nvidia-smi), set by main and printed
 # beside the serve and tiers phases' numbers
 CARD = ""
@@ -452,10 +513,27 @@ def phase_kernel(dev, seed: int) -> list[dict]:
     check(seq_row == 585_728 and seq_cap == 65_536 and seq_m == 256,
           f"unexpected sequence shape: row {seq_row}, capacity {seq_cap}, "
           f"m={seq_m}")
+    # the dp-sharded learners' draws: one launch per side (per draw)
+    # over the shard-major flat view of all dp shards
+    a57 = get_config("atari57_apex")
+    dp = a57.parallel.dp
+    shard = build_prioritized_replay(
+        a57, pong_setup(dev)[1], next_pow2(a57.replay.capacity // dp), dev)
+    dist_rows = dp * shard.S * shard.F
+    check(dp == 4 and shard.capacity == 524_288 and dist_rows == 2_883_584,
+          f"unexpected atari57_apex shards: dp {dp}, {shard.capacity} "
+          f"slots, {dist_rows} rows")
+    r2_dp = r2.parallel.dp
+    r2_shard = next_pow2(r2.replay.capacity // r2_dp)
+    check(r2_dp == 4 and r2_shard == 16_384, f"unexpected r2d2 shards: dp "
+          f"{r2_dp}, {r2_shard} sequences")
     return [kernel_site(dev, seed, "frame_ring", n_rows, row, m),
             kernel_site(dev, seed, "flat", 32768, flat_row, kb),
             kernel_site(dev, seed, "flat_full", capacity, flat_row, kb),
-            kernel_site(dev, seed, "sequence", seq_cap, seq_row, seq_m)]
+            kernel_site(dev, seed, "sequence", seq_cap, seq_row, seq_m),
+            kernel_site(dev, seed, "dist_frame_ring", dist_rows, row, m),
+            kernel_site(dev, seed, "dist_sequence", r2_dp * r2_shard,
+                        seq_row, seq_m)]
 
 
 def phase_reference(dev, seed: int) -> None:
@@ -733,6 +811,7 @@ def phase_main(dev, seed: int) -> dict:
         f"gathered obs/next_obs bitwise equal to plain; diag={diag}")
     eager = learner_rate(learner, state, k, RATE_STEPS, capture=False)
     graphed = learner_rate(learner, state, k, RATE_STEPS, capture=True)
+    RATES["main_eager"], RATES["main_graph"] = eager, graphed
     log(f"main: the pong learner alone, grad-steps/s eager={eager:.2f} "
         f"graph={graphed:.2f} (host clock over {RATE_STEPS} macro-steps "
         f"each, after one untimed call; the same learner and replay)")
@@ -789,10 +868,11 @@ def check_graphed(driver, key, gathers: int) -> None:
 MEMORY: dict[str, tuple] = {}
 
 
-def note_memory(name: str, budget=None) -> float:
-    """Record the phase's peak allocated bytes (since its reset) beside
-    its budget; -> the peak in GB."""
-    peak = torch.cuda.max_memory_allocated()
+def note_memory(name: str, budget=None, base: int = 0) -> float:
+    """Record the phase's peak allocated bytes (since its reset, less
+    `base`, what was allocated before the phase began) beside its
+    budget; -> the peak in GB."""
+    peak = torch.cuda.max_memory_allocated() - base
     MEMORY[name] = (budget, peak)
     return peak / 1e9
 
@@ -1010,6 +1090,7 @@ def phase_apex(seed: int) -> dict:
         "bitwise (frames and fields); the learner replayed its captured "
         "macro-step graph with the actors ungated")
     ms = np.median(adds) * 1e3 if adds else math.nan
+    ADD_MS["apex"] = ms
     log(f"apex: the ingest add as graph replays: host ms median {ms:.2f}, "
         f"{out['ingest_dropped']} dropped ({calls['dropped_at_first']} "
         f"before the first train dispatch); the eager add on this card "
@@ -1133,6 +1214,8 @@ def phase_r2d2(seed: int) -> dict:
 
     driver = seen.pop("driver")
     peak_gb = note_memory("r2d2", driver.hbm_budget)
+    RATES["r2d2"] = out["frames"] / wall
+    ADD_MS["r2d2"] = np.median(adds) * 1e3 if adds else math.nan
     storage = driver.state.replay.storage
     replay_gb = sum(v.numel() * v.element_size()
                     for v in storage.values()) / 1e9
@@ -1211,6 +1294,7 @@ def phase_r2d2(seed: int) -> dict:
     learner, state = driver.learner, driver.state
     eager = learner_rate(learner, state, k, R2D2_ALONE, capture=False)
     graphed = learner_rate(learner, state, k, R2D2_ALONE, capture=True)
+    RATES["r2d2_eager"], RATES["r2d2_graph"] = eager, graphed
     log(f"r2d2: the learner alone after the run: grad-steps/s "
         f"eager={eager:.2f} graph={graphed:.2f} (host clock over "
         f"{R2D2_ALONE} train_step_k each, after one untimed call)")
@@ -1259,7 +1343,7 @@ def phase_pong_single_process(seed: int) -> dict:
     try:
         out, wall = run_cli([
             "--config", "pong", "--single-process", "--seed", str(seed),
-            "--total-env-frames", "24000",
+            "--total-env-frames", str(PONG_SP_FRAMES),
             "--set", "learner.sample_prefetch=True", "--device", "cuda"])
     finally:
         DQNLearner.sample_k, DQNLearner.learn_k = orig_sample_k, orig_learn_k
@@ -1303,7 +1387,8 @@ def phase_pong_single_process(seed: int) -> dict:
         check(torch.equal(got, want), f"sampled {key}: kernel != plain")
     train_s = t_end - calls["first_s"]
     log(f"pong-sp: `--config pong --single-process --total-env-frames "
-        f"24000 --set learner.sample_prefetch=True --device cuda`: "
+        f"{PONG_SP_FRAMES} --set learner.sample_prefetch=True --device "
+        f"cuda`: "
         f"dueling Nature-CNN bf16, 84x84x4 uint8, "
         f"{cfg.env.kind}/{atari_backend(cfg.env.kind)} backend, batch {b}, "
         f"K={k} with prefetch; flat prioritized replay of "
@@ -2558,6 +2643,549 @@ def phase_tiers(seed: int) -> dict:
     return launches
 
 
+# -- the dp-sharded learner ------------------------------------------------
+
+
+@contextlib.contextmanager
+def deterministic():
+    """cuDNN's and PyTorch's deterministic algorithms, so two runs of one
+    body agree bitwise (a K=4 draw may write one leaf twice: the
+    deterministic write-back keeps the later one; the card tests' rule)."""
+    old = (torch.backends.cudnn.deterministic,
+           torch.are_deterministic_algorithms_enabled(),
+           torch.is_deterministic_algorithms_warn_only_enabled())
+    torch.backends.cudnn.deterministic = True
+    torch.use_deterministic_algorithms(True, warn_only=True)
+    try:
+        yield
+    finally:
+        torch.backends.cudnn.deterministic = old[0]
+        torch.use_deterministic_algorithms(old[1], warn_only=old[2])
+
+
+def dist_learner(dev, seed: int, preset: str, capture: bool):
+    """The preset's dp-sharded learner at full width on its own dp x tp
+    mesh of this card, its shards filled in lockstep from numpy (the
+    same bits for every call with one seed). -> (cfg, learner, state)."""
+    from ape_x_dqn_tpu_torch.configs import get_config
+    from ape_x_dqn_tpu_torch.models import build_network, init_params
+    from ape_x_dqn_tpu_torch.parallel.dist_learner import (
+        DistDQNLearner, DistSequenceLearner)
+    from ape_x_dqn_tpu_torch.parallel.mesh import make_mesh
+    from ape_x_dqn_tpu_torch.replay.prioritized import PrioritizedReplay
+    from ape_x_dqn_tpu_torch.replay.sequence import sequence_item_spec
+    from ape_x_dqn_tpu_torch.runtime.build import build_prioritized_replay
+    from ape_x_dqn_tpu_torch.utils.misc import next_pow2
+    from ape_x_dqn_tpu_torch.utils.rng import component_generator
+
+    cfg = get_config(preset)
+    _, spec = pong_setup(dev)
+    dp, tp = cfg.parallel.dp, cfg.parallel.tp
+    check(dp == 4 and tp == 2 and cfg.learner.sample_chunk == 4,
+          f"{preset} preset drift: dp {dp}, tp {tp}")
+    mesh = make_mesh(dp=dp, tp=tp, devices=[dev] * (dp * tp))
+    net = build_network(cfg.network, spec)
+    init_params(net, component_generator(seed, "net_init"))
+    net.to(dev)
+    shard_cap = next_pow2(cfg.replay.capacity // dp)
+    rng = np.random.default_rng(seed)
+    gen = component_generator(seed, "learner", device=dev)
+    if cfg.replay.kind == "sequence":
+        rep = cfg.replay
+        replay = PrioritizedReplay(shard_cap, alpha=rep.alpha, beta=rep.beta,
+                                   eps=rep.eps, device=dev)
+        learner = DistSequenceLearner(replay, cfg.learner, rep, mesh)
+        state = learner.init(net, sequence_item_spec(
+            (84, 84, 4), np.uint8, rep.seq_length, cfg.network.lstm_size,
+            frame_mode=True), gen)
+        n, seq, lstm = DIST_FILL_SEQS, rep.seq_length, cfg.network.lstm_size
+        lead = (dp, n)
+        items = {
+            "seq_frames": torch.from_numpy(rng.integers(
+                0, 255, lead + (seq + 3, 84, 84), dtype=np.uint8)),
+            "actions": torch.from_numpy(rng.integers(
+                0, spec.num_actions, lead + (seq,)).astype(np.int32)),
+            "rewards": torch.from_numpy(
+                rng.normal(size=lead + (seq,)).astype(np.float32)),
+            "terminals": torch.zeros(lead + (seq,)),
+            "mask": torch.ones(lead + (seq,)),
+            "init_c": torch.from_numpy(
+                0.3 * rng.normal(size=lead + (lstm,)).astype(np.float32)),
+            "init_h": torch.from_numpy(
+                0.3 * rng.normal(size=lead + (lstm,)).astype(np.float32)),
+        }
+        td = torch.from_numpy(rng.uniform(0.1, 2.0, lead).astype(np.float32))
+        learner.add(state, items, td)
+    else:
+        replay = build_prioritized_replay(cfg, spec, shard_cap, dev,
+                                          frame_mode=True)
+        learner = DistDQNLearner(replay, cfg.learner, mesh)
+        state = learner.init(net, None, gen)
+        per = 128
+        for _ in range(DIST_FILL_SEGS // per):
+            items, td = segments(replay, spec, dp, per, rng)
+            learner.add(state, items, td)
+    learner.capture = capture
+    torch.cuda.synchronize()
+    return cfg, learner, state
+
+
+def dist_snapshot(state, m) -> dict:
+    """Params, target params, Adam's moments and count, the shard trees,
+    the cursors and every metric, on the host."""
+    snap = {f"net.{k}": v.detach().cpu() for k, v in
+            state.net.state_dict().items()}
+    snap.update({f"target.{k}": v.detach().cpu() for k, v in
+                 state.target_net.state_dict().items()})
+    opt = state.opt_state
+    snap["opt.count"] = opt.count.cpu()
+    for i, (mu, nu) in enumerate(zip(opt.mu, opt.nu)):
+        snap[f"opt.mu{i}"], snap[f"opt.nu{i}"] = mu.cpu(), nu.cpu()
+    rs = state.replay
+    snap["tree"] = rs.tree.cpu()
+    snap["cursors"] = torch.cat([rs.pos_dev.cpu(), rs.size_dev.cpu()])
+    from ape_x_dqn_tpu_torch.runtime.step_graph import pack_metrics
+    snap["metrics"] = pack_metrics(m)[0].cpu()
+    return snap
+
+
+def dist_run(dev, seed: int, preset: str, capture: bool) -> dict:
+    """DIST_STEPS macro-steps of the preset's dist learner (graphs, or
+    eager with `capture` off), deterministic, snapshots after the 1st
+    and the last; then its rate (host clock over RATE_STEPS macro-steps,
+    deterministic algorithms off, the graph captured anew), its peak
+    memory against the card's budget of four shards, and shard_stats.
+    The learner is freed before this returns."""
+    from ape_x_dqn_tpu_torch.utils.hbm import check_hbm_fits
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold is not this learner's
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    cfg, learner, state = dist_learner(dev, seed, preset, capture)
+    build_s = time.perf_counter() - t0
+    k = cfg.learner.sample_chunk
+    snaps = []
+    with deterministic():
+        for i in range(DIST_STEPS):
+            state, m = learner.train_step_k(state, k)
+            if i in (0, DIST_STEPS - 1):
+                snaps.append(dist_snapshot(state, m))
+    graph = learner.step_graphs()[("k", k)]
+    captured, gathers = graph.captured, graph.gathers
+    if capture:
+        # capture anew without the deterministic algorithms for the rate
+        learner.__dict__.pop("_graphs")
+        del graph
+        gc.collect()
+        learner_step(learner, state, k)      # the eager warm-up
+    rate = learner_rate(learner, state, k, RATE_STEPS, capture)
+    stats = learner.shard_stats(state)
+    params = sum(p.numel() for p in state.net.parameters())
+    budget = check_hbm_fits(cfg, (84, 84, 4), np.uint8, param_count=params,
+                            device=dev, shards_per_card=4)
+    peak = note_memory(f"dist_learner_{preset}"
+                       + ("" if capture else "_eager"), budget, base)
+    replay_gb = sum(v.numel() * v.element_size()
+                    for v in state.replay.storage.values()) / 1e9
+    del learner, state, m
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"snaps": snaps, "rate": rate, "stats": stats, "build_s": build_s,
+            "captured": captured, "gathers": gathers, "peak_gb": peak,
+            "budget_gb": budget.total / 1e9, "replay_gb": replay_gb,
+            "base_gb": base / 1e9}
+
+
+def dist_dp1_parity(dev, seed: int, preset: str) -> float:
+    """A dp=1 dist learner against the single-card learner (DQNLearner,
+    SequenceLearner) at the preset's width on identical weights, replay
+    contents and noise, one K=4 macro-step each (eager: a first call):
+    -> the largest parameter difference (BF16_TOL)."""
+    import copy
+
+    from ape_x_dqn_tpu_torch.configs import get_config
+    from ape_x_dqn_tpu_torch.models import build_network, init_params
+    from ape_x_dqn_tpu_torch.parallel.dist_learner import (
+        DistDQNLearner, DistSequenceLearner)
+    from ape_x_dqn_tpu_torch.parallel.mesh import make_mesh
+    from ape_x_dqn_tpu_torch.replay.prioritized import PrioritizedReplay
+    from ape_x_dqn_tpu_torch.replay.sequence import sequence_item_spec
+    from ape_x_dqn_tpu_torch.runtime.build import build_prioritized_replay
+    from ape_x_dqn_tpu_torch.runtime.learner import DQNLearner
+    from ape_x_dqn_tpu_torch.runtime.sequence_learner import SequenceLearner
+    from ape_x_dqn_tpu_torch.utils.rng import component_generator
+
+    cfg = get_config(preset)
+    _, spec = pong_setup(dev)
+    k, b = cfg.learner.sample_chunk, cfg.learner.batch_size
+    mesh = make_mesh(dp=1, tp=1, devices=[dev])
+    net = build_network(cfg.network, spec)
+    init_params(net, component_generator(seed, "net_init"))
+    net.to(dev)
+    net2 = copy.deepcopy(net)
+    gen = component_generator(seed, "learner", device=dev)
+    rng = np.random.default_rng(seed + 1)
+    if cfg.replay.kind == "sequence":
+        rep, lstm = cfg.replay, cfg.network.lstm_size
+        spec_i = sequence_item_spec((84, 84, 4), np.uint8, rep.seq_length,
+                                    lstm, frame_mode=True)
+        ra, rb = (PrioritizedReplay(512, device=dev) for _ in range(2))
+        single = SequenceLearner(ra, cfg.learner, rep)
+        sa = single.init(net, ra.init(spec_i), gen)
+        dist = DistSequenceLearner(rb, cfg.learner, rep, mesh)
+        sb = dist.init(net2, spec_i, gen)
+        n, seq = 256, rep.seq_length
+        items = {
+            "seq_frames": rng.integers(0, 255, (n, seq + 3, 84, 84),
+                                       dtype=np.uint8),
+            "actions": rng.integers(0, 18, (n, seq)).astype(np.int32),
+            "rewards": rng.normal(size=(n, seq)).astype(np.float32),
+            "terminals": np.zeros((n, seq), np.float32),
+            "mask": np.ones((n, seq), np.float32),
+            "init_c": (0.3 * rng.normal(size=(n, lstm))).astype(np.float32),
+            "init_h": (0.3 * rng.normal(size=(n, lstm))).astype(np.float32),
+        }
+        items = {key: torch.from_numpy(v) for key, v in items.items()}
+        td = torch.from_numpy(rng.uniform(0.1, 2.0, n).astype(np.float32))
+        single.add(sa, items, td)
+        dist.add(sb, {key: v[None] for key, v in items.items()}, td[None])
+    else:
+        ra, rb = (build_prioritized_replay(cfg, spec, 1 << 16, dev,
+                                           frame_mode=True)
+                  for _ in range(2))
+        single = DQNLearner(ra, cfg.learner)
+        sa = single.init(net, ra.init(), gen)
+        dist = DistDQNLearner(rb, cfg.learner, mesh)
+        sb = dist.init(net2, None, gen)
+        items, td = segments(ra, spec, 1, 512, rng)
+        single.add(sa, {key: v[0] for key, v in items.items()}, td[0])
+        dist.add(sb, items, td)
+    noise = torch.rand(k * b, device=dev, generator=torch.Generator(
+        device=dev).manual_seed(seed))
+    sa, ma = single.train_step_k(sa, k, noise)
+    sb, mb = dist.train_step_k(sb, k, noise[None])
+    torch.cuda.synchronize()
+    diff = max(float((x - y).detach().abs().max()) for x, y in
+               zip(sa.net.parameters(), sb.net.parameters()))
+    loss_a, loss_b = ma["loss"].item(), mb["loss"].item()
+    check(math.isfinite(loss_a) and abs(loss_a - loss_b)
+          <= BF16_TOL * max(1.0, abs(loss_a)),
+          f"{preset}: dp=1 dist loss {loss_b} vs the single-card "
+          f"learner's {loss_a}")
+    check(diff <= BF16_TOL, f"{preset}: dp=1 dist params {diff} from the "
+          f"single-card learner's (tolerance {BF16_TOL})")
+    del single, dist, sa, sb, ra, rb, net, net2
+    gc.collect()
+    torch.cuda.empty_cache()
+    return diff
+
+
+def phase_dist_learners(dev, seed: int) -> None:
+    """The dp-sharded learners alone at full width on their presets' own
+    dp=4 x tp=2 meshes of this card: DistDQNLearner over atari57_apex's
+    frame ring (batch 512, K=4, 4 shards of 524,288 transitions) and
+    DistSequenceLearner over r2d2's replay (64 x 80, K=4, 4 shards of
+    16,384 sequences). For each: the graph against the eager body,
+    bitwise, after 1 and DIST_STEPS macro-steps; a dp=1 dist learner
+    against the single-card learner; eager and graph grad-steps/s beside
+    main's and r2d2's; the peak memory against the budget; shard_stats."""
+    for preset, single in (("atari57_apex", "main"), ("r2d2", "r2d2")):
+        t0 = time.perf_counter()
+        g = dist_run(dev, seed, preset, capture=True)
+        e = dist_run(dev, seed, preset, capture=False)
+        check(g["captured"] and not e["captured"],
+              f"{preset}: the graph run did not capture, or the eager one "
+              f"did")
+        per_draw = 1 if preset == "r2d2" else 2
+        check(g["gathers"] == per_draw, f"{preset}: the macro-step graph "
+              f"carries {g['gathers']} gather launches, expected "
+              f"{per_draw} (one launch per side over all four shards)")
+        for after, gs, es in zip((1, DIST_STEPS), g["snaps"], e["snaps"]):
+            check(gs.keys() == es.keys(), f"{preset}: snapshot keys")
+            for name in gs:
+                check(torch.equal(gs[name], es[name]), f"{preset}: {name} "
+                      f"of the graph != the eager body after {after} "
+                      f"macro-steps")
+        stats = g["stats"]
+        check(stats["fill_min"] == stats["fill_max"] > 0
+              and len(set(stats["sizes"])) == 1,
+              f"{preset}: shards not in lockstep: {stats}")
+        check(g["peak_gb"] * 1e9 <= g["budget_gb"] * 1e9,
+              f"{preset}: peak {g['peak_gb']:.2f} GB above the budget "
+              f"{g['budget_gb']:.2f} GB")
+        diff = dist_dp1_parity(dev, seed, preset)
+        log(f"dist: {preset} learner alone on its dp=4 x tp=2 mesh of this "
+            f"card: graph == eager bitwise (params, target, Adam, the four "
+            f"shard trees, cursors, metrics) after 1 and {DIST_STEPS} K=4 "
+            f"macro-steps; {g['gathers']} gather launches a replay; "
+            f"grad-steps/s eager={e['rate']:.2f} graph={g['rate']:.2f} "
+            f"(host clock over {RATE_STEPS} macro-steps each; {single}: "
+            f"single shard eager={RATES.get(single + '_eager', math.nan):.2f}"
+            f" graph={RATES.get(single + '_graph', math.nan):.2f}, this "
+            f"call); replay {g['replay_gb']:.2f} GB, build "
+            f"{g['build_s']:.2f} s, peak {g['peak_gb']:.2f} GB (above the "
+            f"{g['base_gb']:.2f} GB earlier phases still held) vs budget "
+            f"{g['budget_gb']:.2f} GB; dp=1 dist vs single-card learner "
+            f"max param diff {diff:.3g} (tolerance {BF16_TOL}); "
+            f"shard_stats={json.dumps(stats)}; "
+            f"{time.perf_counter() - t0:.2f} s; card {CARD}")
+
+
+def dist_driver(seed: int, preset: str, sets: tuple, frames: int,
+                wall_s: float, name: str) -> dict:
+    """The preset through ApexDriver on its own dp x tp mesh of this card
+    (mesh_devices = [card] * dp*tp), in this process. Wrapped: the
+    server's update_params counts publications and their versions, the
+    dist learner's train_many counts draws, ApexDriver._ship_staged is
+    timed. Checks: a clean end, grad-steps > 0, the graphs replayed, the
+    gather once per draw and side, the per-shard drop closure, the
+    shards in lockstep, publications advancing. -> its summary."""
+    from ape_x_dqn_tpu_torch.configs import get_config
+    from ape_x_dqn_tpu_torch.ops import frame_gather as fg
+    from ape_x_dqn_tpu_torch.parallel.dist_learner import _DistLearnerBase
+    from ape_x_dqn_tpu_torch.parallel.inference_server import (
+        BatchedInferenceServer)
+    from ape_x_dqn_tpu_torch.runtime.driver import ApexDriver
+    from ape_x_dqn_tpu_torch.runtime.train import apply_overrides
+
+    cfg = apply_overrides(get_config(preset), list(sets)).replace(seed=seed)
+    dp, tp = cfg.parallel.dp, cfg.parallel.tp
+    k = cfg.learner.sample_chunk
+    calls = {"versions": [], "macro": 0, "singles": 0}
+    orig = (BatchedInferenceServer.update_params,
+            _DistLearnerBase.train_many)
+
+    def update_params(self, params, version):
+        calls["versions"].append(version)
+        return orig[0](self, params, version)
+
+    def train_many(self, state, n, noise=None):
+        calls["macro"] += n // k
+        calls["singles"] += n % k
+        return orig[1](self, state, n, noise)
+
+    dev = torch.device(DEVICE)
+    threads_before = {t.ident for t in threading.enumerate()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    # what earlier phases still hold is not this run's
+    base = torch.cuda.memory_allocated()
+    BatchedInferenceServer.update_params = update_params
+    _DistLearnerBase.train_many = train_many
+    t0 = time.perf_counter()
+    try:
+        # the stager binds the (timed) ship when the driver is built
+        with timed_adds() as adds:
+            driver = ApexDriver(cfg, device=dev,
+                                mesh_devices=[dev] * (dp * tp))
+            fg.gather_rows.launches = 0   # count the main path's run only
+            out = driver.run(total_env_frames=frames,
+                             wall_clock_limit_s=wall_s)
+        torch.cuda.synchronize()
+    finally:
+        BatchedInferenceServer.update_params, _DistLearnerBase.train_many = \
+            orig
+    wall = time.perf_counter() - t0
+    launches = {"gather_rows": fg.gather_rows.launches}
+    left = [t.name for t in threading.enumerate()
+            if t.ident not in threads_before]
+    peak_gb = note_memory(name, driver.hbm_budget, base)
+    per_draw = 1 if driver.family == "r2d2" else 2
+    replays = sum(g.replays for g in driver.learner.add_graphs().values())
+    shards = out.get("replay_shards", {})
+    v = calls["versions"]
+    fps = out["frames"] / wall
+    single = "apex" if driver.family != "r2d2" else "r2d2"
+    add_ms = np.median(adds) * 1e3 if adds else math.nan
+    log(f"{name}: `{preset}` on its dp={dp} x tp={tp} mesh of this card "
+        f"through ApexDriver (sets {list(sets)}, {frames} frames, "
+        f"{wall_s} s): frames={out['frames']} frames/s={fps:.1f} "
+        f"({single}: {RATES.get(single, math.nan):.1f}); grad_steps="
+        f"{out['grad_steps']} ({calls['macro']} macro-steps); host ms per "
+        f"add median {add_ms:.2f} ({single}: "
+        f"{ADD_MS.get(single, math.nan):.2f}); "
+        f"{adds_summary(adds, out)}; add graph replays {replays}; "
+        f"dropped {out['ingest_dropped']} (per shard "
+        f"{out['ingest_dropped_per_shard']}); publications {len(v)} "
+        f"(versions {v[:3]}...{v[-1:]}); replay_shards="
+        f"{json.dumps(shards)}; launches={launches}; peak_mem_gb="
+        f"{peak_gb:.2f} above the {base / 1e9:.2f} GB earlier phases "
+        f"still held (budget {driver.hbm_budget.total / 1e9:.2f} GB, "
+        f"4 shards); {wall:.2f} s; card {CARD}")
+    check(out["actor_errors"] == [] and out["loop_errors"] == [],
+          f"{name}: actor_errors {out['actor_errors']}, loop_errors "
+          f"{out['loop_errors']}")
+    check(not left, f"{name}: driver threads still running: {left}")
+    check(out["grad_steps"] > 0 and out["grad_steps"]
+          == k * calls["macro"] + calls["singles"],
+          f"{name}: grad_steps {out['grad_steps']}, draws {calls}")
+    check(launches["gather_rows"]
+          == per_draw * (calls["macro"] + calls["singles"]),
+          f"{name}: gather_rows launched {launches['gather_rows']} times, "
+          f"expected {per_draw} per draw ({calls})")
+    check_graphed(driver, ("k", k), gathers=per_draw)
+    check(sum(out["ingest_dropped_per_shard"]) == driver._stage_dropped
+          and len(out["ingest_dropped_per_shard"]) == dp,
+          f"{name}: the per-shard drop closure fails: "
+          f"{out['ingest_dropped_per_shard']} vs {driver._stage_dropped}")
+    check(shards["fill_min"] == shards["fill_max"] > 0
+          and len(set(shards["sizes"])) == 1
+          and driver.state.replay.pos.tolist()
+          == driver.state.replay.pos_dev.tolist(),
+          f"{name}: the shards are not in lockstep: {shards}")
+    check(v and v[0] > 0 and all(a < b for a, b in zip(v, v[1:])),
+          f"{name}: publications did not advance past version 0: {v}")
+    RATES[name] = fps
+    del driver
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_legacy(seed: int) -> dict:
+    """`--config pong` with replay.ingest_zero_copy=False (no stager:
+    batches concatenate into blocks at each flush and ship through the
+    learner's eager add), 4 actors, LEGACY_WALL_S. ApexDriver._add_block
+    is timed on the host clock. Checks: a clean end, no stager, frames
+    reaching replay, the learner's graph and the gather. -> the launch
+    counts of this run."""
+    from ape_x_dqn_tpu_torch.ops import frame_gather as fg
+    from ape_x_dqn_tpu_torch.runtime.driver import ApexDriver
+
+    seen: dict = {}
+    flushes: list[float] = []
+    orig = (ApexDriver.__init__, ApexDriver._add_block)
+
+    def driver_init(self, *a, **kw):
+        orig[0](self, *a, **kw)
+        seen["driver"] = self
+
+    def add_block(self, take, count):
+        t0 = time.perf_counter()
+        orig[1](self, take, count)
+        flushes.append(time.perf_counter() - t0)
+
+    argv = ["--config", "pong", "--seed", str(seed), "--total-env-frames",
+            "60000", "--wall-clock-limit", str(LEGACY_WALL_S),
+            "--device", DEVICE]
+    for s_ in LEGACY_SETS:
+        argv += ["--set", s_]
+    threads_before = {t.ident for t in threading.enumerate()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    ApexDriver.__init__, ApexDriver._add_block = driver_init, add_block
+    fg.gather_rows.launches = 0       # count the main path's run only
+    try:
+        out, wall = run_cli(argv)
+    finally:
+        ApexDriver.__init__, ApexDriver._add_block = orig
+    launches = {"gather_rows": fg.gather_rows.launches}
+    left = [t.name for t in threading.enumerate()
+            if t.ident not in threads_before]
+    driver = seen.pop("driver")
+    peak_gb = note_memory("legacy", driver.hbm_budget)
+    check(out["actor_errors"] == [] and out["loop_errors"] == [],
+          f"legacy: actor_errors {out['actor_errors']}, loop_errors "
+          f"{out['loop_errors']}")
+    check(not left, f"legacy: driver threads still running: {left}")
+    check(driver._stager is None, "legacy: the zero-copy stager was built")
+    check(flushes and driver._replay_filled > 0
+          and driver.state.replay.size == driver._replay_filled,
+          f"legacy: no frames reached replay ({len(flushes)} flushes, "
+          f"filled {driver._replay_filled})")
+    check(out["grad_steps"] > 0 and launches["gather_rows"] > 0,
+          f"legacy: grad_steps {out['grad_steps']}, launches {launches}")
+    ms = np.asarray(flushes) * 1e3
+    log(f"legacy: `{' '.join(argv)}`: frames={out['frames']} "
+        f"frames/s={out['frames'] / wall:.1f} (apex: "
+        f"{RATES.get('apex', math.nan):.1f}); {len(ms)} block adds, host "
+        f"ms per flush's add median {np.median(ms):.2f} p90 "
+        f"{np.percentile(ms, 90):.2f} (concatenate, copy, eager add; "
+        f"apex's graphed add {ADD_MS.get('apex', math.nan):.2f}); replay "
+        f"{driver._replay_filled} transitions; grad_steps="
+        f"{out['grad_steps']}; dropped {out['ingest_dropped']}; "
+        f"launches={launches}; peak_mem_gb={peak_gb:.2f}; {wall:.2f} s; "
+        f"card {CARD}")
+    del driver
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
+def phase_dist_cold(seed: int) -> dict:
+    """The tiers: configuration at dp=2 (two shards of TIERS_CAPACITY/2
+    on a mesh of this card twice), through ApexDriver: each shard plans,
+    reads and overwrites its own region. Checks: a clean end, at least
+    one swap per shard, the closure evicted == stored + dropped per
+    shard and in all, the swap graphs replayed, the gather. -> the
+    launch counts of this run."""
+    from ape_x_dqn_tpu_torch.configs import get_config
+    from ape_x_dqn_tpu_torch.ops import frame_gather as fg
+    from ape_x_dqn_tpu_torch.runtime.driver import ApexDriver
+    from ape_x_dqn_tpu_torch.runtime.train import apply_overrides
+
+    tmp = tempfile.mkdtemp(prefix="apex-chip-smoke-dist-cold-")
+    sets = [f"replay.capacity={TIERS_CAPACITY}",
+            f"replay.min_fill={TIERS_CAPACITY // 2}",
+            f"replay.cold_tier_capacity={TIERS_CAPACITY}",
+            f"replay.cold_tier_disk_dir={os.path.join(tmp, 'disk')}",
+            f"replay.cold_tier_disk_capacity={16 * TIERS_CAPACITY}",
+            "parallel.dp=2", "parallel.tp=1", *TIERS_SETS]
+    cfg = apply_overrides(get_config("pong"), sets).replace(seed=seed)
+    dev = torch.device(DEVICE)
+    threads_before = {t.ident for t in threading.enumerate()}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    driver = ApexDriver(cfg, device=dev, mesh_devices=[dev, dev])
+    fg.gather_rows.launches = 0       # count the main path's run only
+    out = driver.run(total_env_frames=DIST_COLD_FRAMES,
+                     wall_clock_limit_s=DIST_COLD_WALL_S)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"gather_rows": fg.gather_rows.launches}
+    left = [t.name for t in threading.enumerate()
+            if t.ident not in threads_before]
+    peak_gb = note_memory("dist_cold", driver.hbm_budget)
+    check(out["actor_errors"] == [] and out["loop_errors"] == [],
+          f"dist_cold: actor_errors {out['actor_errors']}, loop_errors "
+          f"{out['loop_errors']}")
+    check(not left, f"dist_cold: driver threads still running: {left}")
+    check_graphed(driver, ("k", 4), gathers=2)
+    ct = out.get("cold_tier") or {}
+    ev, st, dr = (np.asarray(ct.get(f"{k}_per_shard", []))
+                  for k in ("evicted", "stored", "dropped"))
+    check(ev.shape == (2,) and (ev > 0).all()
+          and np.array_equal(ev, st + dr) and ev.sum() == ct["evicted"]
+          and ct["evicted"] == ct["stored"] + ct["dropped"],
+          f"dist_cold: the per-shard closure fails or a shard never "
+          f"swapped: {ct}")
+    graphs = ct.get("swap_graph_replays", {})
+    check(graphs.get("evict", 0) > 0 and graphs.get("add_at", 0) > 0,
+          f"dist_cold: the swap graphs never replayed: {graphs}")
+    rs = driver.state.replay
+    check(rs.pos.tolist() == rs.pos_dev.tolist()
+          and rs.size.tolist() == rs.size_dev.tolist()
+          and (rs.size == TIERS_CAPACITY // 2).all(),
+          f"dist_cold: shard cursors {rs.pos}/{rs.size} vs device "
+          f"{rs.pos_dev.tolist()}/{rs.size_dev.tolist()}")
+    log(f"dist_cold: the tiers: configuration at dp=2 (sets {sets}): "
+        f"frames={out['frames']} frames/s={out['frames'] / wall:.1f} "
+        f"(tiers: {RATES.get('tiers', math.nan):.1f}); grad_steps="
+        f"{out['grad_steps']}; evicted per shard {ev.tolist()} = stored "
+        f"{st.tolist()} + dropped {dr.tolist()}; recalled "
+        f"{ct.get('recalled')}; swap graph replays {graphs}; "
+        f"launches={launches}; peak_mem_gb={peak_gb:.2f}; {wall:.2f} s; "
+        f"card {CARD}")
+    shutil.rmtree(tmp, ignore_errors=True)
+    del driver, rs
+    gc.collect()
+    torch.cuda.empty_cache()
+    return launches
+
+
 def memory_table() -> list[str]:
     """The HBM budget of each preset's run beside its measured peak and
     the card's memory; the transient the budget must cover (the peak
@@ -2662,6 +3290,22 @@ def main() -> int:
     t0 = time.perf_counter()
     tiers = phase_tiers(args.seed)
     log(f"tiers: {time.perf_counter() - t0:.2f} s")
+    # 17. the dp-sharded learners alone, then through the driver on the
+    # presets' own dp=4 x tp=2 meshes of this card
+    t0 = time.perf_counter()
+    phase_dist_learners(dev, args.seed)
+    dist_apex = dist_driver(args.seed, "atari57_apex", DIST_APEX_SETS,
+                            DIST_APEX_FRAMES, DIST_APEX_WALL_S, "dist_apex")
+    dist_r2d2 = dist_driver(args.seed, "r2d2", DIST_R2D2_SETS,
+                            DIST_R2D2_FRAMES, DIST_R2D2_WALL_S, "dist_r2d2")
+    log(f"dist: {time.perf_counter() - t0:.2f} s")
+    # 18. the legacy staging path, 19. the cold tier at dp=2
+    t0 = time.perf_counter()
+    legacy = phase_legacy(args.seed)
+    log(f"legacy: {time.perf_counter() - t0:.2f} s")
+    t0 = time.perf_counter()
+    dist_cold = phase_dist_cold(args.seed)
+    log(f"dist_cold: {time.perf_counter() - t0:.2f} s")
     for line in memory_table():
         log(line)
 
@@ -2671,12 +3315,15 @@ def main() -> int:
     sites[0]["apex_launches"] = apex["gather_rows"]
     sites[1]["launches"] = sites[2]["launches"] = flat["gather_rows"]
     sites[3]["launches"] = r2d2["gather_rows"]
+    sites[4]["launches"] = dist_apex["gather_rows"]
+    sites[5]["launches"] = dist_r2d2["gather_rows"]
     for site in sites:
         check(site["launches"] > 0, f"gather_rows never launched on the "
               f"{site['site']} path")
     for path, counts in (("apex", apex), ("remote", remote),
                          ("resume", resume), ("obs", obs),
-                         ("serve", serve), ("tiers", tiers)):
+                         ("serve", serve), ("tiers", tiers),
+                         ("legacy", legacy), ("dist_cold", dist_cold)):
         check(counts["gather_rows"] > 0, f"gather_rows never launched on "
               f"the {path} path")
     top = sites[2]
@@ -2692,7 +3339,11 @@ def main() -> int:
                                  "resume": resume["gather_rows"],
                                  "obs": obs["gather_rows"],
                                  "serve": serve["gather_rows"],
-                                 "tiers": tiers["gather_rows"]},
+                                 "tiers": tiers["gather_rows"],
+                                 "dist_apex": dist_apex["gather_rows"],
+                                 "dist_r2d2": dist_r2d2["gather_rows"],
+                                 "legacy": legacy["gather_rows"],
+                                 "dist_cold": dist_cold["gather_rows"]},
             "max_abs_err": max(s_["max_abs_err"] for s_ in sites),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": "bytes",

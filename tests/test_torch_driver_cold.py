@@ -8,7 +8,7 @@ ring stays exactly full. The disk rung captures the RAM door's losers
 and promotes them back on the idle tick. Then the port's own invariant:
 after every swap the replay's host cursor (pos, size) equals its device
 mirrors, and the directed write moved both as the original's cursor
-math says. The dp=2 forms wait for the multi-GPU slice."""
+math says. The dp=2 forms are in tests/test_torch_driver_dist.py."""
 
 import numpy as np
 import pytest

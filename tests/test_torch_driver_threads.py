@@ -204,17 +204,24 @@ def test_counters_survive_thread_contention():
 
 
 def test_driver_refuses_what_is_not_ported():
-    """The multi-GPU learner and the legacy staging path raise, naming
-    their ROADMAP item; the profiler capture and the remediation plane
-    (items 17 and 19) build."""
+    """What the original builds, the port builds: a dp=2 mesh (on the
+    CPU repeated) gives the dp-sharded learner, ingest_zero_copy=False
+    the legacy staging path, and the profiler capture and the
+    remediation plane (items 17 and 19) build. Only a mesh over more
+    than one DISTINCT device still waits, naming ROADMAP item 14."""
     base = _tiny_cfg()
-    for cfg, item in (
-            (base.replace(parallel=ParallelConfig(dp=2, tp=1)), 14),
-            (base.replace(replay=ReplayConfig(
-                kind="prioritized", capacity=2048, ingest_zero_copy=False)),
-             11)):
-        with pytest.raises(NotImplementedError, match=f"item {item}\\b"):
-            ApexDriver(cfg, device="cpu")
+    dist = ApexDriver(base.replace(parallel=ParallelConfig(dp=2, tp=1)),
+                      device="cpu", mesh_devices=["cpu", "cpu"])
+    assert dist.is_dist and dist.state.replay.tree.shape[0] == 2
+    legacy = ApexDriver(base.replace(replay=ReplayConfig(
+        kind="prioritized", capacity=2048, ingest_zero_copy=False)),
+        device="cpu")
+    assert legacy._stager is None and not legacy.is_dist
+    for d in (dist, legacy):
+        d.server.stop()
+    with pytest.raises(NotImplementedError, match="item 14\\b"):
+        ApexDriver(base.replace(parallel=ParallelConfig(dp=2, tp=1)),
+                   device="cpu", mesh_devices=["cpu", "cuda:0"])
     for cfg in (base.replace(profile_dir="prof"),
                 base.replace(remediation=type(base.remediation)(
                     mode="observe"))):

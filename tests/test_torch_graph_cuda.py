@@ -22,7 +22,12 @@ so the priority write-back of a K=4 macro-step that drew one leaf in
 two chunks, with two different |TD|s, keeps the later one on every
 run (the default scatter keeps either, unordered; ROADMAP Queue C). A
 leaf that straddles a stratum boundary can be drawn by both strata
-however full the replay is."""
+however full the replay is.
+
+The dp-sharded learners (parallel/dist_learner.py) are cases of the
+same tests, on their presets' dp=4 x tp=2 mesh of the card repeated:
+the step graphs, the lockstep add graph of (g, dp, chunk) blocks across
+a wrap, and the per-shard evict and add_at graphs of the swap."""
 
 import gc
 
@@ -36,6 +41,9 @@ from ape_x_dqn_tpu_torch.envs.base import EnvSpec
 from ape_x_dqn_tpu_torch.models import (ApeXLSTMQNet, build_network,
                                         init_params)
 from ape_x_dqn_tpu_torch.ops import frame_gather as tfg
+from ape_x_dqn_tpu_torch.parallel.dist_learner import (DistDQNLearner,
+                                                       DistSequenceLearner)
+from ape_x_dqn_tpu_torch.parallel.mesh import make_mesh
 from ape_x_dqn_tpu_torch.replay.frame_ring import FrameRingReplay
 from ape_x_dqn_tpu_torch.replay.prioritized import PrioritizedReplay
 from ape_x_dqn_tpu_torch.replay.sequence import sequence_item_spec
@@ -205,11 +213,95 @@ def _dpg(dev):
     return learner, state, add, 1
 
 
+def _dist_frame_ring(dev):
+    """The frame ring's DistDQNLearner on a dp=4 x tp=2 mesh of the card
+    (4 shards of 1024 transitions), lockstep adds of [4, g, ...]."""
+    dp, obs = 4, (42, 42, 4)
+    spec = EnvSpec(obs, np.dtype(np.uint8), True, 6)
+    lcfg = LearnerConfig(batch_size=32, sample_chunk=4, target_sync_every=3)
+    net = _net(build_network(NetworkConfig(
+        kind="nature_cnn", cnn_channels=(8, 16, 16), torso_dense=64,
+        compute_dtype="bfloat16"), spec)).to(dev)
+    replay = FrameRingReplay(1024, 16, 3, obs, device=dev)
+    learner = DistDQNLearner(replay, lcfg,
+                             make_mesh(dp=dp, tp=2, devices=[dev] * 8))
+    state = learner.init(net, None,
+                         component_generator(0, "learner", device=dev))
+
+    def add(state, rng, g):
+        f, lead = replay.F, (dp, max(g // 2, 1))
+        items = {
+            "seg_frames": torch.from_numpy(rng.integers(
+                0, 255, lead + (f, 42, 42)).astype(np.uint8)),
+            "action": torch.from_numpy(
+                rng.integers(0, 6, lead + (16,)).astype(np.int32)),
+            "reward": torch.from_numpy(
+                rng.normal(size=lead + (16,)).astype(np.float32)),
+            "discount": torch.full(lead + (16,), 0.97),
+            "next_off": torch.full(lead + (16,), 3, dtype=torch.int32),
+        }
+        td = torch.from_numpy(rng.uniform(0.1, 2.0, lead + (16,)).astype(
+            np.float32))
+        return learner.add(state, items, td)
+
+    return learner, state, add, 4
+
+
+def _dist_sequence(dev):
+    """The R2D2 DistSequenceLearner on a dp=4 x tp=2 mesh of the card."""
+    dp, seq, lstm, frames = 4, 8, 32, (36, 36, 4)
+    lcfg = LearnerConfig(batch_size=16, sample_chunk=4, n_step=2,
+                         value_rescale=True, target_sync_every=3)
+    rcfg = ReplayConfig(kind="sequence", seq_length=seq, burn_in=2)
+    net = _net(ApeXLSTMQNet(frames, num_actions=2, lstm_size=lstm,
+                            dense=32, compute_dtype="bfloat16")).to(dev)
+    replay = PrioritizedReplay(256, device=dev)
+    learner = DistSequenceLearner(replay, lcfg, rcfg,
+                                  make_mesh(dp=dp, tp=2, devices=[dev] * 8))
+    state = learner.init(net, sequence_item_spec(
+        frames, np.uint8, seq, lstm, frame_mode=True),
+        component_generator(0, "learner", device=dev))
+
+    def add(state, rng, g):
+        lead = (dp, 2 * g)
+        h, w, stack = frames
+        items = {
+            "seq_frames": rng.integers(
+                0, 255, lead + (seq + stack - 1, h, w)).astype(np.uint8),
+            "actions": rng.integers(0, 2, lead + (seq,)).astype(np.int32),
+            "rewards": rng.normal(size=lead + (seq,)).astype(np.float32),
+            "terminals": np.zeros(lead + (seq,), np.float32),
+            "mask": np.ones(lead + (seq,), np.float32),
+            "init_c": (0.3 * rng.normal(size=lead + (lstm,))).astype(
+                np.float32),
+            "init_h": (0.3 * rng.normal(size=lead + (lstm,))).astype(
+                np.float32),
+        }
+        td = (rng.random(lead) + 0.1).astype(np.float32)
+        return learner.add(state, {k: torch.from_numpy(v)
+                                   for k, v in items.items()},
+                           torch.from_numpy(td))
+
+    return learner, state, add, 4
+
+
 # name: (make(dev) -> (learner, state, add, K), gather launches per draw:
 # one a side for transitions, one for a sequence draw, none for DPG's
-# vector observations)
+# vector observations; the dist learners' draws gather every shard in
+# the same launches)
 CASES = {"frame_ring": (_frame_ring, 2), "flat": (_flat, 2),
-         "sequence": (_sequence, 1), "dpg": (_dpg, 0)}
+         "sequence": (_sequence, 1), "dpg": (_dpg, 0),
+         "dist_frame_ring": (_dist_frame_ring, 2),
+         "dist_sequence": (_dist_sequence, 1)}
+
+
+def _cursors(rs) -> torch.Tensor:
+    """The host cursor and fill (per shard) beside their device
+    mirrors."""
+    return torch.tensor(np.concatenate([
+        np.ravel(rs.pos), np.ravel(rs.size),
+        rs.pos_dev.cpu().numpy().ravel(), rs.size_dev.cpu().numpy().ravel()
+    ]).astype(np.int64))
 
 
 def _snapshot(state, metrics) -> dict:
@@ -229,9 +321,7 @@ def _snapshot(state, metrics) -> dict:
             snap[f"{name}.mu{i}"] = mu.clone()
             snap[f"{name}.nu{i}"] = nu.clone()
     snap["tree"] = state.replay.tree.clone()
-    snap["cursors"] = torch.tensor([state.replay.pos, state.replay.size,
-                                    int(state.replay.pos_dev),
-                                    int(state.replay.size_dev)])
+    snap["cursors"] = _cursors(state.replay)
     snap["metrics"] = pack_metrics(metrics)[0].clone()
     return snap
 
@@ -250,7 +340,7 @@ def _run(make, dev, capture: bool):
             state, m = learner.train_step(state)
         if i in (0, 4):
             snaps.append(_snapshot(state, m))
-        sizes.append(state.replay.size)
+        sizes.append(int(np.sum(state.replay.size)))
         state = add(state, rng, 1)   # moves the fill and the cursor
     torch.cuda.synchronize()
     return learner, state, snaps, sizes, tfg.gather_rows.launches
@@ -495,3 +585,106 @@ def test_a_swap_capture_that_fails_raises(cuda_device):
     learner.evict_landed(state, chunk)               # the eager warm-up
     with pytest.raises(RuntimeError):
         learner.evict_landed(state, chunk)           # the capture
+
+
+# -- the dp-sharded learner's lockstep add and per-shard swap ---------------
+
+
+def _dist_adds(layout: str, dev, capture: bool, dp: int = 2):
+    """`_adds` for a DistDQNLearner over dp stacked shards: single
+    [dp, chunk] blocks and coalesced [4, dp, chunk] groups past a
+    wrap."""
+    replay, _, chunk, block = _add_replay(layout, dev)
+    learner = DistDQNLearner(replay, LearnerConfig(batch_size=32),
+                             make_mesh(dp=dp, tp=1, devices=[dev] * dp))
+    learner.capture = capture
+    rs = replay.init_sharded(dp)
+    state = type("S", (), {"replay": rs})()
+    rng = np.random.default_rng(11)
+    cursor_units = getattr(replay, "S", replay.capacity)
+    wrapped = False
+    for g in (1, 4, 1, 4, 1, 4, 4, 1):
+        lead = ((g,) if g > 1 else ()) + (dp, chunk)
+        items = block(lead, rng)
+        views = {k: torch.from_numpy(v.reshape(g * dp * chunk, *v.shape[
+            len(lead):])).pin_memory() for k, v in items.items()}
+        before = int(rs.pos[0])
+        learner.add_landed(state, g, learner.land_add(g, views, lead))
+        assert len(set(rs.pos.tolist())) == 1      # lockstep
+        wrapped |= before + g * chunk > cursor_units
+    torch.cuda.synchronize()
+    assert wrapped
+    snap = {f"storage/{k}": v.clone() for k, v in rs.storage.items()}
+    snap.update(tree=rs.tree.clone(), cursors=_cursors(rs))
+    return learner, snap
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["frame_ring", "flat", "sequences"])
+def test_dist_add_graphs_match_the_eager_lockstep_add(cuda_device, layout):
+    """The (g, dp, chunk) add graphs of the dp-sharded learner against
+    its eager lockstep add, across a wrap: bitwise, with host and device
+    cursors equal per shard."""
+    gl, gsnap = _dist_adds(layout, cuda_device, True)
+    el, esnap = _dist_adds(layout, cuda_device, False)
+    for name in gsnap:
+        assert torch.equal(gsnap[name], esnap[name]), f"{layout}: {name}"
+    cur = gsnap["cursors"].reshape(4, -1)
+    assert torch.equal(cur[0], cur[2]) and torch.equal(cur[1], cur[3])
+    graphs = gl.add_graphs()
+    assert sorted(graphs) == [1, 4]
+    assert all(a.captured and a.replays == 3 for a in graphs.values())
+    assert not any(a.captured for a in el.add_graphs().values())
+
+
+def _dist_swaps(layout: str, dev, capture: bool, dp: int = 2, n: int = 6):
+    """`_swaps` for the dp-sharded learner: each shard plans, reads and
+    overwrites its own region ([dp] starts)."""
+    replay, _, chunk, block = _add_replay(layout, dev)
+    learner = DistDQNLearner(replay, LearnerConfig(batch_size=32),
+                             make_mesh(dp=dp, tp=1, devices=[dev] * dp))
+    learner.capture = capture
+    rs = replay.init_sharded(dp)
+    state = type("S", (), {"replay": rs})()
+    rng = np.random.default_rng(17)
+    lead = (dp, chunk)
+
+    def pinned(items):
+        return {k: torch.from_numpy(v.reshape(dp * chunk, *v.shape[2:]))
+                .pin_memory() for k, v in items.items()}
+
+    for _ in range(4):
+        learner.add_landed(state, 1, learner.land_add(
+            1, pinned(block(lead, rng)), lead))
+    regions = []
+    for _ in range(n):
+        inputs = learner.land_add_at(pinned(block(lead, rng)), lead)
+        start, items, pri = learner.evict_landed(state, chunk)
+        host = {k: v.cpu() for k, v in items.items()}
+        host.update(priorities=pri.cpu(), start=start.cpu())
+        learner.add_at_landed(state, inputs, start, host["start"].numpy())
+        assert rs.pos.tolist() == rs.pos_dev.tolist()
+        assert rs.size.tolist() == rs.size_dev.tolist()
+        regions.append(host)
+    torch.cuda.synchronize()
+    snap = {f"storage/{k}": v.clone() for k, v in rs.storage.items()}
+    snap.update(tree=rs.tree.clone(), cursors=_cursors(rs))
+    return learner, snap, regions
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["frame_ring", "flat"])
+def test_dist_swap_graphs_match_the_eager_swap(cuda_device, layout):
+    """The per-shard evict graph and add_at graph against the eager
+    swap, six swaps after a fill: regions, [dp] starts, the cursors,
+    storage and trees bitwise."""
+    gl, gsnap, greg = _dist_swaps(layout, cuda_device, True)
+    el, esnap, ereg = _dist_swaps(layout, cuda_device, False)
+    for name in gsnap:
+        assert torch.equal(gsnap[name], esnap[name]), f"{layout}: {name}"
+    for i, (g, e) in enumerate(zip(greg, ereg)):
+        assert g["start"].shape == (2,)
+        for k in e:
+            assert torch.equal(g[k], e[k]), f"{layout}: swap {i} {k}"
+    swaps = gl.swap_graphs()
+    assert all(s.captured and s.replays == 5 for s in swaps.values())

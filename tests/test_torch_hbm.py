@@ -90,3 +90,28 @@ def test_serving_gather_is_priced_apart():
     off = tier.replace(serving=dataclasses.replace(tier.serving,
                                                    coalesce=False))
     assert thbm.serving_transient_bytes(off, params) == 0
+
+
+@pytest.mark.parametrize("preset,storage", [
+    ("atari57_apex", 20_703_084_544), ("r2d2", 38_738_591_744)])
+def test_a_one_card_mesh_is_priced_at_all_its_shards(preset, storage):
+    """The presets' own dp=4 x tp=2 mesh over one card repeated
+    ([card] * 8) puts all four replay shards on that card: the card's
+    budget is four times the original's per-device (one-shard) replay
+    and sum-tree, the model state whole, and it fits 80 GB."""
+    from ape_x_dqn_tpu_torch.parallel.mesh import make_mesh
+    mesh = make_mesh(dp=4, tp=2, devices=["cpu"] * 8)
+    shards = mesh.shards_on("cpu")
+    assert shards == 4
+    params = 6_500_000
+    want = jhbm.run_budget(jcfgs.get_config(preset), (84, 84, 4), np.uint8,
+                           params)
+    got = thbm.check_hbm_fits(tcfgs.get_config(preset), (84, 84, 4),
+                              np.uint8, param_count=params, hbm_bytes=GB80,
+                              shards_per_card=shards)
+    assert got.replay_storage == 4 * want.replay_storage == storage
+    assert got.replay_tree == 4 * want.replay_tree
+    assert got.model_state == want.model_state
+    assert got.capacity == 4 * want.capacity
+    assert got.detail["shards_per_card"] == 4
+    assert got.total < GB80

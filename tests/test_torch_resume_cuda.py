@@ -1,8 +1,10 @@
 """A resumed learner on the card: after a checkpoint restore, the
 captured graph's first replay equals an eager step from the same
 restored state, bitwise, for the four learners (frame ring, flat,
-sequence, DPG). Marked `cuda`, it skips without a card: a CUDA graph
-has no CPU mode. On the card's machine (no JAX) run it with
+sequence, DPG) and the two dp-sharded learners on a dp=4 x tp=2 mesh of
+the card (frame ring, sequences: their stacked shards and per-shard
+cursors restore in place too). Marked `cuda`, it skips without a card:
+a CUDA graph has no CPU mode. On the card's machine (no JAX) run it with
 
     python -m pytest --noconftest -m cuda tests/test_torch_resume_cuda.py
 

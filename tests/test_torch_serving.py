@@ -376,9 +376,17 @@ def test_build_serving_tier_reads_config():
         assert tier._slo_items == 32
         assert tier._req_deadline_s == pytest.approx(0.25)
         assert not tier._coalesce
-        with pytest.raises(NotImplementedError, match="item 14"):
-            build_serving_tier(scfg, max_batch=8, deadline_ms=1.0,
-                               mesh=object(), device="cpu")
+        # the mesh-sharded mode: buckets in multiples of the mesh size,
+        # on the mesh's device
+        from ape_x_dqn_tpu_torch.parallel.mesh import make_mesh
+        meshed = build_serving_tier(
+            scfg, max_batch=8, deadline_ms=1.0,
+            mesh=make_mesh(dp=3, tp=1, devices=["cpu"] * 3), device="cuda")
+        try:
+            assert meshed.device.type == "cpu"
+            assert [meshed._bucket(n) for n in (1, 4, 7)] == [3, 6, 9]
+        finally:
+            meshed.stop()
     finally:
         tier.stop()
 
