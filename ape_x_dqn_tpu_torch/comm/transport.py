@@ -3,8 +3,11 @@
 Counterpart of ``ape_x_dqn_tpu/comm/transport.py``. In one process the
 actors, the inference server and the learner talk through thread-safe
 queues (`LoopbackTransport`); remote actor hosts reach the learner
-through comm/socket_transport.py (``--listen``), whose telemetry frames
-reach the driver's fleet aggregator (obs/fleet.py).
+through comm/socket_transport.py (``--listen``). Both carry fleet
+telemetry: `send_telemetry(frame)` ships a compact per-peer obs
+snapshot, and the driver's fleet aggregator (obs/fleet.py) installs
+itself as the receiving side's `on_telemetry(peer_id, frame)` hook. On
+loopback the frame goes to the hook directly.
 
 Messages are dicts of numpy arrays; an ingest message holds stacked
 transition fields (or frame segments) plus "priorities", and the
@@ -27,6 +30,7 @@ class Transport(Protocol):
     def recv_experience(self, timeout: float | None = None) -> dict | None: ...
     def publish_params(self, params: Any, version: int) -> None: ...
     def get_params(self) -> tuple[Any, int]: ...
+    def send_telemetry(self, frame: dict) -> bool: ...
 
 
 class LoopbackTransport:
@@ -38,6 +42,9 @@ class LoopbackTransport:
         self._version = -1
         self._lock = threading.Lock()
         self._dropped = 0
+        self._telemetry_frames = 0
+        # fleet hook (set by the driver); called inline from the sender
+        self.on_telemetry: Any = None  # (peer_id: str, frame: dict) -> None
 
     # experience path (actor -> replay ingest)
 
@@ -89,6 +96,25 @@ class LoopbackTransport:
     def get_params(self) -> tuple[Any, int]:
         with self._lock:
             return self._params, self._version
+
+    # telemetry path (peer obs snapshots -> fleet aggregator)
+
+    def send_telemetry(self, frame: dict) -> bool:
+        """In-process delivery straight to the aggregator hook; True
+        iff a hook was installed (the socket transport returns whether
+        the peer negotiated telemetry)."""
+        cb = self.on_telemetry
+        if cb is None:
+            return False
+        with self._lock:
+            self._telemetry_frames += 1
+        cb(str(frame.get("peer", "peer?")), frame)
+        return True
+
+    @property
+    def telemetry_frames(self) -> int:
+        with self._lock:
+            return self._telemetry_frames
 
 
 def batch_rows(batch) -> int:

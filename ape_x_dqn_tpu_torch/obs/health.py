@@ -1,8 +1,6 @@
 """Heartbeats, the stall watchdog and the lock-order witness.
 
-Counterpart of ``ape_x_dqn_tpu/obs/health.py``, less its multihost
-lockstep watchdog (`StallWatchdog`, which waits for the multi-GPU
-driver, ROADMAP Queue A item 14):
+Counterpart of ``ape_x_dqn_tpu/obs/health.py``:
 
 - `HeartbeatRegistry` + `HeartbeatWatchdog`: the driver's components
   (actors, ingest, learner, inference server; remote peers through
@@ -20,11 +18,16 @@ driver, ROADMAP Queue A item 14):
   deadlock that needs a precise two-thread interleave to bite becomes a
   deterministic failure on the first test whose code path merely
   acquires in the conflicting order.
+- `StallWatchdog`: the multi-host driver's lockstep watchdog
+  (runtime/multihost_driver.py). A peer process that dies mid-round
+  leaves every survivor blocked inside a collective; the watchdog turns
+  that silence into a diagnostic and then an exit.
 """
 
 from __future__ import annotations
 
 import os
+import sys
 import threading
 import time
 
@@ -269,3 +272,82 @@ class HeartbeatWatchdog:
             name, staleness, note = stale[0]
             raise StallError(name, staleness, note,
                              timeout_s=self.timeout_s)
+
+
+def _process_index() -> int:
+    """This process's rank in the torch.distributed group (0 without
+    one). Deferred import: the report and offline tools import this
+    module without torch."""
+    import torch.distributed as dist
+
+    if dist.is_available() and dist.is_initialized():
+        return dist.get_rank()
+    return 0
+
+
+class StallWatchdog:
+    """Surfaces collective hangs: a peer process dying mid-round leaves
+    every survivor blocked inside a collective with no error (the
+    failure domain of a process group). This host-local daemon watches
+    a progress stamp the round loop bumps; after `timeout_s` of silence
+    it emits a diagnostic (which process, how long, what the loop last
+    reported), and after TWO consecutive silent windows calls `fatal`
+    (default os._exit) so the job-level restart-from-checkpoint
+    recovery triggers instead of the fleet hanging until a human or
+    scheduler notices.
+
+    Purely host-local: it never issues collectives, so it cannot
+    perturb the lockstep call sequence."""
+
+    def __init__(self, timeout_s: float, describe, fatal=None,
+                 emit=None):
+        """describe() -> str: host-local state for the diagnostic.
+        fatal/emit injectable for tests."""
+        self.timeout_s = timeout_s
+        self._describe = describe
+        self._fatal = fatal or (lambda code: os._exit(code))
+        self._emit = emit or (lambda msg: print(msg, file=sys.stderr,
+                                                flush=True))
+        self._stamp = time.monotonic()
+        self._stop = threading.Event()
+        self._fired = 0
+        self._thread = threading.Thread(target=self._watch,
+                                        name="stall-watchdog",
+                                        daemon=True)
+
+    def start(self) -> None:
+        if self.timeout_s > 0:
+            self._thread.start()
+
+    def stamp(self) -> None:
+        self._stamp = time.monotonic()
+        self._fired = 0
+
+    def stop(self) -> None:
+        self._stop.set()
+        if self._thread.is_alive():
+            self._thread.join(timeout=2.0)
+
+    def _watch(self) -> None:
+        poll = min(self.timeout_s / 4, 10.0)
+        while not self._stop.wait(poll):
+            silent = time.monotonic() - self._stamp
+            if silent < self.timeout_s:
+                continue
+            self._fired += 1
+            rank = _process_index()
+            self._emit(
+                f"[stall-watchdog] process {rank}: no "
+                f"round progress for {silent:.0f}s (timeout "
+                f"{self.timeout_s:.0f}s, strike {self._fired}/2) — a "
+                f"peer process has likely died inside a collective. "
+                f"State: {self._describe()}")
+            if self._fired >= 2:
+                self._emit(
+                    f"[stall-watchdog] process {rank}: "
+                    f"aborting so the job restarts from the latest "
+                    f"checkpoint (the hung collective cannot be "
+                    f"recovered in-process)")
+                self._fatal(70)
+                return
+            self._stamp = time.monotonic()  # strike window restarts

@@ -7,9 +7,32 @@ leading [dp] axis (storage [dp, cap_shard, ...], tree [dp, 2*cap_shard],
 cursor and fill [dp]; replay/prioritized.py: `ShardedReplayState`), with
 one set of params and one Adam state. The shards live stacked on one
 card (parallel/mesh.py): the semantics below do not depend on how many
-cards hold them, and placing them on several cards later is a split of
-the stack into per-card stacks of dp_local shards, with the NCCL
-all-reduce of the gradient (ROADMAP Queue A item 14).
+cards hold them.
+
+Across processes (the multi-host learner, runtime/multihost_driver.py):
+a learner built with a `GradExchange` (parallel/multihost.py) holds
+only its process's dp_local = dp / nproc contiguous shards, rows
+[row_start, row_stop) of the global mesh, on its own card, and does
+explicitly what GSPMD inserts into the original's step
+(``ape_x_dqn_tpu/parallel/dist_learner.py``):
+- the batch is still [dp * b_local] globally: each process computes the
+  loss over its [dp_local * b_local] rows with its own IS max M_p and
+  its gradient g_p; ONE exchange per SGD step carries M_p * g_p, M_p *
+  loss_p, the local |TD| and Q means and M_p, and every process forms
+  the exact global gradient (1/(M * nproc)) * sum_p M_p * g_p with
+  M = max_p M_p (the IS max over the whole training batch; the global
+  fill N cancels out of w / max w), the global loss likewise and the
+  means' average, summed in rank order, so every process applies the
+  same update to the same params. A single-card learner and a dist
+  learner without an exchange run exactly as before;
+- the noise: each process draws the full [dp, n] from its (identically
+  seeded) generator and keeps its rows, so the processes replay the
+  one-process stream;
+- the priority write-back, the target sync (keyed on Adam's count, the
+  same everywhere) and ingest stay per process.
+On the card each step is then a `SegmentedStep` (runtime/
+step_graph.py): captured segments around the host collective.
+Distinct cards per process and NCCL are ROADMAP Queue A item 6.
 
 What the original does, here as well:
 - each shard draws batch/dp stratified samples from its own sum-tree
@@ -53,11 +76,13 @@ from ape_x_dqn_tpu_torch.obs import learning as learn_obs
 from ape_x_dqn_tpu_torch.ops.losses import (TransitionBatch, make_dqn_loss,
                                             make_r2d2_loss)
 from ape_x_dqn_tpu_torch.parallel.mesh import Mesh
+from ape_x_dqn_tpu_torch.parallel.multihost import GradExchange, process_rows
 from ape_x_dqn_tpu_torch.parallel.sharding import make_param_shardings
 from ape_x_dqn_tpu_torch.replay.sequence import batch_to_sequence_batch
 from ape_x_dqn_tpu_torch.runtime.learner import (ClipAdam,
                                                  SingleChipLearner,
                                                  TrainState, make_optimizer)
+from ape_x_dqn_tpu_torch.runtime.step_graph import drive
 
 
 @dataclass
@@ -70,16 +95,25 @@ class DistTrainState(TrainState):
 class _DistLearnerBase(SingleChipLearner):
     """Shared (dp, tp) machinery; subclasses set `loss_fn` and
     `_make_batch(flattened items) -> loss batch`. `replay` is configured
-    with the PER-SHARD capacity."""
+    with the PER-SHARD capacity. With an `exchange`, `mesh` is this
+    process's dp_local x tp rows and the global dp is dp_local x the
+    process count (module docstring)."""
 
     shard_dims = 1
 
     def __init__(self, replay, lcfg, mesh: Mesh,
-                 optimizer: ClipAdam | None = None):
+                 optimizer: ClipAdam | None = None,
+                 exchange: GradExchange | None = None):
         self.replay = replay
         self.lcfg = lcfg
         self.mesh = mesh
-        self.dp = mesh.dp
+        self.exchange = exchange
+        self.nproc = exchange.nproc if exchange is not None else 1
+        self.dp_local = mesh.dp
+        self.dp = mesh.dp * self.nproc
+        self.row_start, self.row_stop = (
+            process_rows(self.dp) if exchange is not None else (0, self.dp))
+        assert self.row_stop - self.row_start == self.dp_local
         assert lcfg.batch_size % self.dp == 0, \
             "batch_size must divide by dp"
         self.b_local = lcfg.batch_size // self.dp
@@ -102,13 +136,24 @@ class _DistLearnerBase(SingleChipLearner):
         return DistTrainState(
             net=net, target_net=target,
             opt_state=self.optimizer.init(list(net.parameters())),
-            replay=self.replay.init_sharded(self.dp, item_spec),
+            replay=self.replay.init_sharded(self.dp_local, item_spec),
             generator=generator, step=0)
 
     # -- the step -----------------------------------------------------------
 
     def _per_draw(self) -> int:
         return self.b_local
+
+    def _draw(self, state, batch: int,
+              noise: torch.Tensor | None) -> torch.Tensor:
+        """One draw's [dp_local, batch] noise: with an exchange, rows
+        [row_start, row_stop) of the full [dp, batch] draw every process
+        makes from its identically seeded generator."""
+        if noise is not None or self.exchange is None:
+            return super()._draw(state, batch, noise)
+        full = torch.rand((self.dp, batch), generator=state.generator,
+                          device=self.replay.device)
+        return full[self.row_start:self.row_stop]
 
     def _sample_weighted(self, replay_state, noise: torch.Tensor,
                          n: int):
@@ -120,8 +165,12 @@ class _DistLearnerBase(SingleChipLearner):
         slots train with weight 0. -> (items [dp, n, ...], idx [dp, n],
         w [dp, n] NOT yet max-normalized)."""
         items, idx, probs = self.replay.sample_items(replay_state, n, noise)
+        # across processes the lockstep adds keep every process's fill
+        # equal, so this process's sum times nproc is the global fill
+        # (and N cancels out of w / max w in any case)
         n_global = torch.clamp(
-            replay_state.size_dev.to(torch.float32).sum(), min=1.0)
+            replay_state.size_dev.to(torch.float32).sum() * self.nproc,
+            min=1.0)
         w = (n_global * torch.clamp(probs / self.dp, min=1e-12)) \
             ** (-self.replay.beta)
         w = w * self.replay.valid_mask(replay_state, idx)
@@ -142,27 +191,82 @@ class _DistLearnerBase(SingleChipLearner):
         wf = self._flat(w)
         loss, aux = self.loss_fn(state.net, state.target_net, batch, wf)
         grads, updates, params = self._optimize(state, loss)
-        td_shard = aux["td_abs"].reshape(self.dp, self.b_local)
-        # the per-shard mean-|TD| bounds expose shard skew the global
-        # mean would average away
-        shard_means = td_shard.mean(dim=1)
-        diag = learn_obs.sgd_diag(aux, wf, grads, updates, params)
-        diag["shard_td_mean_min"] = shard_means.min()
-        diag["shard_td_mean_max"] = shard_means.max()
+        td_shard = aux["td_abs"].reshape(self.dp_local, self.b_local)
         metrics = {"loss": loss.detach(), "q_mean": aux["q_mean"],
                    "td_abs_mean": aux["td_abs"].mean(),
                    "grad_norm": learn_obs.global_norm(grads),
-                   "diag": diag}
+                   "diag": self._diag(aux, wf, td_shard, grads, updates,
+                                      params)}
+        return td_shard, metrics
+
+    def _diag(self, aux, wf, td_shard, grads, updates, params) -> dict:
+        diag = learn_obs.sgd_diag(aux, wf, grads, updates, params)
+        # the per-shard mean-|TD| bounds expose shard skew the global
+        # mean would average away (across processes: this process's)
+        shard_means = td_shard.mean(dim=1)
+        diag["shard_td_mean_min"] = shard_means.min()
+        diag["shard_td_mean_max"] = shard_means.max()
+        return diag
+
+    def _sgd_step_exchanged(self, state: DistTrainState, items: dict,
+                            w: torch.Tensor):
+        """`_sgd_step` across processes, as a generator: this process's
+        loss and gradient under its own IS max M_p, ONE exchange (yield
+        the packed [grads * M_p, loss * M_p, |TD| mean, Q mean, M_p],
+        receive every process's), then the exact global gradient,
+        loss and means and the update (module docstring). -> (td_shard,
+        metrics)."""
+        m_p = torch.clamp(w.max(), min=1e-12)
+        batch = self._make_batch({k: self._flat(v) for k, v in items.items()})
+        wf = self._flat(w / m_p)
+        loss, aux = self.loss_fn(state.net, state.target_net, batch, wf)
+        params = list(state.net.parameters())
+        grads = torch.autograd.grad(loss, params)
+        td_mean = aux["td_abs"].mean()
+        send = torch.cat([
+            torch.cat([g.reshape(-1) for g in grads]) * m_p,
+            torch.stack([loss.detach() * m_p, td_mean.float(),
+                         aux["q_mean"].float(), m_p])])
+        recv = yield send
+        m = recv[:, -1].max()
+        total = recv.sum(dim=0)         # rank order, alike everywhere
+        scale = 1.0 / (m * self.nproc)
+        flat = total[:-4] * scale
+        grads = [v.view_as(p) for v, p in
+                 zip(flat.split([p.numel() for p in params]), params)]
+        updates, params = self._apply_grads(state, grads)
+        td_shard = aux["td_abs"].reshape(self.dp_local, self.b_local)
+        metrics = {"loss": total[-4] * scale,
+                   "q_mean": total[-2] / self.nproc,
+                   "td_abs_mean": total[-3] / self.nproc,
+                   "grad_norm": learn_obs.global_norm(grads),
+                   "diag": self._diag(aux, wf, td_shard, grads, updates,
+                                      params)}
         return td_shard, metrics
 
     def _step_body(self, state: DistTrainState,
                    noise: torch.Tensor) -> dict:
         """One exact grad-step (captured on the card): draw, update,
-        per-shard write-back."""
+        per-shard write-back. With an exchange, a generator
+        (`_sgd_step_exchanged`)."""
+        if self.exchange is not None:
+            return self._step_body_exchanged(state, noise)
         items, idx, w = self._sample_weighted(state.replay, noise,
                                               self.b_local)
         td_shard, metrics = self._sgd_step(state, items, w)
         # draw and write-back see the same shard trees: staleness is 0
+        metrics["diag"] = {**metrics["diag"],
+                           **learn_obs.replay_health_sharded(
+                               self.replay, state.replay, idx, None)}
+        self.replay.update_priorities(state.replay, idx, td_shard)
+        return metrics
+
+    def _step_body_exchanged(self, state: DistTrainState,
+                             noise: torch.Tensor):
+        items, idx, w = self._sample_weighted(state.replay, noise,
+                                              self.b_local)
+        td_shard, metrics = yield from self._sgd_step_exchanged(
+            state, items, w)
         metrics["diag"] = {**metrics["diag"],
                            **learn_obs.replay_health_sharded(
                                self.replay, state.replay, idx, None)}
@@ -194,7 +298,10 @@ class _DistLearnerBase(SingleChipLearner):
 
     def _learn_stage(self, state: DistTrainState, sample, k: int) -> dict:
         """LEARN stage: K SGD steps over an already-drawn sample + ONE
-        per-shard write-back. -> the last step's metrics."""
+        per-shard write-back. -> the last step's metrics (with an
+        exchange, a generator that returns them)."""
+        if self.exchange is not None:
+            return self._learn_stage_exchanged(state, sample, k)
         items_k, idx, w_k, pri_k = sample
         td_parts = []
         metrics = None
@@ -202,15 +309,46 @@ class _DistLearnerBase(SingleChipLearner):
             td_shard, metrics = self._sgd_step(
                 state, {key: v[j] for key, v in items_k.items()}, w_k[j])
             td_parts.append(td_shard)
+        return self._write_back(state, idx, pri_k, td_parts, metrics, k)
+
+    def _learn_stage_exchanged(self, state: DistTrainState, sample,
+                               k: int):
+        items_k, idx, w_k, pri_k = sample
+        td_parts = []
+        metrics = None
+        for j in range(k):
+            td_shard, metrics = yield from self._sgd_step_exchanged(
+                state, {key: v[j] for key, v in items_k.items()}, w_k[j])
+            td_parts.append(td_shard)
+        return self._write_back(state, idx, pri_k, td_parts, metrics, k)
+
+    def _write_back(self, state: DistTrainState, idx, pri_k, td_parts,
+                    metrics: dict, k: int) -> dict:
         # write-back-time replay health: the shard trees now vs pri_k
         metrics["diag"] = {**metrics["diag"],
                            **learn_obs.replay_health_sharded(
                                self.replay, state.replay, idx, pri_k)}
         # invert the chunking: td_all[d, i*k + j] = td_parts[j][d, i]
         td_all = torch.movedim(torch.stack(td_parts), 0, 2).reshape(
-            self.dp, k * self.b_local)
+            self.dp_local, k * self.b_local)
         self.replay.update_priorities(state.replay, idx, td_all)
         return metrics
+
+    def sample_k(self, state: DistTrainState, k: int,
+                 noise: torch.Tensor | None = None):
+        """SAMPLE dispatch of the double-buffered pipeline (see
+        `SingleChipLearner.sample_k`), its noise from `_draw`."""
+        return self._sample_stage(
+            state.replay, k, self._draw(state, k * self.b_local, noise))
+
+    def learn_k(self, state: DistTrainState, sample, k: int):
+        """LEARN dispatch (see `SingleChipLearner.learn_k`); with an
+        exchange its K SGD steps run eagerly, each with its exchange."""
+        if self.exchange is None:
+            return super().learn_k(state, sample, k)
+        metrics = drive(self._learn_stage(state, sample, k), self.exchange)
+        state.step += k
+        return state, metrics
 
     # -- ingest and the cold tier's swap ------------------------------------
 
@@ -275,8 +413,9 @@ class DistDQNLearner(_DistLearnerBase):
     """Flat n-step double-DQN over the mesh (flat or frame-ring shards)."""
 
     def __init__(self, replay, lcfg, mesh: Mesh,
-                 optimizer: ClipAdam | None = None):
-        super().__init__(replay, lcfg, mesh, optimizer)
+                 optimizer: ClipAdam | None = None,
+                 exchange: GradExchange | None = None):
+        super().__init__(replay, lcfg, mesh, optimizer, exchange)
         self.loss_fn = make_dqn_loss(
             double=lcfg.double_dqn, huber_delta=lcfg.huber_delta,
             rescale=lcfg.value_rescale)
@@ -296,8 +435,9 @@ class DistSequenceLearner(_DistLearnerBase):
     per shard."""
 
     def __init__(self, replay, lcfg, rcfg, mesh: Mesh,
-                 optimizer: ClipAdam | None = None):
-        super().__init__(replay, lcfg, mesh, optimizer)
+                 optimizer: ClipAdam | None = None,
+                 exchange: GradExchange | None = None):
+        super().__init__(replay, lcfg, mesh, optimizer, exchange)
         self.loss_fn = make_r2d2_loss(
             burn_in=rcfg.burn_in, n_step=lcfg.n_step, gamma=lcfg.gamma,
             huber_delta=lcfg.huber_delta, double=lcfg.double_dqn,

@@ -50,7 +50,7 @@ buckets round up to a multiple of the mesh size, so every shard of a
 batch gets identical work, as in the original. The port's meshes hold
 one card (repeated), so the forward runs whole on that card; the split
 of a batch over distinct cards waits for per-card placement (ROADMAP
-Queue A item 14).
+Queue A item 6).
 """
 
 from __future__ import annotations

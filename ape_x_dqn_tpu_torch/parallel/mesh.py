@@ -11,12 +11,15 @@ As in the original, dp x tp is the whole mesh (an Ape-X system has no
 pipeline, sequence or expert parallelism to express), and R2D2
 sequences shard across the batch axis, never time.
 
-The port places every shard of the dp-sharded learner on ONE card
-(parallel/dist_learner.py keeps the shards stacked on a leading axis):
-a device list may repeat a card, the counterpart of the original tests'
-emulated host devices, and a mesh over more than one DISTINCT card
+The port places every shard of a process's dp-sharded learner on ONE
+card (parallel/dist_learner.py keeps the shards stacked on a leading
+axis): a device list may repeat a card, the counterpart of the original
+tests' emulated host devices. The multi-host learner
+(runtime/multihost_driver.py) gives each process a mesh of its own dp
+rows (dp_local x tp) on its card, and the cross-process gradient rides
+gloo (parallel/multihost.py). A mesh over more than one DISTINCT card
 raises until per-card placement and the NCCL gradient all-reduce exist
-(ROADMAP Queue A item 14).
+(ROADMAP Queue A item 6).
 """
 
 from __future__ import annotations
@@ -79,5 +82,5 @@ def make_mesh(dp: int | None = None, tp: int = 1,
             f"a mesh over {len(distinct)} distinct devices ({distinct}) "
             f"is not ported to the PyTorch package yet: per-card shard "
             f"placement and the NCCL gradient all-reduce wait for ROADMAP "
-            f"Queue A item 14; pass one card repeated dp*tp times")
+            f"Queue A item 6; pass one card repeated dp*tp times")
     return Mesh([used[d * tp:(d + 1) * tp] for d in range(dp)])

@@ -152,7 +152,8 @@ class DPGLearner(GraphedEndpoints):
         generator's stratification draw (tests feed JAX's). On the card
         it replays a captured graph."""
         noise = self._draw(state, self.lcfg.batch_size, noise)
-        metrics = self._run("step", self._step_body, state, noise)
+        metrics = self._run(
+            "step", lambda lrn, s, u: lrn._step_body(s, u), state, noise)
         state.step += 1
         return state, metrics
 

@@ -232,8 +232,16 @@ class SingleChipLearner(GraphedEndpoints):
         keyed on Adam's device count, which counts the grad-steps (the
         host step count is the endpoints' to advance). -> (grads,
         updates, the params after the update, detached)."""
+        grads = torch.autograd.grad(loss, list(state.net.parameters()))
+        updates, params = self._apply_grads(state, grads)
+        return grads, updates, params
+
+    def _apply_grads(self, state: TrainState, grads):
+        """The optimizer update of `grads` and the masked hard target
+        sync, in place on `state` (the multi-process dist learner calls
+        it on the gradient reduced across processes). -> (updates, the
+        params after the update, detached)."""
         params = list(state.net.parameters())
-        grads = torch.autograd.grad(loss, params)
         updates = self.optimizer.update(grads, state.opt_state)
         with torch.no_grad():
             for p, u in zip(params, updates):
@@ -241,7 +249,7 @@ class SingleChipLearner(GraphedEndpoints):
         every = self.lcfg.target_sync_every
         hard_update(state.target_net, state.net,
                     where=state.opt_state.count % every == 0)
-        return grads, updates, [p.detach() for p in params]
+        return updates, [p.detach() for p in params]
 
     def _step_body(self, state: TrainState, noise: torch.Tensor) -> dict:
         """The body of one exact grad-step (captured on the card)."""
@@ -262,7 +270,8 @@ class SingleChipLearner(GraphedEndpoints):
     def _train_step(self, state: TrainState,
                     noise: torch.Tensor | None = None):
         noise = self._draw(state, self._per_draw(), noise)
-        metrics = self._run("step", self._step_body, state, noise)
+        metrics = self._run(
+            "step", lambda lrn, s, u: lrn._step_body(s, u), state, noise)
         state.step += 1
         return state, metrics
 
@@ -330,7 +339,8 @@ class SingleChipLearner(GraphedEndpoints):
         priorities that predate chunk j's TD errors."""
         noise = self._draw(state, k * self._per_draw(), noise)
         metrics = self._run(
-            ("k", k), lambda s, u: self._step_body_k(s, k, u), state, noise)
+            ("k", k), lambda lrn, s, u: lrn._step_body_k(s, k, u), state,
+            noise)
         state.step += k
         return state, metrics
 

@@ -42,6 +42,20 @@ static device buffers that the caller's host-to-device copies land in
 (`land`); the host cursor is the learner's to advance. One graph per
 (replay, g).
 
+`SegmentedStep` is a `StepGraph` for a step with host collectives
+inside it: the multi-process dp-sharded learner (parallel/
+dist_learner.py) reduces each SGD step's gradient across processes
+through gloo on the host (parallel/multihost.py: `GradExchange`), and a
+host-staged collective cannot live inside a CUDA graph. Its body is a
+generator that yields each vector to exchange and is sent back the
+exchanged [nproc, L] result; on the card each stretch between two
+yields is captured as a graph of its own (the draw and gather and
+chunk j's forward and backward into the packed vector; the exchange's
+copies and collective on the host; then the clip, Adam and target-sync
+segment with chunk j+1's forward and backward; the last segment ends
+with the write-back). Elsewhere `drive` runs the generator eagerly with
+the exchanges in between. A capture that fails raises here too.
+
 `EvictGraph` and an `AddGraph` of the directed add are the tiered cold
 store's eviction swap (the counterparts of the JAX learner's
 `evict_region` and `add_at` jits): the evict graph writes the start of
@@ -50,6 +64,13 @@ and its leaf priorities into static outputs; the add_at graph overwrites
 that region with a staged block, reading the start from a static device
 input that the caller fills from the evict graph's output on the device
 (no host int). One of each per replay layout.
+
+The graphs reach their learner through a weak reference
+(`GraphedEndpoints._weak_body`): a learner holds its graphs, and a
+graph whose body held the learner back made a reference cycle that only
+a collection frees, at a moment that could fall inside a later
+capture and destroy graphs there. Now the last reference to a learner
+frees it and its graphs at once.
 
 Every capture is logged in `CAPTURES` (name, milliseconds, the caching
 allocator's growth across it), which the observability layer publishes
@@ -63,6 +84,7 @@ from __future__ import annotations
 
 import threading
 import time
+import weakref
 from typing import Any, Callable
 
 import torch
@@ -230,6 +252,110 @@ class StepGraph(_Captured):
         return unpack_metrics(self._out.clone(), self._paths)
 
 
+def drive(gen, exchange: Callable) -> Any:
+    """Run a segmented step body eagerly: each vector the generator
+    yields goes through `exchange` (-> the [nproc, L] result, sent
+    back in); -> what the generator returns."""
+    x = None
+    while True:
+        try:
+            send = gen.send(x)
+        except StopIteration as stop:
+            return stop.value
+        x = exchange(send)
+
+
+class SegmentedStep(_Captured):
+    """A `StepGraph` whose body, ``body(state, noise)``, is a generator
+    with host collectives inside (see the module docstring). On the
+    card with capture on: the first call drives it eagerly on a side
+    stream, the second captures one graph per segment (the vectors
+    each segment yields are its static outputs, the [nproc, L] buffers
+    the next reads are static device inputs) and replays them with the
+    exchanges in between; later calls replay. Elsewhere `drive`."""
+
+    def __init__(self, body: Callable, exchange: Callable,
+                 name: str = "step", steps: int = 1):
+        super().__init__(name, steps)
+        self.body = body
+        self.exchange = exchange
+        self.gathers = 0
+        self._graphs: list[torch.cuda.CUDAGraph] = []
+        self._sends: list[torch.Tensor] = []    # static outputs
+        self._recvs: list[torch.Tensor] = []    # static inputs
+        self._noise: torch.Tensor | None = None
+        self._out: torch.Tensor | None = None
+        self._paths: list[tuple] = []
+
+    @property
+    def segments(self) -> int:
+        return len(self._graphs)
+
+    def _drive(self, state, noise) -> dict:
+        return drive(self.body(state, noise), self.exchange)
+
+    def __call__(self, state, noise: torch.Tensor, capture: bool) -> dict:
+        if noise.device.type != "cuda" or not capture:
+            return self._eager(self._drive, state, noise)
+        if self._graph is None or self._bound is not state:
+            if self._warm is not state:
+                out = self._warm_up(self._drive, state, noise, noise.device)
+                cur = torch.cuda.current_stream(noise.device)
+                for _, v in _leaves(out):
+                    v.record_stream(cur)
+                return out
+            before = gather_rows.captured
+            self._capture_segments(state, noise)
+            self.gathers = gather_rows.captured - before
+        return self._replay(noise)
+
+    def _capture_segments(self, state, noise: torch.Tensor) -> None:
+        device = noise.device
+        self._graph = self._bound = None    # segments of another state
+        self._graphs, self._sends, self._recvs = [], [], []
+        self._noise = torch.empty_like(noise)
+        side = self._side_stream(device)
+        mem0 = _memory(device)
+        t0 = time.perf_counter()
+        gen = x = None
+        while True:
+            graph = torch.cuda.CUDAGraph()
+            with torch.cuda.graph(graph, stream=side,
+                                  capture_error_mode="thread_local"):
+                try:
+                    if gen is None:
+                        # made inside the first capture: whatever the
+                        # body runs before its first yield is segment 0
+                        gen = self.body(state, self._noise)
+                        send = next(gen)
+                    else:
+                        send = gen.send(x)
+                except StopIteration as stop:
+                    send = None
+                    self._out, self._paths = pack_metrics(stop.value)
+            self._graphs.append(graph)
+            if send is None:
+                break
+            self._sends.append(send)
+            x = torch.empty((self.exchange.nproc, send.numel()),
+                            dtype=torch.float32, device=device)
+            self._recvs.append(x)
+        mem1 = _memory(device)
+        CAPTURES.add({"name": self.name, "ms": (time.perf_counter() - t0)
+                      * 1e3, "allocated_bytes": mem1[0] - mem0[0],
+                      "reserved_bytes": mem1[1] - mem0[1]})
+        self._graph, self._bound = self._graphs[-1], state
+
+    def _replay(self, noise: torch.Tensor) -> dict:
+        self._noise.copy_(noise)
+        for i, graph in enumerate(self._graphs):
+            graph.replay()
+            if i < len(self._sends):
+                self.exchange(self._sends[i], self._recvs[i])
+        gather_rows.launches += self.gathers
+        return unpack_metrics(self._out.clone(), self._paths)
+
+
 class AddGraph(_Captured):
     """One ingest add of g staged blocks: `body(state, inputs)` writes
     them at the replay's device cursor and advances it (device
@@ -332,6 +458,17 @@ class GraphedEndpoints:
     # leading shard axes of a staged block: 1 for the dp-sharded
     # learner's [dp, chunk, ...] blocks (parallel/dist_learner.py)
     shard_dims = 0
+    # the per-SGD-step collective of a multi-process learner
+    # (parallel/multihost.py: GradExchange); its step bodies are then
+    # generators, run as `SegmentedStep`s
+    exchange = None
+
+    def _weak_body(self, fn: Callable) -> Callable:
+        """``fn(learner, state, x)`` as a graph body ``(state, x)`` that
+        reaches this learner through a weak reference, so the graphs the
+        learner holds do not hold it back (no reference cycle)."""
+        ref = weakref.ref(self)
+        return lambda state, x: fn(ref(), state, x)
 
     @property
     def graphed(self) -> bool:
@@ -348,13 +485,19 @@ class GraphedEndpoints:
         return self.replay.draw(state.replay, batch, state.generator)
 
     def _run(self, key, body: Callable, state, noise: torch.Tensor) -> dict:
+        """Run the endpoint `key`'s graph; `body` is ``fn(learner,
+        state, noise)`` (`_weak_body`)."""
         graphs = self.__dict__.setdefault("_graphs", {})
         if key not in graphs:
             # "step" runs one grad-step, ("k", k) a K-batch macro-step
             steps = key[1] if isinstance(key, tuple) else 1
             name = "train_step" if steps == 1 else f"train_step_k{steps}"
-            graphs[key] = StepGraph(
-                body, name=f"{type(self).__name__}.{name}", steps=steps)
+            name = f"{type(self).__name__}.{name}"
+            body = self._weak_body(body)
+            graphs[key] = (StepGraph(body, name=name, steps=steps)
+                           if self.exchange is None else
+                           SegmentedStep(body, self.exchange, name=name,
+                                         steps=steps))
         return graphs[key](state, noise, self.capture)
 
     def step_graphs(self) -> dict:
@@ -367,7 +510,8 @@ class GraphedEndpoints:
         graphs = self.__dict__.setdefault("_add_graphs", {})
         if g not in graphs:
             graphs[g] = AddGraph(
-                lambda s, ins: self._add_body(s, ins, g),
+                self._weak_body(
+                    lambda lrn, s, ins: lrn._add_body(s, ins, g)),
                 name=f"{type(self).__name__}.add_g{g}", steps=g)
         return graphs[g]
 
@@ -419,9 +563,10 @@ class GraphedEndpoints:
             name = f"{type(self).__name__}.{key}_b{block}"
             replay = self.replay
             if key == "evict":
-                graphs[key] = EvictGraph(
-                    lambda s: self._evict_body(s, block), name=name,
-                    steps=block)
+                body = self._weak_body(
+                    lambda lrn, s, _: lrn._evict_body(s, block))
+                graphs[key] = EvictGraph(lambda s: body(s, None), name=name,
+                                         steps=block)
             else:
                 graphs[key] = AddGraph(
                     lambda s, ins: replay.add_body(

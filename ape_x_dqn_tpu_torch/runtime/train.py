@@ -13,6 +13,10 @@ preset and overrides any field:
         --listen 127.0.0.1:0 --checkpoint-dir runs/ckpt  # + actor hosts
     python -m ape_x_dqn_tpu_torch.runtime.train --config pong \\
         --eval-only --checkpoint-dir runs/ckpt --games Pong,Breakout
+    python -m ape_x_dqn_tpu_torch.runtime.train --config cartpole_smoke \\
+        --device cpu --set parallel.dp=8 --set replay.kind=prioritized \\
+        --coordinator 127.0.0.1:29500 \\
+        --num-processes 2 --process-id 0   # and --process-id 1
 
 The default mode runs the threaded Ape-X driver (`ApexDriver`: actors,
 the batched inference server, ingest staging and the learner);
@@ -26,12 +30,15 @@ state; `--eval-only` restores the newest checkpoint's params and prints
 one JSON line of greedy scores (the suite's median HNS for Atari
 configs, over `--games`). `--profile-dir` captures a torch.profiler
 trace of `profile_steps` grad-steps. `--device` (default cuda) is the
-device it runs on. The multi-host modes are not ported yet; each exits 2
-naming the ROADMAP Queue A item it waits for, rather than running
-without what it asked for (`--compilation-cache-dir` exits 2 too: the
-port compiles nothing at run time). For the same reason `--single-process`
-refuses `--listen` and `--checkpoint-dir` (exit 2), which the one-process
-trainer has no use for.
+device it runs on. `--coordinator HOST:PORT --num-processes N
+--process-id I` runs one process of the multi-host learner
+(runtime/multihost_driver.py): every process joins a gloo process group
+at HOST:PORT (parallel/multihost.py) before anything is built on the
+device, owns dp / N of the replay shards and trains in lockstep; on one
+card every process takes it. `--compilation-cache-dir` exits 2: the port
+compiles nothing at run time. `--single-process` refuses `--listen` and
+`--checkpoint-dir` (exit 2), which the one-process trainer has no use
+for.
 """
 
 from __future__ import annotations
@@ -98,15 +105,6 @@ def apply_overrides(cfg: RunConfig, sets: list[str]) -> RunConfig:
     return cfg
 
 
-# the original's modes and options that have no port yet:
-# (argparse dest, what it asks for, the ROADMAP Queue A item it waits for)
-_NOT_PORTED = (
-    ("coordinator", "--coordinator (the multi-host learner)", 14),
-    ("num_processes", "--num-processes (the multi-host learner)", 14),
-    ("process_id", "--process-id (the multi-host learner)", 14),
-)
-
-
 def build_parser() -> argparse.ArgumentParser:
     ap = argparse.ArgumentParser(
         prog="python -m ape_x_dqn_tpu_torch.runtime.train",
@@ -156,10 +154,15 @@ def build_parser() -> argparse.ArgumentParser:
                     help="capture a torch.profiler trace (host and "
                          "device activity) of profile_steps grad-steps "
                          "into this directory")
-    # not ported yet: accepted so that a request for them fails loudly
-    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT")
+    # multi-host learner (one process per host or card, in lockstep
+    # over a gloo process group: runtime/multihost_driver.py); all
+    # three must be set
+    ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
+                    help="the process group's rendezvous address "
+                         "(tcp://HOST:PORT)")
     ap.add_argument("--num-processes", type=int, default=None)
     ap.add_argument("--process-id", type=int, default=None)
+    # accepted so that a request for it fails loudly
     ap.add_argument("--compilation-cache-dir", default=None, metavar="DIR")
     ap.add_argument("--set", action="append", default=[],
                     metavar="dotted.key=value",
@@ -171,12 +174,21 @@ def build_parser() -> argparse.ArgumentParser:
 def main(argv: list[str] | None = None) -> int:
     parser = build_parser()
     args = parser.parse_args(argv)
-    for dest, what, item in _NOT_PORTED:
-        if getattr(args, dest) not in (None, False):
-            print(f"{what} is not ported to the PyTorch package yet: it "
-                  f"waits for ROADMAP Queue A item {item}",
-                  file=sys.stderr)
-            return 2
+    if args.coordinator is not None:
+        if args.num_processes is None or args.process_id is None:
+            parser.error("--coordinator requires --num-processes and "
+                         "--process-id")
+        if args.wall_clock_limit is not None:
+            # wall clocks differ across hosts (they would diverge the
+            # lockstep call sequences): reject rather than ignore
+            parser.error("--wall-clock-limit is not supported in "
+                         "multihost mode (host clocks differ; use "
+                         "--max-grad-steps / --total-env-frames)")
+        if args.single_process:
+            parser.error("--single-process and --coordinator conflict")
+        if args.eval_only:
+            parser.error("--eval-only is single-process (no learner "
+                         "mesh); drop --coordinator")
     if args.compilation_cache_dir is not None:
         print("--compilation-cache-dir does not apply to the PyTorch "
               "package: nothing is jit-compiled (the CUDA graphs are "
@@ -216,6 +228,11 @@ def main(argv: list[str] | None = None) -> int:
         print(json.dumps(out))
         return 0
 
+    if args.coordinator is not None:
+        # before anything is built on the device
+        from ape_x_dqn_tpu_torch.parallel.multihost import init_multihost
+        init_multihost(args.coordinator, args.num_processes,
+                       args.process_id)
     metrics = Metrics(log_path=args.metrics_file,
                       tensorboard_dir=args.tensorboard_dir)
     server = None
@@ -234,7 +251,14 @@ def main(argv: list[str] | None = None) -> int:
                 shm_param_bytes=comm.shm_param_bytes)
             print(f"ingest listening on {host}:{server.port}",
                   file=sys.stderr, flush=True)
-        if args.single_process:
+        if args.coordinator is not None:
+            from ape_x_dqn_tpu_torch.runtime.multihost_driver import (
+                MultihostApexDriver)
+            driver = MultihostApexDriver(cfg, metrics=metrics,
+                                         transport=server,
+                                         device=args.device)
+            out = driver.run(max_grad_steps=args.max_grad_steps)
+        elif args.single_process:
             from ape_x_dqn_tpu_torch.runtime.single_process import (
                 train_single_process)
             out = train_single_process(cfg, metrics=metrics,
@@ -254,6 +278,10 @@ def main(argv: list[str] | None = None) -> int:
         if server is not None:
             server.stop()
         metrics.close()
+        if args.coordinator is not None:
+            import torch.distributed as dist
+            if dist.is_initialized():
+                dist.destroy_process_group()
     print(json.dumps(out))
     failed = bool(out.get("actor_errors") or out.get("loop_errors"))
     return 1 if failed else 0

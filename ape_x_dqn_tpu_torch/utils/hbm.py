@@ -30,6 +30,12 @@ the port's own:
 - `card_budget` prices one card of the dp-sharded learner's mesh at the
   replay shards the mesh puts there: the original prices a device at
   one shard, while the port's one-card meshes hold all dp shards.
+- `check_hbm_fits(processes_per_card=n)`: the multi-host learner's
+  processes may share a card (two ranks on one card); each process's
+  budget counts n times against it, or two processes that each fit
+  could run out of memory together. The multi-host driver counts the
+  processes on its card once, at construction
+  (parallel/multihost.py: `processes_on_device`).
 """
 
 from __future__ import annotations
@@ -223,22 +229,27 @@ def card_budget(budget: HbmBudget, shards_per_card: int) -> HbmBudget:
 def check_hbm_fits(cfg: Any, obs_shape: tuple[int, ...], obs_dtype=np.uint8,
                    param_count: int = 5_000_000, device=None,
                    hbm_bytes: int | None = None,
-                   shards_per_card: int = 1) -> HbmBudget:
+                   shards_per_card: int = 1,
+                   processes_per_card: int = 1) -> HbmBudget:
     """Raise ValueError (loudly, with the budget table and the fix)
     when the config's footprint on one card (with `shards_per_card` of
-    its replay shards, `card_budget`) exceeds the card's memory.
-    Returns the budget either way on success; returns without a check
-    when there is no card to budget (`device_hbm_bytes` None)."""
+    its replay shards, `card_budget`, times the `processes_per_card`
+    that each hold such a share) exceeds the card's memory. Returns
+    this process's budget either way on success; returns without a
+    check when there is no card to budget (`device_hbm_bytes` None)."""
     budget = card_budget(run_budget(cfg, obs_shape, obs_dtype, param_count),
                          shards_per_card)
     limit = hbm_bytes if hbm_bytes is not None else device_hbm_bytes(device)
     if limit is None:
         return budget
-    if budget.total > limit:
+    if budget.total * processes_per_card > limit:
         gib = 1024 ** 3
+        shared = (f" x {processes_per_card} processes on the card"
+                  if processes_per_card > 1 else "")
         raise ValueError(
             f"config {getattr(cfg, 'name', '?')!r} needs "
-            f"{budget.total / gib:.2f} GiB per device but the device has "
+            f"{budget.total / gib:.2f} GiB per device{shared} but the "
+            f"device has "
             f"{limit / gib:.2f} GiB of memory.\n{budget.table()}\n"
             f"Fix: lower replay.capacity (per-device items: "
             f"{budget.capacity}), raise parallel.dp to shard the replay "

@@ -18,7 +18,9 @@ non-zero:
              full 65,536-row leaf of 38.39 GB; the dp-sharded learners'
              draws over all four shards' flat view: 8192 frame rows from
              atari57_apex's 2,883,584 and 256 sequences from r2d2's
-             4 x 16,384), with its time, the plain
+             4 x 16,384; one rank of the multi-host learner's draw: 4096
+             frame rows from two of those shards, 1,441,792 rows), with
+             its time, the plain
              version's, one library call's, a contiguous copy of the
              same bytes, and its bound
 4. reference one K=4 macro-step of a small float32 learner on the
@@ -37,7 +39,7 @@ non-zero:
              macro-step and top kernels. Its 10.3 GB ring is freed
              before the next phases.
 6. apex      `python -m ape_x_dqn_tpu_torch.runtime.train --config pong
-             --total-env-frames 60000 --wall-clock-limit 120`, the
+             --total-env-frames 40000 --wall-clock-limit 120`, the
              default CLI mode: the Ape-X driver with 8 vector actors x 16
              synthetic-Atari envs (native preprocessing), the batched
              inference server on the card, the pinned ingest stager and
@@ -48,7 +50,7 @@ non-zero:
              read back from the ring bitwise; the driver freed after
 7. r2d2      `python -m ape_x_dqn_tpu_torch.runtime.train --config r2d2
              --set parallel.dp=1 --set parallel.tp=1 --actors 8 --set
-             replay.min_fill=256 --total-env-frames 30000
+             replay.min_fill=256 --total-env-frames 20000
              --wall-clock-limit 180`: the R2D2 preset at full width
              (Nature-CNN torso, LSTM 512, dueling, bf16, sequences of 80
              with burn-in 40, batch 64, K=4) through the default CLI
@@ -67,7 +69,8 @@ non-zero:
              cartpole_smoke --single-process` for 9,000 frames on the
              card: the repo's quick learning bar (last20 > 60)
 9. pong-sp   the same CLI with `--config pong --set
-             learner.sample_prefetch=True` for 22,000 frames: the
+             learner.sample_prefetch=True --set replay.min_fill=10000`
+             for 12,000 frames: the
              dueling Nature-CNN at full width over a 2^20-slot flat
              prioritized replay (59.3 GB of packed pixel rows), K=4 with
              the double-buffered sampler; launch counts zeroed just
@@ -75,7 +78,7 @@ non-zero:
              sample_k call; one drawn sample bitwise vs plain
 10. dpg      `python -m ape_x_dqn_tpu_torch.runtime.train --config
              apex_dpg --set env.id=pendulum --actors 8 --set
-             replay.min_fill=5000 --total-env-frames 60000
+             replay.min_fill=5000 --total-env-frames 30000
              --wall-clock-limit 90`: the Ape-X DPG preset at its width
              (actor and critic MLPs of 300/200, batch 256, a 2^20-slot
              prioritized replay) through the default CLI mode, on the
@@ -94,7 +97,7 @@ non-zero:
              --wall-clock-limit 150`, fed by two `python -m
              ape_x_dqn_tpu_torch.runtime.actor_host --config pong`
              processes on the card (4 vector actors x 16 envs each,
-             actor offsets 0 and 4, 6,000 frames per actor: the apex
+             actor offsets 0 and 4, 4,000 frames per actor: the apex
              phase's 8 x 16 fleet): host A over shared memory, host B
              over TCP (comm.shm=false on its side); frames from both
              hosts reach replay, both pull params past version 0, host
@@ -119,7 +122,7 @@ non-zero:
              obs.enabled=true --set obs.trace_path=<tmp>/trace.json --set
              obs.telemetry_every_s=1 --set remediation.mode=observe
              --profile-dir <tmp>/prof --metrics-file <tmp>/run.jsonl
-             --total-env-frames 40000 --wall-clock-limit 90` beside one
+             --total-env-frames 30000 --wall-clock-limit 90` beside one
              `actor_host --config pong` process (4 vector actors x 16
              envs over TCP, obs.enabled): the trace holds the ingest,
              learner and server threads' spans; the JSONL holds the
@@ -145,7 +148,7 @@ non-zero:
              serving.multi_tenant=true --set serving.default_class=0
              --set serving.queue_slo_items=128 --set
              remediation.mode=enforce --set obs.enabled=true
-             --total-env-frames 40000
+             --total-env-frames 25000
              --wall-clock-limit 90`, with a second tenant's open-loop
              load in class 2 for 15 s: a clean end, the learner's graph
              and the gather, the tenant's serve/<id>/ gauges in the
@@ -178,7 +181,7 @@ non-zero:
              graph grad-steps/s beside main's and r2d2's, the peak
              memory against the budget of four shards, shard_stats.
              Then both presets through ApexDriver on those meshes
-             (atari57_apex: 8 actors x 16 envs, min_fill 20,000, 60,000
+             (atari57_apex: 8 actors x 16 envs, min_fill 20,000, 40,000
              frames, 120 s; r2d2: 8 actors, min_fill 256, 30,000
              frames, 180 s): a clean end, grad-steps, graph replays, the
              gather once per draw and side over all shards, the
@@ -187,13 +190,34 @@ non-zero:
              beside apex's and r2d2's
 18. legacy   `--config pong --set replay.ingest_zero_copy=False --set
              actors.num_actors=4 --set replay.min_fill=2048
-             --wall-clock-limit 30`: the legacy staging path (no stager)
+             --wall-clock-limit 20`: the legacy staging path (no stager)
              to a clean end, frames reaching replay, the learner
              training; host ms per flush's add
 19. dist_cold the tiers: configuration at dp=2 through ApexDriver: at
              least one swap per shard, evicted == stored + dropped per
              shard, the swap graphs replayed
-20. the memory table (each preset's budget beside its measured peak and
+20. mh       the multi-host learner as two processes on this card over
+             gloo, each through the CLI (`--coordinator 127.0.0.1:<free
+             port> --num-processes 2 --process-id i`): mh_apex
+             (atari57_apex at full width on its dp=4 x tp=2 mesh, two
+             shards of 524,288 transitions a rank, 4 actors x 16 envs a
+             rank, min_fill 20,000, 40,000 frames), mh_r2d2 (r2d2 the
+             same way, two shards of 16,384 sequences a rank, min_fill
+             256, 30,000 frames, 32 grad-steps) and mh_resume (pong at a
+             small width, one shard a rank: 20 grad-steps into a
+             checkpoint directory, then a second pair resumes at 20 and
+             trains to 30). Before them this process frees its cache and
+             prints what it still holds, before and after releasing
+             cuBLAS's per-stream workspaces. Each pair: both ranks exit 0
+             within MH_TIMEOUT_S (a rank that dies fails the phase), equal
+             grad_steps, frames, loss and param CRC-32, each rank fed
+             experience, exchanged once per SGD step, replayed its
+             captured segments and add graph and launched the gather,
+             under its memory budget on a card that holds both; printed:
+             grad-steps/s in the training window beside dist:'s
+             one-process rate, the exchange's ms and bytes per SGD step,
+             each rank's peak beside its budget
+21. the memory table (each preset's budget beside its measured peak and
              the card), the kernels line, the card line, and the
              contract's last line.
 
@@ -236,19 +260,27 @@ PROFILE_STEPS = 3
 RATE_STEPS = 8
 # r2d2: macro-steps of the learner alone after the driver's run
 R2D2_ALONE = 4
-# pong-sp: frames of the single-process run; the first min_fill (20,000)
-# only fill the replay, then every frame trains (~2,000 grad-steps)
-PONG_SP_FRAMES = 22000
+# pong-sp: frames of the single-process run at a cut min_fill; the first
+# PONG_SP_MIN_FILL only fill the replay, then every frame trains (~2,000
+# grad-steps)
+PONG_SP_FRAMES = 12000
+PONG_SP_MIN_FILL = 10000
+# r2d2: the driver run's frame budget
+R2D2_FRAMES = 20000
 # dpg: grad-steps of the learner alone after the driver's run
 DPG_ALONE = 64
 # the entry points' device (the CLI's and the actor hosts')
 DEVICE = "cuda"
+# apex and dpg: the driver runs' frame budgets (apex trains ~64
+# grad-steps at the preset's pace of 1.6e-3 a frame)
+APEX_FRAMES = 40000
+DPG_FRAMES = 30000
 # remote: two actor hosts of 4 vector actors (the apex fleet's 8 x 16),
-# 6,000 frames per actor (48,000 in all: ~76 grad-steps at the preset's
+# 4,000 frames per actor (32,000 in all: ~51 grad-steps at the preset's
 # 1.6e-3 per frame, so publications every 16 and checkpoints every 32
 # grad-steps both happen)
 REMOTE_HOST_ACTORS = 4
-REMOTE_FRAMES_PER_ACTOR = 6000
+REMOTE_FRAMES_PER_ACTOR = 4000
 REMOTE_WALL_S = 150
 REMOTE_HOST_TIMEOUT_S = 120
 REMOTE_SETS = ("comm.shm=true", "checkpoint_every=32",
@@ -271,7 +303,7 @@ EAGER_ADD_DROPS = 1608
 # obs: 4 local vector actors beside one actor host of 4 (its actor
 # offset follows the local ones), SIGUSR2 to this process mid-run
 OBS_ACTORS = 4
-OBS_FRAMES = 40000
+OBS_FRAMES = 30000
 OBS_WALL_S = 90
 OBS_SIGNAL_AFTER_S = 30.0
 OBS_SETS: tuple[str, ...] = ()
@@ -295,7 +327,7 @@ SERVE_LOOP_S = 4.0
 SERVE_OVERLOAD_S = 4.0
 SERVE_OVERLOAD_X = 2.0     # the open loop's rate over the measured one
 SERVE_ACTORS = 4
-SERVE_FRAMES = 40000
+SERVE_FRAMES = 25000
 SERVE_WALL_S = 90
 SERVE_SLO_ITEMS = 128
 SERVE_FLOOD_AT_S = 20.0
@@ -318,26 +350,49 @@ ADD_MS: dict[str, float] = {}
 # meshes of this card (graph vs eager bitwise after 1 and DIST_STEPS
 # macro-steps; the fill: DIST_FILL_SEGS segments a shard on the frame
 # ring, DIST_FILL_SEQS sequences a shard on r2d2's replay), then the
-# drivers: atari57_apex cut as apex: is (8 actors x 16 envs, 60,000
+# drivers: atari57_apex cut as apex: is (8 actors x 16 envs, 40,000
 # frames, 120 s; min_fill 20,000), r2d2 cut as r2d2: is (8 actors,
 # min_fill 256, 30,000 frames, 180 s)
 DIST_STEPS = 5
 DIST_FILL_SEGS = 512
 DIST_FILL_SEQS = 128
 DIST_APEX_SETS = ("actors.num_actors=8", "replay.min_fill=20000")
-DIST_APEX_FRAMES = 60000
+DIST_APEX_FRAMES = 40000
 DIST_APEX_WALL_S = 120
 DIST_R2D2_SETS = ("actors.num_actors=8", "replay.min_fill=256")
 DIST_R2D2_FRAMES = 30000
 DIST_R2D2_WALL_S = 180
-# legacy: pong with the legacy staging path, 4 actors, 30 s (a small
+# legacy: pong with the legacy staging path, 4 actors, 20 s (a small
 # min_fill so the learner trains, and the gather runs, in that time)
 LEGACY_SETS = ("replay.ingest_zero_copy=False", "actors.num_actors=4",
                "replay.min_fill=2048")
-LEGACY_WALL_S = 30
+LEGACY_WALL_S = 20
 # dist_cold: the tiers: configuration at dp=2 (two shards of 8,192)
-DIST_COLD_FRAMES = 60000
+DIST_COLD_FRAMES = 30000
 DIST_COLD_WALL_S = 90
+# mh: the multi-host learner as two processes on this card over gloo,
+# each launched through the CLI: atari57_apex and r2d2 on their own dp=4
+# x tp=2 meshes, two shards a process (4 actors x 16 envs each, the 8
+# of dist_apex: and dist_r2d2:); atari57_apex cut by frames as
+# dist_apex: is, r2d2 by frames and grad-steps (multihost mode has no
+# wall-clock limit); then the two-process checkpoint resume at a small
+# width (pong with a small CNN, one shard a process, free-running);
+# publications every 16 grad-steps, so each run publishes
+MH_TIMEOUT_S = 420
+MH_APEX_SETS = ("actors.num_actors=4", "replay.min_fill=20000",
+                "learner.publish_every=16", "multihost_watchdog_s=120")
+MH_APEX_FRAMES = 40000
+MH_R2D2_SETS = ("actors.num_actors=4", "replay.min_fill=256",
+                "learner.publish_every=16", "multihost_watchdog_s=120")
+MH_R2D2_FRAMES = 30000
+MH_R2D2_STEPS = 32
+MH_RESUME_SETS = ("parallel.dp=2", "parallel.tp=1",
+                  "network.cnn_channels=(8,16,16)", "network.torso_dense=32",
+                  "learner.batch_size=64", "learner.steps_per_frame_cap=None",
+                  "replay.capacity=65536", "replay.min_fill=2048",
+                  "actors.num_actors=2", "learner.publish_every=16",
+                  "multihost_watchdog_s=120")
+MH_RESUME_STEPS = (20, 30)
 # the bf16 tolerance of the CPU parity tests (tests/test_torch_models.py)
 BF16_TOL = 3e-2
 # the card's name and power limit (nvidia-smi), set by main and printed
@@ -527,13 +582,18 @@ def phase_kernel(dev, seed: int) -> list[dict]:
     r2_shard = next_pow2(r2.replay.capacity // r2_dp)
     check(r2_dp == 4 and r2_shard == 16_384, f"unexpected r2d2 shards: dp "
           f"{r2_dp}, {r2_shard} sequences")
+    # the multi-host learner's per-process draw: two of atari57_apex's
+    # four shards, half the indices
+    mh_rows = (dp // 2) * shard.S * shard.F
+    check(mh_rows == 1_441_792, f"unexpected mh rows {mh_rows}")
     return [kernel_site(dev, seed, "frame_ring", n_rows, row, m),
             kernel_site(dev, seed, "flat", 32768, flat_row, kb),
             kernel_site(dev, seed, "flat_full", capacity, flat_row, kb),
             kernel_site(dev, seed, "sequence", seq_cap, seq_row, seq_m),
             kernel_site(dev, seed, "dist_frame_ring", dist_rows, row, m),
             kernel_site(dev, seed, "dist_sequence", r2_dp * r2_shard,
-                        seq_row, seq_m)]
+                        seq_row, seq_m),
+            kernel_site(dev, seed, "mh_frame_ring", mh_rows, row, m // 2)]
 
 
 def phase_reference(dev, seed: int) -> None:
@@ -1020,8 +1080,8 @@ def phase_apex(seed: int) -> dict:
         with timed_adds() as adds:
             out, wall = run_cli([
                 "--config", "pong", "--seed", str(seed),
-                "--total-env-frames", "60000", "--wall-clock-limit", "120",
-                "--device", "cuda"])
+                "--total-env-frames", str(APEX_FRAMES),
+                "--wall-clock-limit", "120", "--device", "cuda"])
     finally:
         (BatchedInferenceServer.update_params, DQNLearner.train_many,
          LoopbackTransport.send_experience, ApexDriver.__init__) = orig
@@ -1037,7 +1097,7 @@ def phase_apex(seed: int) -> dict:
     train_s = (calls["last_s"] - calls["first_s"]
                if calls["first_s"] is not None else 0.0)
     ev = out["eval"] or {}
-    log(f"apex: `--config pong --total-env-frames 60000 "
+    log(f"apex: `--config pong --total-env-frames {APEX_FRAMES} "
         f"--wall-clock-limit 120 --device cuda`: {cfg.actors.num_actors} "
         f"vector actors x {cfg.actors.envs_per_actor} "
         f"{cfg.env.kind} envs ({'native' if native.available() else 'numpy'}"
@@ -1201,8 +1261,8 @@ def phase_r2d2(seed: int) -> dict:
                 "--config", "r2d2", "--seed", str(seed),
                 "--set", "parallel.dp=1", "--set", "parallel.tp=1",
                 "--actors", "8", "--set", "replay.min_fill=256",
-                "--total-env-frames", "30000", "--wall-clock-limit", "180",
-                "--device", "cuda"])
+                "--total-env-frames", str(R2D2_FRAMES),
+                "--wall-clock-limit", "180", "--device", "cuda"])
     finally:
         (BatchedInferenceServer.update_params, SequenceLearner.train_many,
          LoopbackTransport.send_experience, ApexDriver.__init__,
@@ -1228,7 +1288,8 @@ def phase_r2d2(seed: int) -> dict:
     loss = calls["loss"].item() if calls["loss"] is not None else math.nan
     ev = out["eval"] or {}
     log(f"r2d2: `--config r2d2 --set parallel.dp=1 --set parallel.tp=1 "
-        f"--actors 8 --set replay.min_fill=256 --total-env-frames 30000 "
+        f"--actors 8 --set replay.min_fill=256 --total-env-frames "
+        f"{R2D2_FRAMES} "
         f"--wall-clock-limit 180 --device cuda`: LSTM {net.lstm_size} over "
         f"the Nature-CNN torso, dueling, bf16, sequences of "
         f"{rep.seq_length} (burn-in {rep.burn_in}), batch {ln.batch_size}, "
@@ -1344,6 +1405,7 @@ def phase_pong_single_process(seed: int) -> dict:
         out, wall = run_cli([
             "--config", "pong", "--single-process", "--seed", str(seed),
             "--total-env-frames", str(PONG_SP_FRAMES),
+            "--set", f"replay.min_fill={PONG_SP_MIN_FILL}",
             "--set", "learner.sample_prefetch=True", "--device", "cuda"])
     finally:
         DQNLearner.sample_k, DQNLearner.learn_k = orig_sample_k, orig_learn_k
@@ -1387,7 +1449,8 @@ def phase_pong_single_process(seed: int) -> dict:
         check(torch.equal(got, want), f"sampled {key}: kernel != plain")
     train_s = t_end - calls["first_s"]
     log(f"pong-sp: `--config pong --single-process --total-env-frames "
-        f"{PONG_SP_FRAMES} --set learner.sample_prefetch=True --device "
+        f"{PONG_SP_FRAMES} --set replay.min_fill={PONG_SP_MIN_FILL} "
+        f"--set learner.sample_prefetch=True --device "
         f"cuda`: "
         f"dueling Nature-CNN bf16, 84x84x4 uint8, "
         f"{cfg.env.kind}/{atari_backend(cfg.env.kind)} backend, batch {b}, "
@@ -1465,7 +1528,8 @@ def phase_dpg(seed: int) -> None:
 
     argv = ["--config", "apex_dpg", "--seed", str(seed),
             "--set", "env.id=pendulum", "--actors", "8",
-            "--set", "replay.min_fill=5000", "--total-env-frames", "60000",
+            "--set", "replay.min_fill=5000", "--total-env-frames",
+            str(DPG_FRAMES),
             "--wall-clock-limit", "90", "--device", "cuda"]
     threads_before = {t.ident for t in threading.enumerate()}
     torch.cuda.synchronize()
@@ -2915,6 +2979,7 @@ def phase_dist_learners(dev, seed: int) -> None:
         check(g["peak_gb"] * 1e9 <= g["budget_gb"] * 1e9,
               f"{preset}: peak {g['peak_gb']:.2f} GB above the budget "
               f"{g['budget_gb']:.2f} GB")
+        RATES[f"dist_{preset}_graph"] = g["rate"]
         diff = dist_dp1_parity(dev, seed, preset)
         log(f"dist: {preset} learner alone on its dp=4 x tp=2 mesh of this "
             f"card: graph == eager bitwise (params, target, Adam, the four "
@@ -3186,6 +3251,216 @@ def phase_dist_cold(seed: int) -> dict:
     return launches
 
 
+def held_memory() -> dict:
+    """What this process still holds on the card after its phases, with
+    its cache freed: allocated and reserved bytes, then the same after
+    cuBLAS's per-stream workspaces are released (they are allocated
+    through the caching allocator, one per (handle, stream) that ran a
+    matmul, and live until released)."""
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    out = {"allocated": torch.cuda.memory_allocated(),
+           "reserved": torch.cuda.memory_reserved()}
+    clear = getattr(torch._C, "_cuda_clearCublasWorkspaces", None)
+    if clear is not None:
+        clear()
+        torch.cuda.empty_cache()
+    out["allocated_after_cublas"] = torch.cuda.memory_allocated()
+    out["reserved_after_cublas"] = torch.cuda.memory_reserved()
+    return out
+
+
+def free_port() -> int:
+    import socket
+    with socket.socket() as s:
+        s.bind(("127.0.0.1", 0))
+        return s.getsockname()[1]
+
+
+def mh_pair(name: str, argv: list[str]) -> list[dict]:
+    """Two ranks of `python -m ape_x_dqn_tpu_torch.runtime.train ARGV
+    --coordinator 127.0.0.1:<free port> --num-processes 2 --process-id
+    i` on this card, started together; each must exit 0 within
+    MH_TIMEOUT_S (a rank that dies fails the phase, and its survivor's
+    collective fails or its StallWatchdog ends it); both are killed on
+    the way out. -> their summaries, with each one's stderr header."""
+    port = free_port()
+    procs = [subprocess.Popen(
+        [sys.executable, "-m", "ape_x_dqn_tpu_torch.runtime.train", *argv,
+         "--device", DEVICE, "--coordinator", f"127.0.0.1:{port}",
+         "--num-processes", "2", "--process-id", str(pid)],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+        cwd=os.path.dirname(os.path.abspath(__file__)))
+        for pid in range(2)]
+    outs = []
+    deadline = time.monotonic() + MH_TIMEOUT_S
+    try:
+        for pid, p in enumerate(procs):
+            try:
+                stdout, stderr = p.communicate(
+                    timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                raise RuntimeError(f"check failed: {name}: rank {pid} did "
+                                   f"not end within {MH_TIMEOUT_S} s")
+            check(p.returncode == 0, f"{name}: rank {pid} exited "
+                  f"{p.returncode}: {stderr[-3000:]}")
+            out = json.loads(stdout.strip().splitlines()[-1])
+            out["header"] = [ln for ln in stderr.splitlines()
+                             if ln.startswith("[multihost]")]
+            outs.append(out)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.communicate()
+    return outs
+
+
+def mh_check(name: str, outs: list[dict], steps0: int = 0) -> dict:
+    """The lockstep invariants of a two-rank run and what it measured:
+    equal grad_steps, frames, loss and param checksum; each rank fed
+    experience, exchanged once per SGD step of this run, replayed its
+    captured segments and add graph, launched the gather, and peaked
+    under its budget on a card that holds both. -> the run's numbers."""
+    a, b = outs
+    check(a["actor_errors"] == [] and b["actor_errors"] == [],
+          f"{name}: actor_errors {a['actor_errors']} {b['actor_errors']}")
+    check(a["grad_steps"] == b["grad_steps"] > steps0
+          and a["frames"] == b["frames"] > 0
+          and a["loss"] == b["loss"] and math.isfinite(a["loss"])
+          and a["multihost"]["params_crc32"]
+          == b["multihost"]["params_crc32"],
+          f"{name}: the ranks are not in lockstep: "
+          f"{[(o['grad_steps'], o['frames'], o['loss'], o['multihost']['params_crc32']) for o in outs]}")
+    card = torch.cuda.get_device_properties(0).total_memory
+    per = []
+    for pid, o in enumerate(outs):
+        mh = o["multihost"]
+        ex = mh["exchange"]
+        steps = o["grad_steps"] - steps0
+        check(o["frames_local"] > 0 and o["params_version"] > 0,
+              f"{name}: rank {pid} fed nothing or never published: {o}")
+        check(mh["backend"] == "gloo" and mh["world_size"] == 2
+              and mh["processes_on_card"] == 2
+              and mh["rows"][1] - mh["rows"][0] > 0,
+              f"{name}: rank {pid}'s group: {mh}")
+        check(ex["calls"] == steps, f"{name}: rank {pid} exchanged "
+              f"{ex['calls']} times for {steps} SGD steps")
+        check(any(n > 1 for n in mh["step_graph_segments"].values())
+              and mh["add_graph_replays"] > 0,
+              f"{name}: rank {pid} replayed no captured segments or add "
+              f"graph: {mh['step_graph_segments']}, "
+              f"{mh['add_graph_replays']}")
+        check(mh["peak_mem_bytes"] <= mh["hbm_budget_bytes"]
+              and 2 * mh["hbm_budget_bytes"] <= card,
+              f"{name}: rank {pid} peak {mh['peak_mem_bytes'] / 1e9:.2f} "
+              f"GB vs its budget {mh['hbm_budget_bytes'] / 1e9:.2f} GB")
+        check(mh["gather_rows_launches"] > 0,
+              f"{name}: rank {pid} never launched gather_rows")
+        per.append({
+            "grad_steps_per_s": steps / max(o["train_wall_s"], 1e-9),
+            "collective_ms": ex["collective_s"] / max(ex["calls"], 1) * 1e3,
+            "wait_ms": ex["wait_s"] / max(ex["calls"], 1) * 1e3,
+            "bytes_per_step": ex["bytes_sent"] // max(ex["calls"], 1),
+            "launches": mh["gather_rows_launches"],
+            "peak_gb": mh["peak_mem_bytes"] / 1e9,
+            "budget_gb": mh["hbm_budget_bytes"] / 1e9})
+    return {"ranks": per,
+            "gather_rows": sum(r["launches"] for r in per)}
+
+
+def mh_line(name: str, what: str, outs: list[dict], got: dict,
+            wall: float, beside: str) -> None:
+    r = got["ranks"]
+    log(f"{name}: {what}: two ranks on this card over gloo "
+        f"({outs[0]['header']}); lockstep: grad_steps "
+        f"{outs[0]['grad_steps']} = {outs[1]['grad_steps']}, frames "
+        f"{outs[0]['frames']} = {outs[1]['frames']}, loss "
+        f"{outs[0]['loss']!r} = {outs[1]['loss']!r}, params crc32 "
+        f"{outs[0]['multihost']['params_crc32']} on both; frames_local "
+        f"{[o['frames_local'] for o in outs]}; gather_rows launches per "
+        f"rank {[x['launches'] for x in r]}; grad-steps/s in the training "
+        f"window {[round(x['grad_steps_per_s'], 2) for x in r]} ({beside}); "
+        f"the exchange per SGD step: {[round(x['collective_ms'], 3) for x in r]} "
+        f"ms in gloo's all_gather after {[round(x['wait_ms'], 3) for x in r]} "
+        f"ms waiting for the device, {r[0]['bytes_per_step']} B sent and "
+        f"{2 * r[0]['bytes_per_step']} B received a rank; peak "
+        f"{[round(x['peak_gb'], 2) for x in r]} GB a rank vs its budget "
+        f"{r[0]['budget_gb']:.2f} GB (x2 on the card); segments "
+        f"{outs[0]['multihost']['step_graph_segments']}; results "
+        f"{json.dumps([{k: o[k] for k in ('grad_steps', 'frames', 'frames_local', 'wall_s', 'train_wall_s', 'restored_step', 'params_version', 'checkpoint_saves')} for o in outs])}; "
+        f"{wall:.2f} s; card {CARD}")
+
+
+def phase_multihost(seed: int) -> dict:
+    """The multi-host learner as two processes sharing this card over
+    gloo, each through the CLI: `mh_apex` (atari57_apex at full width on
+    its dp=4 x tp=2 mesh, two shards a rank), `mh_r2d2` (r2d2 the same
+    way) and `mh_resume` (a two-rank checkpoint resume at a small
+    width). Before them this process frees its cache and prints what it
+    still holds. -> the gather launches by phase (both ranks)."""
+    held = held_memory()
+    log(f"mh: this process holds {held['allocated'] / 1e9:.3f} GB "
+        f"allocated, {held['reserved'] / 1e9:.3f} GB reserved with its "
+        f"cache freed; after releasing cuBLAS's per-stream workspaces "
+        f"{held['allocated_after_cublas'] / 1e9:.3f} GB allocated, "
+        f"{held['reserved_after_cublas'] / 1e9:.3f} GB reserved; card "
+        f"{CARD}")
+    launches = {}
+    for name, preset, sets, extra, beside in (
+            ("mh_apex", "atari57_apex", MH_APEX_SETS,
+             ["--total-env-frames", str(MH_APEX_FRAMES)],
+             "dist: atari57_apex learner alone, one process: "
+             f"{RATES.get('dist_atari57_apex_graph', math.nan):.2f}"),
+            ("mh_r2d2", "r2d2", MH_R2D2_SETS,
+             ["--total-env-frames", str(MH_R2D2_FRAMES),
+              "--max-grad-steps", str(MH_R2D2_STEPS)],
+             "dist: r2d2 learner alone, one process: "
+             f"{RATES.get('dist_r2d2_graph', math.nan):.2f}")):
+        argv = ["--config", preset, "--seed", str(seed), *extra]
+        for s_ in sets:
+            argv += ["--set", s_]
+        t0 = time.perf_counter()
+        outs = mh_pair(name, argv)
+        wall = time.perf_counter() - t0
+        got = mh_check(name, outs)
+        mh_line(name, f"`{' '.join(argv)}`", outs, got, wall, beside)
+        launches[name] = {"gather_rows": got["gather_rows"]}
+    ckpt = tempfile.mkdtemp(prefix="apex-chip-smoke-mh-ckpt-")
+    try:
+        t0 = time.perf_counter()
+        base = ["--config", "pong", "--seed", str(seed),
+                "--total-env-frames", "1000000", "--checkpoint-dir", ckpt]
+        for s_ in MH_RESUME_SETS:
+            base += ["--set", s_]
+        first = mh_pair("mh_resume", base + ["--max-grad-steps",
+                                             str(MH_RESUME_STEPS[0])])
+        got1 = mh_check("mh_resume", first)
+        check(all(o["restored_step"] is None
+                  and o["grad_steps"] == MH_RESUME_STEPS[0] for o in first),
+              f"mh_resume: run 1 {first}")
+        second = mh_pair("mh_resume", base + ["--max-grad-steps",
+                                              str(MH_RESUME_STEPS[1])])
+        got2 = mh_check("mh_resume", second, steps0=MH_RESUME_STEPS[0])
+        check(all(o["restored_step"] == MH_RESUME_STEPS[0]
+                  and o["grad_steps"] == MH_RESUME_STEPS[1]
+                  for o in second),
+              f"mh_resume: run 2 did not resume at {MH_RESUME_STEPS[0]} "
+              f"and train on to {MH_RESUME_STEPS[1]}: {second}")
+        wall = time.perf_counter() - t0
+        mh_line("mh_resume", f"`{' '.join(base)}` to "
+                f"{MH_RESUME_STEPS[0]} grad-steps, then again to "
+                f"{MH_RESUME_STEPS[1]} (restored_step "
+                f"{second[0]['restored_step']} on both ranks); run 2",
+                second, got2, wall, "a small CNN, free-running")
+        launches["mh_resume"] = {"gather_rows": got1["gather_rows"]
+                                 + got2["gather_rows"]}
+    finally:
+        shutil.rmtree(ckpt, ignore_errors=True)
+    return launches
+
+
 def memory_table() -> list[str]:
     """The HBM budget of each preset's run beside its measured peak and
     the card's memory; the transient the budget must cover (the peak
@@ -3306,6 +3581,10 @@ def main() -> int:
     t0 = time.perf_counter()
     dist_cold = phase_dist_cold(args.seed)
     log(f"dist_cold: {time.perf_counter() - t0:.2f} s")
+    # 20. the multi-host learner: two ranks on this card over gloo
+    t0 = time.perf_counter()
+    mh = phase_multihost(args.seed)
+    log(f"mh: {time.perf_counter() - t0:.2f} s")
     for line in memory_table():
         log(line)
 
@@ -3317,13 +3596,15 @@ def main() -> int:
     sites[3]["launches"] = r2d2["gather_rows"]
     sites[4]["launches"] = dist_apex["gather_rows"]
     sites[5]["launches"] = dist_r2d2["gather_rows"]
+    sites[6]["launches"] = mh["mh_apex"]["gather_rows"]
     for site in sites:
         check(site["launches"] > 0, f"gather_rows never launched on the "
               f"{site['site']} path")
     for path, counts in (("apex", apex), ("remote", remote),
                          ("resume", resume), ("obs", obs),
                          ("serve", serve), ("tiers", tiers),
-                         ("legacy", legacy), ("dist_cold", dist_cold)):
+                         ("legacy", legacy), ("dist_cold", dist_cold),
+                         *mh.items()):
         check(counts["gather_rows"] > 0, f"gather_rows never launched on "
               f"the {path} path")
     top = sites[2]
@@ -3343,7 +3624,9 @@ def main() -> int:
                                  "dist_apex": dist_apex["gather_rows"],
                                  "dist_r2d2": dist_r2d2["gather_rows"],
                                  "legacy": legacy["gather_rows"],
-                                 "dist_cold": dist_cold["gather_rows"]},
+                                 "dist_cold": dist_cold["gather_rows"],
+                                 **{k: v["gather_rows"]
+                                    for k, v in mh.items()}},
             "max_abs_err": max(s_["max_abs_err"] for s_ in sites),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": "bytes",

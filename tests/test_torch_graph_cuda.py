@@ -71,9 +71,10 @@ def cuda_device():
     yield torch.device("cuda")
     torch.backends.cudnn.deterministic = old[0]
     torch.use_deterministic_algorithms(old[1], warn_only=old[2])
-    # a learner and its graphs form a reference cycle: free this test's
-    # graphs now, not at a collection that may fall inside a later
-    # test's capture (destroying a graph there invalidates the capture)
+    # free whatever this test left in reference cycles now, not at a
+    # collection that may fall inside a later test's capture (destroying
+    # a graph there invalidates the capture); the graphs themselves
+    # reach their learner through a weak reference
     gc.collect()
     torch.cuda.synchronize()
 
@@ -213,9 +214,11 @@ def _dpg(dev):
     return learner, state, add, 1
 
 
-def _dist_frame_ring(dev):
+def _dist_frame_ring(dev, exchange=None):
     """The frame ring's DistDQNLearner on a dp=4 x tp=2 mesh of the card
-    (4 shards of 1024 transitions), lockstep adds of [4, g, ...]."""
+    (4 shards of 1024 transitions), lockstep adds of [4, g, ...]; with
+    an `exchange`, its multi-process form (tests/test_torch_multihost_
+    cuda.py)."""
     dp, obs = 4, (42, 42, 4)
     spec = EnvSpec(obs, np.dtype(np.uint8), True, 6)
     lcfg = LearnerConfig(batch_size=32, sample_chunk=4, target_sync_every=3)
@@ -224,7 +227,8 @@ def _dist_frame_ring(dev):
         compute_dtype="bfloat16"), spec)).to(dev)
     replay = FrameRingReplay(1024, 16, 3, obs, device=dev)
     learner = DistDQNLearner(replay, lcfg,
-                             make_mesh(dp=dp, tp=2, devices=[dev] * 8))
+                             make_mesh(dp=dp, tp=2, devices=[dev] * 8),
+                             exchange=exchange)
     state = learner.init(net, None,
                          component_generator(0, "learner", device=dev))
 
@@ -247,8 +251,9 @@ def _dist_frame_ring(dev):
     return learner, state, add, 4
 
 
-def _dist_sequence(dev):
-    """The R2D2 DistSequenceLearner on a dp=4 x tp=2 mesh of the card."""
+def _dist_sequence(dev, exchange=None):
+    """The R2D2 DistSequenceLearner on a dp=4 x tp=2 mesh of the card
+    (with an `exchange`, its multi-process form)."""
     dp, seq, lstm, frames = 4, 8, 32, (36, 36, 4)
     lcfg = LearnerConfig(batch_size=16, sample_chunk=4, n_step=2,
                          value_rescale=True, target_sync_every=3)
@@ -257,7 +262,8 @@ def _dist_sequence(dev):
                             dense=32, compute_dtype="bfloat16")).to(dev)
     replay = PrioritizedReplay(256, device=dev)
     learner = DistSequenceLearner(replay, lcfg, rcfg,
-                                  make_mesh(dp=dp, tp=2, devices=[dev] * 8))
+                                  make_mesh(dp=dp, tp=2, devices=[dev] * 8),
+                                  exchange=exchange)
     state = learner.init(net, sequence_item_spec(
         frames, np.uint8, seq, lstm, frame_mode=True),
         component_generator(0, "learner", device=dev))

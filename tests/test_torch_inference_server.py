@@ -216,7 +216,7 @@ def test_server_refuses_a_mesh_and_a_missing_card():
     """A mesh is the original's sharded mode (buckets in multiples of
     the mesh size, on the mesh's device; tests/test_torch_parallel.py
     serves through it); a mesh over distinct devices still waits for
-    item 14; a CUDA server without a card raises."""
+    item 6; a CUDA server without a card raises."""
     from ape_x_dqn_tpu_torch.parallel.mesh import make_mesh
     server = BatchedInferenceServer(
         lambda p, o: o, None,
@@ -226,7 +226,7 @@ def test_server_refuses_a_mesh_and_a_missing_card():
         assert [server._bucket(n) for n in (1, 6, 7, 13)] == [6, 12, 12, 18]
     finally:
         server.stop()
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(NotImplementedError, match="item 6\\b"):
         make_mesh(dp=2, tp=1, devices=["cpu", "cuda:0"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

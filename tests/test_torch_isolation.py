@@ -94,6 +94,7 @@ def test_main_path_import_loads_no_jax():
         "import ape_x_dqn_tpu_torch.parallel.mesh\n"
         "import ape_x_dqn_tpu_torch.parallel.sharding\n"
         "import ape_x_dqn_tpu_torch.parallel.multihost\n"
+        "import ape_x_dqn_tpu_torch.runtime.multihost_driver\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
         "assert not bad, bad\n" % (str(ROOT), FORBIDDEN))
     env = {"PATH": "/usr/bin:/bin", "PYTHONNOUSERSITE": "1"}
