@@ -30,9 +30,13 @@ explicitly what GSPMD inserts into the original's step
   one-process stream;
 - the priority write-back, the target sync (keyed on Adam's count, the
   same everywhere) and ingest stay per process.
-On the card each step is then a `SegmentedStep` (runtime/
-step_graph.py): captured segments around the host collective.
-Distinct cards per process and NCCL are ROADMAP Queue A item 6.
+The exchanged bodies are generators that yield at each exchange, one
+code path for both of the exchange's modes (parallel/multihost.py). On
+the card, with every rank alone on its card (NCCL on the device), an
+exchanged macro-step is ONE captured graph with its collectives inside
+(runtime/step_graph.py: `ExchangedStep`); with ranks that share a card
+(gloo through the host) it is a `SegmentedStep`, captured segments
+around the host collective.
 
 What the original does, here as well:
 - each shard draws batch/dp stratified samples from its own sum-tree
@@ -56,8 +60,9 @@ As in the single-card learners (runtime/learner.py), the stratification
 noise ([dp, n] per draw, one generator) is drawn before each step body,
 every endpoint writes its state IN PLACE, and on the card `train_step`,
 `train_step_k` (so `train_many`), the ingest add and the eviction swap
-replay captured CUDA graphs (runtime/step_graph.py); `sample_k` and
-`learn_k` stay eager. `tp` splits no layer on one card (a column split
+replay captured CUDA graphs (runtime/step_graph.py; with an exchange,
+one graph or segments, as above); `sample_k` and `learn_k` stay
+eager. `tp` splits no layer on one card (a column split
 changes no number); `param_specs` holds what it would split
 (parallel/sharding.py).
 """

@@ -14,12 +14,15 @@ sequences shard across the batch axis, never time.
 The port places every shard of a process's dp-sharded learner on ONE
 card (parallel/dist_learner.py keeps the shards stacked on a leading
 axis): a device list may repeat a card, the counterpart of the original
-tests' emulated host devices. The multi-host learner
-(runtime/multihost_driver.py) gives each process a mesh of its own dp
-rows (dp_local x tp) on its card, and the cross-process gradient rides
-gloo (parallel/multihost.py). A mesh over more than one DISTINCT card
-raises until per-card placement and the NCCL gradient all-reduce exist
-(ROADMAP Queue A item 6).
+tests' emulated host devices. Several cards are used through the
+multi-host learner (runtime/multihost_driver.py), one rank per card
+(the CLI's ``--coordinator/--num-processes/--process-id``): each
+process gets a mesh of its own dp rows (dp_local x tp) on its card, and
+the cross-process gradient rides NCCL on the device when every rank has
+its card to itself, gloo through the host when ranks share one
+(parallel/multihost.py). A single-process mesh over more than one
+DISTINCT card still raises, as do the tp column split across cards and
+the servers' batch split over cards (ROADMAP Queue A item 6).
 """
 
 from __future__ import annotations
@@ -80,7 +83,9 @@ def make_mesh(dp: int | None = None, tp: int = 1,
     if len(distinct) > 1:
         raise NotImplementedError(
             f"a mesh over {len(distinct)} distinct devices ({distinct}) "
-            f"is not ported to the PyTorch package yet: per-card shard "
-            f"placement and the NCCL gradient all-reduce wait for ROADMAP "
-            f"Queue A item 6; pass one card repeated dp*tp times")
+            f"in one process is not ported to the PyTorch package yet "
+            f"(ROADMAP Queue A item 6); pass one card repeated dp*tp "
+            f"times, or run one rank per card through the multi-host "
+            f"learner (--coordinator/--num-processes/--process-id), "
+            f"whose gradient exchange is NCCL")
     return Mesh([used[d * tp:(d + 1) * tp] for d in range(dp)])

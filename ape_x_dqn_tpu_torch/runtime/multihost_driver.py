@@ -6,15 +6,20 @@ reference scales its learner with NCCL/MPI process groups running
 synchronized training steps while each host ingests its own actors'
 experience. Here:
 
-- Every process joins one ``torch.distributed`` group over gloo
+- Every process joins one ``torch.distributed`` group
   (parallel/multihost.py: `init_multihost`, which the CLI's
-  ``--coordinator`` calls) and builds the same dist learner
+  ``--coordinator`` calls: gloo for CPU tensors, and NCCL for CUDA
+  tensors on a card) and builds the same dist learner
   (parallel/dist_learner.py) from the same seed, over a process-local
   mesh of its own dp rows (`process_rows`: dp_local = dp / nproc, on its
   own card; on one card every rank takes it, and `check_hbm_fits` counts
   the ranks there). Each SGD step's gradient crosses processes in one
-  gloo exchange; every process holds the whole params, so publication is
-  process-local.
+  exchange, whose mode the group agrees on once, after counting the
+  processes on each card (`agreed_exchange_mode`): NCCL on the device
+  when every rank is alone on its card, each macro-step then ONE
+  captured graph with its collectives inside; else gloo through the
+  host, between captured segments. Every process holds the whole
+  params, so publication is process-local.
 - Each host runs its OWN actors + batched inference server + transport;
   experience lands only in the replay shards that host owns, exactly
   like the reference's per-learner replay locality.
@@ -32,12 +37,23 @@ experience. Here:
          values (the collective's outputs, or counts every process
          advances alike), never on host-local state.
 
+  The same dispatches on every rank also give the same order of graph
+  replays, which the NCCL mode needs: a replayed collective waits on
+  the device for its peers' replays, with no host timeout.
+
   A host whose actors all die stalls global ingest (training continues
   on existing data); a host whose PROCESS dies hangs or fails the
   collectives, the same failure domain as the reference's NCCL group,
   recovered by restarting the job from a checkpoint. The
   `StallWatchdog` (obs/health.py) ends a process whose peers stopped
-  answering.
+  answering, a replayed NCCL collective waiting on the device
+  included (the round loop then blocks on the step's loss). It is
+  armed wherever this process waits on its peers: across the group's
+  first collectives and NCCL's communicator at construction, the
+  learner's warm-up (its exchanges and captures), the round loop, and
+  `close`, which releases the step graphs (NCCL destroys no
+  communicator while a CUDA graph holding one of its collectives
+  lives; the CLI calls it before it leaves the group).
 
 Checkpoints (``checkpoint_dir``, which every process must set, or none):
 params, target params, Adam, the learner's generator, the step and the
@@ -70,7 +86,6 @@ from collections import deque
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
 from ape_x_dqn_tpu_torch.comm.param_codec import tree_map
 from ape_x_dqn_tpu_torch.comm.transport import LoopbackTransport, batch_rows
@@ -149,6 +164,9 @@ class MultihostApexDriver:
         self.rank = multihost.process_index()
         self.nproc = multihost.process_count()
         self.device = resolve_device(multihost.local_device(device))
+        if self.device.type == "cuda":
+            # streams, events and NCCL's communicator default to it
+            torch.cuda.set_device(self.device)
         self.metrics = metrics or Metrics()
         self.obs = build_obs(getattr(cfg, "obs", None), self.metrics)
         probe_env = make_env(cfg.env, seed=cfg.seed)
@@ -170,15 +188,28 @@ class MultihostApexDriver:
         self._unit_items = setup.unit_items
         self._item_keys = tuple(setup.item_spec.keys())
         self._item_spec = setup.item_spec
-        # early, loud fits-check: this process's shards + model state,
-        # times the processes that share the card (a one-off gather)
-        self.processes_on_card = multihost.processes_on_device(self.device)
-        self.hbm_budget = check_hbm_fits(
-            cfg, self.spec.obs_shape, self.spec.obs_dtype,
-            param_count=sum(p.numel() for p in self.net.parameters()),
-            device=self.device,
-            shards_per_card=self.mesh.shards_on(self.device),
-            processes_per_card=self.processes_on_card)
+        # the group's first collectives wait on every peer: a watchdog
+        # ends this process if one never answers
+        with self._watched("joining the group: the placement and mode "
+                           "agreement, NCCL's communicator"):
+            # the processes that share the card (a one-off gather), then
+            # one exchange mode for the whole group (one collective)
+            self.processes_on_card = multihost.processes_on_device(
+                self.device)
+            mode = multihost.agreed_exchange_mode(
+                self.device.type == "cuda", self.processes_on_card)
+            # early, loud fits-check: this process's shards + model
+            # state, times the processes on the card, and NCCL's buffers
+            self.hbm_budget = check_hbm_fits(
+                cfg, self.spec.obs_shape, self.spec.obs_dtype,
+                param_count=sum(p.numel() for p in self.net.parameters()),
+                device=self.device,
+                shards_per_card=self.mesh.shards_on(self.device),
+                processes_per_card=self.processes_on_card,
+                nccl=mode == "nccl")
+            # the NCCL exchange makes its communicator now, before any
+            # capture, and raises rather than fall back to gloo
+            self.exchange = multihost.GradExchange(mode, self.device)
         self.net.to(self.device)
 
         # identical construction on every process (same cfg.seed) ->
@@ -188,7 +219,6 @@ class MultihostApexDriver:
             cfg, self.spec, shard_cap, self.device,
             frame_mode=self._frame_mode)
         self.capacity = shard_cap * self.dp
-        self.exchange = multihost.GradExchange()
         self.learner = (
             DistSequenceLearner(self.replay, cfg.learner, cfg.replay,
                                 self.mesh, exchange=self.exchange)
@@ -275,6 +305,31 @@ class MultihostApexDriver:
         self.last_eval: dict | None = None  # guarded-by: _lock
         self._eval_error: Exception | None = None  # guarded-by: _lock
 
+    @contextlib.contextmanager
+    def _watched(self, what: str):
+        """A `StallWatchdog` armed across the block (`what` names it in
+        its diagnostic): collectives outside the round loop wait on
+        every peer too. -> the watchdog, to stamp."""
+        watchdog = StallWatchdog(self.cfg.multihost_watchdog_s,
+                                 describe=lambda: what)
+        watchdog.start()
+        try:
+            yield watchdog
+        finally:
+            watchdog.stop()
+
+    def close(self) -> None:
+        """Release the learner's step graphs, after the card has run
+        them (`GraphedEndpoints.release_graphs`): NCCL destroys no
+        communicator while a CUDA graph holding one of its collectives
+        lives, so the CLI calls this before it leaves the process
+        group. A replayed collective whose peer died never ends, so the
+        wait for the card is watched too."""
+        with self._watched("releasing the step graphs"):
+            if self.device.type == "cuda":
+                torch.cuda.synchronize(self.device)
+            self.learner.release_graphs()
+
     # -- checkpoint/resume -------------------------------------------------
 
     def _ckpt_template(self) -> dict:
@@ -286,7 +341,7 @@ class MultihostApexDriver:
         """COLLECTIVE (a barrier): every process calls it on the same
         round; process 0 writes the (replicated) train state."""
         with self.obs.span("ckpt.save", step=self._grad_steps):
-            dist.barrier()
+            multihost.barrier()
             if self.rank == 0:
                 # copies on the device, on the round loop's stream; the
                 # writer thread waits for them
@@ -523,6 +578,23 @@ class MultihostApexDriver:
         restore_checkpoint_tree(self.state, keep)
         self.exchange.reset()
 
+    @staticmethod
+    def _part(parts: dict, name: str, t0: float,
+              t_train: float | None) -> float:
+        """Add the seconds since `t0` to `parts[name]` once the training
+        window has opened (`t_train`). -> now."""
+        now = time.monotonic()
+        if t_train is not None:
+            parts[name] += now - t0
+        return now
+
+    def _step_graphs(self) -> dict:
+        """{step endpoint: captured graphs one call replays}: 1 with the
+        NCCL exchange, 5 a K=4 macro-step with gloo's (segments), 0
+        where nothing is captured (the CPU)."""
+        return {g.name: g.graphs
+                for g in self.learner.step_graphs().values()}
+
     # -- the lockstep round loop ------------------------------------------
 
     def run(self, total_env_frames: int | None = None,
@@ -543,12 +615,13 @@ class MultihostApexDriver:
                    for i in range(cfg.actors.num_actors)]
         self._actor_threads = threads  # _pump_ingest's cap-lift check
         log_run_header(self.metrics, cfg, self._grad_steps)
-        self.metrics.log(self._grad_steps, multihost_backend=multihost.BACKEND,
+        self.metrics.log(self._grad_steps,
+                         multihost_backend=self.exchange.mode,
                          world_size=self.nproc, process=self.rank,
                          rows=[self.row_start, self.row_stop],
                          processes_on_card=self.processes_on_card)
         print(f"[multihost] process {self.rank}/{self.nproc}: backend "
-              f"{multihost.BACKEND}, world size {self.nproc}, rows "
+              f"{self.exchange.mode}, world size {self.nproc}, rows "
               f"[{self.row_start}, {self.row_stop}) of dp={self.dp}, "
               f"device {self.device}, {self.processes_on_card} "
               f"process(es) on this card", file=sys.stderr, flush=True)
@@ -559,8 +632,12 @@ class MultihostApexDriver:
         stream = (torch.cuda.stream(self._learn_stream)
                   if self._learn_stream is not None
                   else contextlib.nullcontext())
-        with stream:
+        # the learner's warm-up exchanges and captures wait on every peer
+        # as the round loop's steps do
+        with self._watched("the learner's warm-up: its exchanges and "
+                           "captures"), stream:
             self._warmup_learner(chunk_steps)
+        self.metrics.log(self._grad_steps, step_graphs=self._step_graphs())
         evaluator = None
         if (self.rank == 0 and cfg.eval_every_steps > 0
                 and cfg.eval_episodes > 0):
@@ -572,6 +649,11 @@ class MultihostApexDriver:
 
         t0 = time.monotonic()
         t_train = None
+        # the round loop's host seconds by part, from the first train
+        # dispatch on (the training window): the rest of the window is
+        # the loop's own bookkeeping
+        parts = dict.fromkeys(("ingest", "stats", "add", "dispatch",
+                               "publish", "checkpoint", "idle"), 0.0)
         frames_global = float(self._frames_base)
         loss = float("nan")
         last_ckpt = self._grad_steps
@@ -586,7 +668,9 @@ class MultihostApexDriver:
         try:
             with stream:
                 while True:
+                    t_part = time.monotonic()
                     self._pump_ingest()
+                    t_part = self._part(parts, "ingest", t_part, t_train)
                     progressed = False
                     # 0. ONE collective for this round's global control
                     # values. local_idle: this host can never produce
@@ -625,9 +709,11 @@ class MultihostApexDriver:
                         and self.transport.pending == 0) else 0.0
                     with self._lock:
                         frames_local = self._frames_local
+                    t_part = time.monotonic()
                     all_ready, all_idle, frames_global = \
                         multihost.global_stats(blocks_ready, local_idle,
                                                float(frames_local))
+                    t_part = self._part(parts, "stats", t_part, t_train)
                     # a resumed run continues its frame budget from the
                     # checkpointed global count
                     frames_global += self._frames_base
@@ -642,6 +728,7 @@ class MultihostApexDriver:
                             self._add_block(self._pop_block())
                         filled = self._filled()
                         progressed = True
+                    t_part = self._part(parts, "add", t_part, t_train)
                     # 2. lockstep training, branching on global values
                     # only; steps_per_frame_cap paces the learner to the
                     # GLOBAL frame count
@@ -655,7 +742,7 @@ class MultihostApexDriver:
                         k = chunk_steps if chunk_steps <= \
                             max_grad_steps - done else 1
                         if t_train is None:
-                            t_train = time.monotonic()
+                            t_train = t_part = time.monotonic()
                         with self.obs.stage_window("train_dist", k,
                                                    stream=self._learn_stream):
                             with self.obs.span("learner.train", k=k):
@@ -666,6 +753,8 @@ class MultihostApexDriver:
                                     self.state, m = self.learner.train_step(
                                         self.state)
                                 loss = float(m["loss"])  # honest timing
+                        t_part = self._part(parts, "dispatch", t_part,
+                                            t_train)
                         self._grad_steps += k
                         self.obs.set_learner_step(self._grad_steps)
                         self.obs.mark("replay.sample",
@@ -688,6 +777,8 @@ class MultihostApexDriver:
                                             if returns else None))
                             self.obs.gauge("replay_occupancy", filled)
                             self.obs.publish(self._grad_steps)
+                        t_part = self._part(parts, "publish", t_part,
+                                            t_train)
                     # checkpoints on a grad-step cadence: a global value,
                     # so every process reaches the barrier on one round
                     if (self.ckpt is not None
@@ -696,6 +787,7 @@ class MultihostApexDriver:
                         self._save_checkpoint()
                         last_ckpt = self._grad_steps
                         watchdog.stamp()
+                        self._part(parts, "checkpoint", t_part, t_train)
                     # 3. global termination: every condition derives from
                     # the round's collective, so every process breaks on
                     # the same round (guards against frame counts that
@@ -715,7 +807,9 @@ class MultihostApexDriver:
                     if not progressed:
                         # idle round: host-local pacing, no collective
                         # skipped
+                        t_part = time.monotonic()
                         time.sleep(0.05)
+                        self._part(parts, "idle", t_part, t_train)
                 # final checkpoint BEFORE joining actors: the break is
                 # lockstep, so the barrier is aligned. The watchdog stays
                 # armed through the final collectives.
@@ -767,8 +861,10 @@ class MultihostApexDriver:
         with self._lock:
             avg_ret = (float(np.mean(self.episode_returns))
                        if self.episode_returns else 0.0)
-        peak = (torch.cuda.max_memory_allocated(self.device)
-                if self.device.type == "cuda" else None)
+        cuda = self.device.type == "cuda"
+        peak = torch.cuda.max_memory_allocated(self.device) if cuda else None
+        peak_reserved = (torch.cuda.max_memory_reserved(self.device)
+                         if cuda else None)
         return {
             "process": self.rank,
             "frames": int(frames_global),
@@ -778,8 +874,13 @@ class MultihostApexDriver:
             "replay_filled": filled,
             "avg_return": avg_ret,
             "wall_s": t_end - t0,
-            # seconds from the first train dispatch to the loop's end
+            # seconds from the first train dispatch to the loop's end, and
+            # those spent in the dispatches (each up to its loss on the
+            # host); the rest of the window is the round loop's own
             "train_wall_s": (t_end - t_train) if t_train else 0.0,
+            "dispatch_s": parts["dispatch"],
+            # the window's host seconds by part of the round loop
+            "round_s": parts,
             "restored_step": self._restored_step,
             # grad-step of the last weight publication (0 = never)
             "params_version": self.server.params_version,
@@ -789,7 +890,7 @@ class MultihostApexDriver:
             "eval_error": (repr(self._eval_error)
                            if self._eval_error else None),
             "multihost": {
-                "backend": multihost.BACKEND, "world_size": self.nproc,
+                "backend": self.exchange.mode, "world_size": self.nproc,
                 "rows": [self.row_start, self.row_stop],
                 "device": str(self.device),
                 "processes_on_card": self.processes_on_card,
@@ -799,11 +900,11 @@ class MultihostApexDriver:
                 "gather_rows_launches": frame_gather.gather_rows.launches,
                 "add_graph_replays": sum(
                     g.replays for g in self.learner.add_graphs().values()),
-                "step_graph_segments": {
-                    g.name: getattr(g, "segments", 0)
-                    for g in self.learner.step_graphs().values()},
+                "step_graphs": self._step_graphs(),
                 "peak_mem_bytes": peak,
+                "peak_reserved_bytes": peak_reserved,
                 "hbm_budget_bytes": self.hbm_budget.total,
+                "hbm_budget_nccl_bytes": self.hbm_budget.nccl,
             },
         }
 

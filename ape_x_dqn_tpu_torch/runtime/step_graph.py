@@ -42,19 +42,32 @@ static device buffers that the caller's host-to-device copies land in
 (`land`); the host cursor is the learner's to advance. One graph per
 (replay, g).
 
-`SegmentedStep` is a `StepGraph` for a step with host collectives
-inside it: the multi-process dp-sharded learner (parallel/
-dist_learner.py) reduces each SGD step's gradient across processes
-through gloo on the host (parallel/multihost.py: `GradExchange`), and a
-host-staged collective cannot live inside a CUDA graph. Its body is a
-generator that yields each vector to exchange and is sent back the
-exchanged [nproc, L] result; on the card each stretch between two
-yields is captured as a graph of its own (the draw and gather and
-chunk j's forward and backward into the packed vector; the exchange's
-copies and collective on the host; then the clip, Adam and target-sync
-segment with chunk j+1's forward and backward; the last segment ends
-with the write-back). Elsewhere `drive` runs the generator eagerly with
-the exchanges in between. A capture that fails raises here too.
+A multi-process dp-sharded learner (parallel/dist_learner.py) exchanges
+each SGD step's packed gradient across processes (parallel/
+multihost.py: `GradExchange`). Its step body is then a generator that
+yields each vector to exchange and is sent back the exchanged [nproc,
+L] result; `drive` runs it with the exchanges in between. Which graph
+holds it depends on the exchange:
+
+- `ExchangedStep`, for an exchange a CUDA graph can hold (NCCL on the
+  device, every rank alone on its card): the body is driven inside ONE
+  capture, so each collective is recorded between chunk j's backward
+  and chunk j+1's update, and a K=4 macro-step replays as one graph,
+  like a one-process learner's. The replays of every rank must come in
+  the same order (a replayed collective waits on the device for its
+  peers, with no host timeout): the lockstep round protocol
+  (runtime/multihost_driver.py) issues the same dispatches on every
+  rank.
+- `SegmentedStep`, for the host-staged gloo exchange, which no graph
+  can hold: each stretch between two yields is captured as a graph of
+  its own (the draw and gather and chunk j's forward and backward into
+  the packed vector; the exchange's copies and collective on the host;
+  then the clip, Adam and target-sync segment with chunk j+1's forward
+  and backward; the last segment ends with the write-back), five a
+  K=4 macro-step.
+
+On the CPU and with capture off both are `drive`, eagerly. A capture
+that fails raises here too.
 
 `EvictGraph` and an `AddGraph` of the directed add are the tiered cold
 store's eviction swap (the counterparts of the JAX learner's
@@ -171,6 +184,11 @@ class _Captured:
     def captured(self) -> bool:
         return self._graph is not None
 
+    @property
+    def graphs(self) -> int:
+        """Captured graphs one call replays."""
+        return 1 if self.captured else 0
+
     def _eager(self, run: Callable, state, x):
         """One eager run, counted for its cost the first time a cost is
         wanted."""
@@ -252,10 +270,45 @@ class StepGraph(_Captured):
         return unpack_metrics(self._out.clone(), self._paths)
 
 
+class ExchangedStep(StepGraph):
+    """A `StepGraph` whose body, ``body(state, noise)``, is a generator
+    with a capturable `exchange` inside (see the module docstring):
+    `drive` runs it, and on the card with capture on the whole of it is
+    captured into one graph. The exchange counts its eager calls; the
+    calls recorded into the graph are added to its counts at every
+    replay."""
+
+    def __init__(self, body: Callable, exchange, name: str = "step",
+                 steps: int = 1):
+        sizes: list[int] = []   # the recorded calls' element counts
+
+        def exchanged(send: torch.Tensor) -> torch.Tensor:
+            if send.is_cuda and torch.cuda.is_current_stream_capturing():
+                sizes.append(send.numel())
+            return exchange(send)
+
+        # closures over `exchange` and `sizes`, not over self: dropping
+        # the graph frees it at once (no reference cycle)
+        super().__init__(lambda s, u: drive(body(s, u), exchanged),
+                         name=name, steps=steps)
+        self.exchange = exchange
+        self._sizes = sizes
+
+    def _capture(self, run: Callable, state, x: Any, device):
+        self._sizes.clear()
+        return super()._capture(run, state, x, device)
+
+    def _replay(self, noise: torch.Tensor) -> dict:
+        out = super()._replay(noise)
+        self.exchange.count(self._sizes)
+        return out
+
+
 def drive(gen, exchange: Callable) -> Any:
-    """Run a segmented step body eagerly: each vector the generator
-    yields goes through `exchange` (-> the [nproc, L] result, sent
-    back in); -> what the generator returns."""
+    """Run an exchanged step body (eagerly, or inside an
+    `ExchangedStep`'s capture): each vector the generator yields goes
+    through `exchange` (-> the [nproc, L] result, sent back in); -> what
+    the generator returns."""
     x = None
     while True:
         try:
@@ -288,7 +341,8 @@ class SegmentedStep(_Captured):
         self._paths: list[tuple] = []
 
     @property
-    def segments(self) -> int:
+    def graphs(self) -> int:
+        """Captured segments one call replays."""
         return len(self._graphs)
 
     def _drive(self, state, noise) -> dict:
@@ -460,7 +514,8 @@ class GraphedEndpoints:
     shard_dims = 0
     # the per-SGD-step collective of a multi-process learner
     # (parallel/multihost.py: GradExchange); its step bodies are then
-    # generators, run as `SegmentedStep`s
+    # generators, run as one `ExchangedStep` graph when the exchange is
+    # capturable, else as `SegmentedStep`s
     exchange = None
 
     def _weak_body(self, fn: Callable) -> Callable:
@@ -494,15 +549,26 @@ class GraphedEndpoints:
             name = "train_step" if steps == 1 else f"train_step_k{steps}"
             name = f"{type(self).__name__}.{name}"
             body = self._weak_body(body)
-            graphs[key] = (StepGraph(body, name=name, steps=steps)
-                           if self.exchange is None else
-                           SegmentedStep(body, self.exchange, name=name,
-                                         steps=steps))
+            if self.exchange is None:
+                graphs[key] = StepGraph(body, name=name, steps=steps)
+            elif self.exchange.capturable:
+                graphs[key] = ExchangedStep(body, self.exchange, name=name,
+                                            steps=steps)
+            else:
+                graphs[key] = SegmentedStep(body, self.exchange, name=name,
+                                            steps=steps)
         return graphs[key](state, noise, self.capture)
 
     def step_graphs(self) -> dict:
         """{endpoint key: StepGraph} built so far."""
         return dict(self.__dict__.get("_graphs", {}))
+
+    def release_graphs(self) -> None:
+        """Drop the step graphs (the next call captures anew). NCCL
+        destroys no communicator while a CUDA graph holding one of its
+        collectives lives, so a multi-process learner's graphs go before
+        its process group does."""
+        self.__dict__.pop("_graphs", None)
 
     # -- the ingest add ------------------------------------------------------
 

@@ -32,10 +32,17 @@ configs, over `--games`). `--profile-dir` captures a torch.profiler
 trace of `profile_steps` grad-steps. `--device` (default cuda) is the
 device it runs on. `--coordinator HOST:PORT --num-processes N
 --process-id I` runs one process of the multi-host learner
-(runtime/multihost_driver.py): every process joins a gloo process group
-at HOST:PORT (parallel/multihost.py) before anything is built on the
-device, owns dp / N of the replay shards and trains in lockstep; on one
-card every process takes it. `--compilation-cache-dir` exits 2: the port
+(runtime/multihost_driver.py): every process joins one process group at
+HOST:PORT (parallel/multihost.py) before anything is built on the
+device, owns dp / N of the replay shards and trains in lockstep. On
+the card the group carries CPU tensors over gloo and CUDA tensors over
+NCCL; rank r takes card r % the visible cards. When every rank is alone
+on its card (one rank per card), the gradient exchange is NCCL on the
+device, inside each macro-step's graph; ranks that share a card (more
+ranks than cards), and `--device cpu`, exchange over gloo through the
+host. The summary's `multihost.backend` says which; an NCCL that is
+missing or fails with one rank per card raises, with no fallback to
+gloo. `--compilation-cache-dir` exits 2: the port
 compiles nothing at run time. `--single-process` refuses `--listen` and
 `--checkpoint-dir` (exit 2), which the one-process trainer has no use
 for.
@@ -155,8 +162,8 @@ def build_parser() -> argparse.ArgumentParser:
                          "device activity) of profile_steps grad-steps "
                          "into this directory")
     # multi-host learner (one process per host or card, in lockstep
-    # over a gloo process group: runtime/multihost_driver.py); all
-    # three must be set
+    # over one process group: runtime/multihost_driver.py); all three
+    # must be set
     ap.add_argument("--coordinator", default=None, metavar="HOST:PORT",
                     help="the process group's rendezvous address "
                          "(tcp://HOST:PORT)")
@@ -232,10 +239,10 @@ def main(argv: list[str] | None = None) -> int:
         # before anything is built on the device
         from ape_x_dqn_tpu_torch.parallel.multihost import init_multihost
         init_multihost(args.coordinator, args.num_processes,
-                       args.process_id)
+                       args.process_id, device=args.device)
     metrics = Metrics(log_path=args.metrics_file,
                       tensorboard_dir=args.tensorboard_dir)
-    server = None
+    server = driver = None
     try:
         if args.listen and not args.single_process:
             from ape_x_dqn_tpu_torch.comm.socket_transport import (
@@ -280,6 +287,10 @@ def main(argv: list[str] | None = None) -> int:
         metrics.close()
         if args.coordinator is not None:
             import torch.distributed as dist
+            if driver is not None:   # a MultihostApexDriver
+                # its graphs first: NCCL destroys no communicator that a
+                # live CUDA graph's collective holds
+                driver.close()
             if dist.is_initialized():
                 dist.destroy_process_group()
     print(json.dumps(out))

@@ -36,6 +36,25 @@ the port's own:
   could run out of memory together. The multi-host driver counts the
   processes on its card once, at construction
   (parallel/multihost.py: `processes_on_device`).
+- `check_hbm_fits(nccl=True)`: the multi-host learner's NCCL exchange
+  (every rank alone on its card) makes NCCL's communicator on the card,
+  and NCCL allocates its buffers, and loads its kernels, outside
+  PyTorch's caching allocator, so no measured peak
+  (``torch.cuda.max_memory_allocated``) and no allocator headroom sees
+  them. `NCCL_DEVICE_BYTES` counts them as a part of their own. Measured
+  by ``chip_smoke.py`` on NVIDIA H100 80GB HBM3 cards at a 700 W limit
+  (PERF.md §6): a world of one took 591,396,864 B of the
+  card outside the allocator across the communicator's creation and the
+  first full-size all-gather, about a quarter of the 2 GiB
+  `TRANSIENT_HEADROOM`, while r2d2's rank peaked at 40.03 GB allocated
+  (42.15 GB reserved) against a 40.95 GB budget that had not counted
+  them: they would have eaten into the headroom. A group over several
+  cards holds a set of buffers per peer and channel on top of that:
+  with two ranks on two H100s over NVLink, rank 0's NCCL took
+  922,746,880 B across the communicator, one eager and one captured
+  15.15 MB all-gather (``nccl_probe``, which fails when a rank exceeds
+  the part). More peers were not measured, so the
+  part is a floor for groups of more than two (the table says so).
 """
 
 from __future__ import annotations
@@ -72,6 +91,11 @@ def _leaf_stored_bytes(shape: tuple[int, ...], dtype) -> int:
 # 700 W; pong's driver 0.98, pong-sp 0.80, apex_dpg 0.48), with a
 # margin
 TRANSIENT_HEADROOM = 2 << 30  # 2.0 GiB
+# NCCL's communicator, buffers and kernels on the card, outside the
+# caching allocator (module docstring): 591,396,864 B measured for a
+# world of one, 922,746,880 B for a rank of two on two cards, with a
+# margin; a floor for groups of more than two
+NCCL_DEVICE_BYTES = 1 << 30  # 1.0 GiB
 
 
 @dataclass(frozen=True)
@@ -85,12 +109,13 @@ class HbmBudget:
     capacity: int          # effective per-device item capacity (pow2)
     detail: dict
     serving_transient: int = 0
+    nccl: int = 0          # outside the allocator (NCCL_DEVICE_BYTES)
 
     @property
     def total(self) -> int:
         return (self.replay_storage + self.replay_tree
                 + self.model_state + self.headroom
-                + self.serving_transient)
+                + self.serving_transient + self.nccl)
 
     def table(self) -> str:
         gib = 1024 ** 3
@@ -99,9 +124,13 @@ class HbmBudget:
                 ("model+opt state", self.model_state),
                 ("transient headroom", self.headroom),
                 ("serving gather", self.serving_transient),
+                ("NCCL buffers", self.nccl),
                 ("TOTAL per device", self.total)]
         body = "\n".join(f"  {k:<20} {v / gib:8.2f} GiB" for k, v in rows)
         extra = ", ".join(f"{k}={v}" for k, v in self.detail.items())
+        if self.nccl:
+            extra += (", NCCL buffers: measured for up to two ranks, a "
+                      "floor for more")
         return f"{body}\n  ({extra})"
 
 
@@ -230,15 +259,19 @@ def check_hbm_fits(cfg: Any, obs_shape: tuple[int, ...], obs_dtype=np.uint8,
                    param_count: int = 5_000_000, device=None,
                    hbm_bytes: int | None = None,
                    shards_per_card: int = 1,
-                   processes_per_card: int = 1) -> HbmBudget:
+                   processes_per_card: int = 1,
+                   nccl: bool = False) -> HbmBudget:
     """Raise ValueError (loudly, with the budget table and the fix)
     when the config's footprint on one card (with `shards_per_card` of
     its replay shards, `card_budget`, times the `processes_per_card`
-    that each hold such a share) exceeds the card's memory. Returns
-    this process's budget either way on success; returns without a
-    check when there is no card to budget (`device_hbm_bytes` None)."""
+    that each hold such a share, plus NCCL's buffers when the process
+    exchanges over `nccl`) exceeds the card's memory. Returns this
+    process's budget either way on success; returns without a check
+    when there is no card to budget (`device_hbm_bytes` None)."""
     budget = card_budget(run_budget(cfg, obs_shape, obs_dtype, param_count),
                          shards_per_card)
+    if nccl:
+        budget = dataclasses.replace(budget, nccl=NCCL_DEVICE_BYTES)
     limit = hbm_bytes if hbm_bytes is not None else device_hbm_bytes(device)
     if limit is None:
         return budget

@@ -216,8 +216,30 @@ non-zero:
              under its memory budget on a card that holds both; printed:
              grad-steps/s in the training window beside dist:'s
              one-process rate, the exchange's ms and bytes per SGD step,
-             each rank's peak beside its budget
-21. the memory table (each preset's budget beside its measured peak and
+             each rank's peak beside its budget. The pairs pass
+             `--device cuda:0`, so both ranks share card 0 (and gloo)
+             however many cards are visible
+21. mh_nccl  r2d2 at full width over NCCL, one rank per visible card,
+             each through the CLI (`--coordinator ... --num-processes
+             N`): on one card a world of one holding the whole dp=4 x
+             tp=2 mesh; with two or more cards, also two ranks on two
+             cards, and `dp_scaling_efficiency` (the two-rank
+             grad-steps/s over twice the one-rank rate). 8 actors in
+             all, min_fill 256, MH_NCCL_FRAMES frames, MH_NCCL_STEPS
+             grad-steps. Checks: backend nccl, ONE captured graph per
+             exchanged macro-step (no segments), the lockstep
+             invariants, one exchange per SGD step of mh_r2d2's bytes,
+             each rank's peak under its budget less NCCL's part; printed:
+             grad-steps/s in the training window beside dist:'s
+             one-process rate, the window's host seconds by part of the
+             round loop, the gather launches. Before each run a probe
+             (`nccl_probe`, spawned ranks at the same placement) makes
+             the NCCL group and measures NCCL's memory outside the
+             allocator across the communicator, one eager and one
+             captured all-gather at r2d2's size (checked against the
+             budget's NCCL part), and the collective's device time
+             (CUDA events around calls queued behind a device sleep)
+22. the memory table (each preset's budget beside its measured peak and
              the card), the kernels line, the card line, and the
              contract's last line.
 
@@ -239,6 +261,7 @@ import json
 import math
 import os
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -393,6 +416,20 @@ MH_RESUME_SETS = ("parallel.dp=2", "parallel.tp=1",
                   "actors.num_actors=2", "learner.publish_every=16",
                   "multihost_watchdog_s=120")
 MH_RESUME_STEPS = (20, 30)
+# mh_nccl: r2d2 over NCCL, one rank per card (at most two), the 8
+# actors of dist_r2d2: split over the ranks; cut by frames and
+# grad-steps as mh_r2d2 is
+MH_NCCL_SETS = ("replay.min_fill=256", "learner.publish_every=16",
+                "multihost_watchdog_s=120")
+MH_NCCL_ACTORS = 8
+MH_NCCL_FRAMES = 30000
+MH_NCCL_STEPS = 192
+# nccl_probe: the device time of one all-gather from this many calls
+# queued behind a device sleep of NCCL_SLEEP_CYCLES (about 10 ms at an
+# H100's clock), so that the host's enqueue is not timed
+NCCL_TIMED_CALLS = 20
+NCCL_SLEEP_CYCLES = 20_000_000
+NCCL_PROBE_TIMEOUT_S = 180
 # the bf16 tolerance of the CPU parity tests (tests/test_torch_models.py)
 BF16_TOL = 3e-2
 # the card's name and power limit (nvidia-smi), set by main and printed
@@ -3278,118 +3315,185 @@ def free_port() -> int:
         return s.getsockname()[1]
 
 
-def mh_pair(name: str, argv: list[str]) -> list[dict]:
-    """Two ranks of `python -m ape_x_dqn_tpu_torch.runtime.train ARGV
-    --coordinator 127.0.0.1:<free port> --num-processes 2 --process-id
-    i` on this card, started together; each must exit 0 within
-    MH_TIMEOUT_S (a rank that dies fails the phase, and its survivor's
-    collective fails or its StallWatchdog ends it); both are killed on
-    the way out. -> their summaries, with each one's stderr header."""
+def mh_ranks(name: str, argv: list[str], nproc: int = 2,
+             device: str | None = None) -> list[dict]:
+    """`nproc` ranks of `python -m ape_x_dqn_tpu_torch.runtime.train ARGV
+    --device DEVICE --coordinator 127.0.0.1:<free port> --num-processes
+    NPROC --process-id i`, started together (`device` None: the gloo
+    pairs' one card, cuda:0, shared; "cuda" places rank i on card i);
+    each must exit 0 within MH_TIMEOUT_S (a rank that dies fails the
+    phase, and its survivor's collective fails or its StallWatchdog ends
+    it). Each rank writes to files, not pipes (a full pipe would stall a
+    rank inside the run and its peers in a collective), with Python's
+    fault handler on: a rank still running at the deadline gets SIGABRT,
+    which prints every thread's stack to its stderr, and then is killed.
+    -> their summaries, with each one's stderr header."""
+    if device is None:
+        device = DEVICE if DEVICE == "cpu" else "cuda:0"
     port = free_port()
+    logs = tempfile.mkdtemp(prefix=f"apex-chip-smoke-{name}-")
+    files = [(open(os.path.join(logs, f"rank{pid}.out"), "w+"),
+              open(os.path.join(logs, f"rank{pid}.err"), "w+"))
+             for pid in range(nproc)]
+    env = dict(os.environ, PYTHONFAULTHANDLER="1")
     procs = [subprocess.Popen(
         [sys.executable, "-m", "ape_x_dqn_tpu_torch.runtime.train", *argv,
-         "--device", DEVICE, "--coordinator", f"127.0.0.1:{port}",
-         "--num-processes", "2", "--process-id", str(pid)],
-        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True,
+         "--device", device, "--coordinator", f"127.0.0.1:{port}",
+         "--num-processes", str(nproc), "--process-id", str(pid)],
+        stdout=out, stderr=err, env=env,
         cwd=os.path.dirname(os.path.abspath(__file__)))
-        for pid in range(2)]
-    outs = []
+        for pid, (out, err) in enumerate(files)]
     deadline = time.monotonic() + MH_TIMEOUT_S
     try:
-        for pid, p in enumerate(procs):
-            try:
-                stdout, stderr = p.communicate(
-                    timeout=max(deadline - time.monotonic(), 1.0))
-            except subprocess.TimeoutExpired:
-                raise RuntimeError(f"check failed: {name}: rank {pid} did "
-                                   f"not end within {MH_TIMEOUT_S} s")
-            check(p.returncode == 0, f"{name}: rank {pid} exited "
-                  f"{p.returncode}: {stderr[-3000:]}")
-            out = json.loads(stdout.strip().splitlines()[-1])
-            out["header"] = [ln for ln in stderr.splitlines()
-                             if ln.startswith("[multihost]")]
-            outs.append(out)
-    finally:
         for p in procs:
-            if p.poll() is None:
+            try:
+                p.wait(timeout=max(deadline - time.monotonic(), 1.0))
+            except subprocess.TimeoutExpired:
+                break
+    finally:
+        live = [p for p in procs if p.poll() is None]
+        for p in live:
+            p.send_signal(signal.SIGABRT)
+        for p in live:
+            try:
+                p.wait(timeout=10)
+            except subprocess.TimeoutExpired:
                 p.kill()
-                p.communicate()
+                p.wait()
+    ends = []
+    for out, err in files:
+        ends.append(tuple(f.seek(0) or f.read() for f in (out, err)))
+        out.close()
+        err.close()
+    shutil.rmtree(logs, ignore_errors=True)
+    codes = [p.returncode for p in procs]
+    # every rank's stderr, so a failure names the rank that caused it
+    check(codes == [0] * nproc, f"{name}: the ranks exited {codes} "
+          f"(aborted after {MH_TIMEOUT_S} s when negative; the stacks "
+          f"follow): " + " | ".join(
+              f"rank {pid}: {err[-6000:]}"
+              for pid, (_, err) in enumerate(ends)))
+    outs = []
+    for stdout, stderr in ends:
+        out = json.loads(stdout.strip().splitlines()[-1])
+        out["header"] = [ln for ln in stderr.splitlines()
+                         if ln.startswith("[multihost]")]
+        outs.append(out)
     return outs
 
 
-def mh_check(name: str, outs: list[dict], steps0: int = 0) -> dict:
-    """The lockstep invariants of a two-rank run and what it measured:
-    equal grad_steps, frames, loss and param checksum; each rank fed
-    experience, exchanged once per SGD step of this run, replayed its
-    captured segments and add graph, launched the gather, and peaked
-    under its budget on a card that holds both. -> the run's numbers."""
-    a, b = outs
-    check(a["actor_errors"] == [] and b["actor_errors"] == [],
-          f"{name}: actor_errors {a['actor_errors']} {b['actor_errors']}")
-    check(a["grad_steps"] == b["grad_steps"] > steps0
-          and a["frames"] == b["frames"] > 0
-          and a["loss"] == b["loss"] and math.isfinite(a["loss"])
-          and a["multihost"]["params_crc32"]
-          == b["multihost"]["params_crc32"],
-          f"{name}: the ranks are not in lockstep: "
-          f"{[(o['grad_steps'], o['frames'], o['loss'], o['multihost']['params_crc32']) for o in outs]}")
+def mh_check(name: str, outs: list[dict], steps0: int = 0,
+             backend: str = "gloo") -> dict:
+    """The lockstep invariants of a multi-rank run and what it measured:
+    equal grad_steps, frames, loss and param checksum on every rank;
+    each rank fed experience, exchanged once per SGD step of this run
+    over `backend` ("gloo": every rank on one card, the macro-step in
+    captured segments around the host collective; "nccl": every rank
+    alone on its card, ONE captured graph per step endpoint), replayed
+    its add graph, launched the gather, and peaked under its memory
+    budget (less its NCCL part, which lies outside the allocator and
+    `nccl_probe` holds apart) on a card that holds every rank on it.
+    -> the run's numbers."""
+    nproc = len(outs)
+    key = [(o["grad_steps"], o["frames"], o["loss"],
+            o["multihost"]["params_crc32"]) for o in outs]
+    check(all(o["actor_errors"] == [] for o in outs),
+          f"{name}: actor_errors {[o['actor_errors'] for o in outs]}")
+    check(len(set(key)) == 1 and key[0][0] > steps0 and key[0][1] > 0
+          and math.isfinite(key[0][2]),
+          f"{name}: the ranks are not in lockstep: {key}")
+    on_card = nproc if backend == "gloo" else 1
     card = torch.cuda.get_device_properties(0).total_memory
     per = []
     for pid, o in enumerate(outs):
         mh = o["multihost"]
         ex = mh["exchange"]
         steps = o["grad_steps"] - steps0
+        graphs = list(mh["step_graphs"].values())
         check(o["frames_local"] > 0 and o["params_version"] > 0,
               f"{name}: rank {pid} fed nothing or never published: {o}")
-        check(mh["backend"] == "gloo" and mh["world_size"] == 2
-              and mh["processes_on_card"] == 2
+        check(mh["backend"] == ex["backend"] == backend
+              and mh["world_size"] == nproc
+              and mh["processes_on_card"] == on_card
               and mh["rows"][1] - mh["rows"][0] > 0,
               f"{name}: rank {pid}'s group: {mh}")
         check(ex["calls"] == steps, f"{name}: rank {pid} exchanged "
               f"{ex['calls']} times for {steps} SGD steps")
-        check(any(n > 1 for n in mh["step_graph_segments"].values())
+        one_graph = bool(graphs) and all(n == 1 for n in graphs)
+        check((one_graph if backend == "nccl"
+               else any(n > 1 for n in graphs))
               and mh["add_graph_replays"] > 0,
-              f"{name}: rank {pid} replayed no captured segments or add "
-              f"graph: {mh['step_graph_segments']}, "
+              f"{name}: rank {pid} replayed the wrong step graphs for "
+              f"{backend} or no add graph: {mh['step_graphs']}, "
               f"{mh['add_graph_replays']}")
-        check(mh["peak_mem_bytes"] <= mh["hbm_budget_bytes"]
-              and 2 * mh["hbm_budget_bytes"] <= card,
+        # the allocator's peak against the budget less NCCL's part
+        nccl_budget = mh["hbm_budget_nccl_bytes"]
+        check(mh["peak_mem_bytes"] <= mh["hbm_budget_bytes"] - nccl_budget
+              and on_card * mh["hbm_budget_bytes"] <= card
+              and (nccl_budget > 0) == (backend == "nccl"),
               f"{name}: rank {pid} peak {mh['peak_mem_bytes'] / 1e9:.2f} "
-              f"GB vs its budget {mh['hbm_budget_bytes'] / 1e9:.2f} GB")
+              f"GB vs its budget {mh['hbm_budget_bytes'] / 1e9:.2f} GB "
+              f"({nccl_budget} B of it NCCL's)")
         check(mh["gather_rows_launches"] > 0,
               f"{name}: rank {pid} never launched gather_rows")
+        calls = max(ex["calls"], 1)
+        window = max(o["train_wall_s"], 1e-9)
         per.append({
-            "grad_steps_per_s": steps / max(o["train_wall_s"], 1e-9),
-            "collective_ms": ex["collective_s"] / max(ex["calls"], 1) * 1e3,
-            "wait_ms": ex["wait_s"] / max(ex["calls"], 1) * 1e3,
-            "bytes_per_step": ex["bytes_sent"] // max(ex["calls"], 1),
+            "grad_steps_per_s": steps / window,
+            "dispatch_share": o["dispatch_s"] / window,
+            # the window by part of the round loop, and what no part
+            # holds (the loop's own bookkeeping)
+            "round_share": {k: round(v / window, 4) for k, v in
+                            {**o["round_s"], "rest": window - sum(
+                                o["round_s"].values())}.items()},
+            "collective_ms": (ex["collective_s"] / calls * 1e3
+                              if backend == "gloo" else None),
+            "wait_ms": (ex["wait_s"] / calls * 1e3 if backend == "gloo"
+                        else None),
+            "nccl_budget": nccl_budget,
+            "bytes_per_step": ex["bytes_sent"] // calls,
             "launches": mh["gather_rows_launches"],
             "peak_gb": mh["peak_mem_bytes"] / 1e9,
+            "peak_reserved_gb": mh["peak_reserved_bytes"] / 1e9,
             "budget_gb": mh["hbm_budget_bytes"] / 1e9})
     return {"ranks": per,
             "gather_rows": sum(r["launches"] for r in per)}
 
 
 def mh_line(name: str, what: str, outs: list[dict], got: dict,
-            wall: float, beside: str) -> None:
+            wall: float, beside: str, backend: str = "gloo") -> None:
     r = got["ranks"]
-    log(f"{name}: {what}: two ranks on this card over gloo "
-        f"({outs[0]['header']}); lockstep: grad_steps "
-        f"{outs[0]['grad_steps']} = {outs[1]['grad_steps']}, frames "
-        f"{outs[0]['frames']} = {outs[1]['frames']}, loss "
-        f"{outs[0]['loss']!r} = {outs[1]['loss']!r}, params crc32 "
-        f"{outs[0]['multihost']['params_crc32']} on both; frames_local "
-        f"{[o['frames_local'] for o in outs]}; gather_rows launches per "
-        f"rank {[x['launches'] for x in r]}; grad-steps/s in the training "
-        f"window {[round(x['grad_steps_per_s'], 2) for x in r]} ({beside}); "
-        f"the exchange per SGD step: {[round(x['collective_ms'], 3) for x in r]} "
-        f"ms in gloo's all_gather after {[round(x['wait_ms'], 3) for x in r]} "
-        f"ms waiting for the device, {r[0]['bytes_per_step']} B sent and "
-        f"{2 * r[0]['bytes_per_step']} B received a rank; peak "
-        f"{[round(x['peak_gb'], 2) for x in r]} GB a rank vs its budget "
-        f"{r[0]['budget_gb']:.2f} GB (x2 on the card); segments "
-        f"{outs[0]['multihost']['step_graph_segments']}; results "
-        f"{json.dumps([{k: o[k] for k in ('grad_steps', 'frames', 'frames_local', 'wall_s', 'train_wall_s', 'restored_step', 'params_version', 'checkpoint_saves')} for o in outs])}; "
+    nproc = len(outs)
+    where = (f"{nproc} ranks on this card over gloo" if backend == "gloo"
+             else f"{nproc} rank(s), each alone on its card, over NCCL")
+    if backend == "gloo":
+        exchange = (f"{[round(x['collective_ms'], 3) for x in r]} ms in "
+                    f"gloo's all_gather after "
+                    f"{[round(x['wait_ms'], 3) for x in r]} ms waiting for "
+                    f"the device")
+    else:
+        exchange = ("inside the step graph (its device time and NCCL's "
+                    "memory: the nccl_probe line)")
+    log(f"{name}: {what}: {where} ({outs[0]['header']}); lockstep: "
+        f"grad_steps {[o['grad_steps'] for o in outs]}, frames "
+        f"{[o['frames'] for o in outs]}, loss "
+        f"{[o['loss'] for o in outs]!r}, params crc32 "
+        f"{outs[0]['multihost']['params_crc32']} on every rank; "
+        f"frames_local {[o['frames_local'] for o in outs]}; gather_rows "
+        f"launches per rank {[x['launches'] for x in r]}; grad-steps/s in "
+        f"the training window {[round(x['grad_steps_per_s'], 2) for x in r]} "
+        f"({beside}), of which the dispatches (up to each one's loss on "
+        f"the host) took {[round(x['dispatch_share'], 4) for x in r]}, "
+        f"the window by part of the round loop "
+        f"{[x['round_share'] for x in r]}; "
+        f"the exchange per SGD step: {exchange}, "
+        f"{r[0]['bytes_per_step']} B sent and "
+        f"{nproc * r[0]['bytes_per_step']} B received a rank; peak "
+        f"{[round(x['peak_gb'], 2) for x in r]} GB a rank (reserved "
+        f"{[round(x['peak_reserved_gb'], 2) for x in r]}) vs its budget "
+        f"{r[0]['budget_gb']:.2f} GB; step graphs a call replays "
+        f"{outs[0]['multihost']['step_graphs']}; results "
+        f"{json.dumps([{k: o[k] for k in ('grad_steps', 'frames', 'frames_local', 'wall_s', 'train_wall_s', 'dispatch_s', 'restored_step', 'params_version', 'checkpoint_saves')} for o in outs])}; "
         f"{wall:.2f} s; card {CARD}")
 
 
@@ -3422,11 +3526,12 @@ def phase_multihost(seed: int) -> dict:
         for s_ in sets:
             argv += ["--set", s_]
         t0 = time.perf_counter()
-        outs = mh_pair(name, argv)
+        outs = mh_ranks(name, argv)
         wall = time.perf_counter() - t0
         got = mh_check(name, outs)
         mh_line(name, f"`{' '.join(argv)}`", outs, got, wall, beside)
-        launches[name] = {"gather_rows": got["gather_rows"]}
+        launches[name] = {"gather_rows": got["gather_rows"],
+                          "bytes_per_step": got["ranks"][0]["bytes_per_step"]}
     ckpt = tempfile.mkdtemp(prefix="apex-chip-smoke-mh-ckpt-")
     try:
         t0 = time.perf_counter()
@@ -3434,13 +3539,13 @@ def phase_multihost(seed: int) -> dict:
                 "--total-env-frames", "1000000", "--checkpoint-dir", ckpt]
         for s_ in MH_RESUME_SETS:
             base += ["--set", s_]
-        first = mh_pair("mh_resume", base + ["--max-grad-steps",
+        first = mh_ranks("mh_resume", base + ["--max-grad-steps",
                                              str(MH_RESUME_STEPS[0])])
         got1 = mh_check("mh_resume", first)
         check(all(o["restored_step"] is None
                   and o["grad_steps"] == MH_RESUME_STEPS[0] for o in first),
               f"mh_resume: run 1 {first}")
-        second = mh_pair("mh_resume", base + ["--max-grad-steps",
+        second = mh_ranks("mh_resume", base + ["--max-grad-steps",
                                               str(MH_RESUME_STEPS[1])])
         got2 = mh_check("mh_resume", second, steps0=MH_RESUME_STEPS[0])
         check(all(o["restored_step"] == MH_RESUME_STEPS[0]
@@ -3459,6 +3564,180 @@ def phase_multihost(seed: int) -> dict:
     finally:
         shutil.rmtree(ckpt, ignore_errors=True)
     return launches
+
+
+def _outside_allocator(dev: torch.device) -> int:
+    """Bytes of the card in use outside this process's caching allocator
+    (its CUDA context, NCCL's buffers, ..., and other processes')."""
+    free, total = torch.cuda.mem_get_info(dev)
+    return total - free - torch.cuda.memory_reserved(dev)
+
+
+def nccl_probe_rank(rank: int, nproc: int, port: int, numel: int,
+                    out_dir: str) -> None:
+    """One rank of `nccl_probe`, alone on card `rank`."""
+    from ape_x_dqn_tpu_torch.parallel import multihost
+    import torch.distributed as dist
+
+    dev = torch.device("cuda", rank)
+    torch.cuda.set_device(dev)
+    multihost.init_multihost(f"127.0.0.1:{port}", nproc, rank, device=dev)
+    graph = None
+    try:
+        send = torch.full((numel,), float(rank + 1), device=dev)
+        out = torch.empty((nproc, numel), device=dev)
+        torch.cuda.synchronize(dev)
+        before = _outside_allocator(dev)
+        ex = multihost.GradExchange("nccl", dev)   # the communicator
+        ex(send, out)
+        torch.cuda.synchronize(dev)
+        eager = _outside_allocator(dev) - before
+        side = torch.cuda.Stream(dev)
+        side.wait_stream(torch.cuda.current_stream(dev))
+        graph = torch.cuda.CUDAGraph()
+        out.zero_()
+        with torch.cuda.graph(graph, stream=side,
+                              capture_error_mode="thread_local"):
+            ex(send, out)
+        graph.replay()
+        torch.cuda.synchronize(dev)
+        graphed = _outside_allocator(dev) - before
+        right = bool(torch.equal(out, torch.arange(
+            1, nproc + 1, dtype=torch.float32, device=dev)[:, None]
+            .expand(nproc, numel)))
+        # the device time: calls queued behind a device sleep, timed from
+        # the end of the first one (which waits for every peer's sleep)
+        multihost.barrier()
+        stream = torch.cuda.current_stream(dev)
+        slept, start, end = (torch.cuda.Event(enable_timing=True)
+                             for _ in range(3))
+        slept.record(stream)
+        torch.cuda._sleep(NCCL_SLEEP_CYCLES)
+        ex(send, out)
+        start.record(stream)
+        t0 = time.perf_counter()
+        for _ in range(NCCL_TIMED_CALLS):
+            ex(send, out)
+        enqueue_ms = (time.perf_counter() - t0) * 1e3
+        end.record(stream)
+        end.synchronize()
+        res = {"rank": rank, "right": right, "nccl_bytes_eager": eager,
+               "nccl_bytes": graphed,
+               "device_ms_per_call": start.elapsed_time(end)
+               / NCCL_TIMED_CALLS,
+               "sleep_ms": slept.elapsed_time(start),
+               "enqueue_ms": enqueue_ms, "calls": ex.stats()["calls"]}
+        with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
+            json.dump(res, f)
+    finally:
+        # the graph before the group: NCCL destroys no communicator that
+        # a live graph's collective holds
+        del graph
+        gc.collect()
+        dist.destroy_process_group()
+
+
+def nccl_probe(nproc: int, numel: int) -> dict:
+    """An NCCL group of `nproc` spawned ranks, rank i alone on card i, as
+    `mh_nccl`'s ranks are placed: NCCL's memory outside the allocator
+    across the communicator's creation, one eager and one captured
+    all-gather of `numel` float32 a rank (r2d2's exchange), checked
+    against the budget's NCCL part (utils/hbm.py: NCCL_DEVICE_BYTES);
+    the gathered values; and one call's device time (NCCL_TIMED_CALLS
+    calls queued behind a device sleep). -> rank 0's numbers, with
+    every rank's."""
+    import torch.multiprocessing as mp
+    from ape_x_dqn_tpu_torch.utils.hbm import NCCL_DEVICE_BYTES
+
+    out_dir = tempfile.mkdtemp(prefix="apex-chip-smoke-nccl-probe-")
+    ctx = mp.start_processes(nccl_probe_rank,
+                             args=(nproc, free_port(), numel, out_dir),
+                             nprocs=nproc, join=False, start_method="spawn")
+    deadline = time.monotonic() + NCCL_PROBE_TIMEOUT_S
+    try:
+        while not ctx.join(timeout=1):
+            check(time.monotonic() < deadline, f"nccl_probe: {nproc} "
+                  f"rank(s) did not end within {NCCL_PROBE_TIMEOUT_S} s")
+    finally:
+        for p in ctx.processes:
+            if p.is_alive():
+                p.kill()
+    ranks = []
+    for r in range(nproc):
+        with open(os.path.join(out_dir, f"rank{r}.json")) as f:
+            ranks.append(json.load(f))
+    shutil.rmtree(out_dir, ignore_errors=True)
+    for res in ranks:
+        check(res["right"] and res["calls"] == 2 + NCCL_TIMED_CALLS,
+              f"nccl_probe: rank {res['rank']} gathered wrong values or "
+              f"miscounted: {res}")
+        check(res["nccl_bytes"] <= NCCL_DEVICE_BYTES,
+              f"nccl_probe: rank {res['rank']}'s NCCL took "
+              f"{res['nccl_bytes']} B outside the allocator, above the "
+              f"budget's NCCL part {NCCL_DEVICE_BYTES}: {res}")
+        check(0 < res["device_ms_per_call"]
+              and res["enqueue_ms"] < res["sleep_ms"],
+              f"nccl_probe: rank {res['rank']}'s timing is not device "
+              f"time alone (the host's enqueue outlasted the sleep): {res}")
+    log(f"nccl_probe: {nproc} rank(s), each alone on its card, "
+        f"all_gather_into_tensor of {numel * 4} B a rank: NCCL outside "
+        f"the allocator {[r['nccl_bytes'] for r in ranks]} B after the "
+        f"communicator, one eager and one captured call "
+        f"({[r['nccl_bytes_eager'] for r in ranks]} B before the capture) "
+        f"against the budget's {NCCL_DEVICE_BYTES}; device time "
+        f"{[round(r['device_ms_per_call'], 5) for r in ranks]} ms a call "
+        f"({NCCL_TIMED_CALLS} calls behind a "
+        f"{[round(r['sleep_ms'], 2) for r in ranks]} ms device sleep, "
+        f"enqueued in {[round(r['enqueue_ms'], 2) for r in ranks]} ms), "
+        f"{[round(numel * 4 * nproc / r['device_ms_per_call'] / 1e6, 1) for r in ranks]} "
+        f"GB/s received; card {CARD}")
+    return {"ranks": ranks}
+
+
+def phase_mh_nccl(seed: int, gloo_bytes: int) -> dict:
+    """r2d2 at full width over NCCL, one rank per card, each through the
+    CLI with `--device cuda` (rank i on card i): a world of one (the
+    whole dp=4 mesh on card 0), then, where two or more cards are
+    visible, two ranks on two cards and `dp_scaling_efficiency` (the
+    two-rank grad-steps/s over twice the one-rank rate). Before each,
+    `nccl_probe` at the same placement. Each run: the backend nccl, one
+    graph per macro-step, the lockstep invariants, one exchange per SGD
+    step of `gloo_bytes` (mh_r2d2's: the same model), each rank's peak
+    under its budget. -> the gather launches (every rank of every
+    run)."""
+    cards = 1 if DEVICE == "cpu" else torch.cuda.device_count()
+    rates, launches = {}, 0
+    for nproc in ((1, 2) if cards >= 2 else (1,)):
+        if DEVICE != "cpu":
+            nccl_probe(nproc, gloo_bytes // 4)
+        argv = ["--config", "r2d2", "--seed", str(seed),
+                "--total-env-frames", str(MH_NCCL_FRAMES),
+                "--max-grad-steps", str(MH_NCCL_STEPS),
+                "--set", f"actors.num_actors={MH_NCCL_ACTORS // nproc}"]
+        for s_ in MH_NCCL_SETS:
+            argv += ["--set", s_]
+        t0 = time.perf_counter()
+        outs = mh_ranks("mh_nccl", argv, nproc, DEVICE)
+        wall = time.perf_counter() - t0
+        got = mh_check("mh_nccl", outs, backend="nccl")
+        check(all(r["bytes_per_step"] == gloo_bytes for r in got["ranks"]),
+              f"mh_nccl: {[r['bytes_per_step'] for r in got['ranks']]} B "
+              f"a step, mh_r2d2 exchanged {gloo_bytes}")
+        rates[nproc] = min(r["grad_steps_per_s"] for r in got["ranks"])
+        launches += got["gather_rows"]
+        mh_line("mh_nccl", f"`{' '.join(argv)}`", outs, got, wall,
+                "dist: r2d2 learner alone, one process: "
+                f"{RATES.get('dist_r2d2_graph', math.nan):.2f}",
+                backend="nccl")
+    if 2 in rates:
+        log(f"mh_nccl: dp_scaling_efficiency "
+            f"{rates[2] / (2 * rates[1]):.4f} (two ranks on two cards "
+            f"{rates[2]:.2f} grad-steps/s, one rank {rates[1]:.2f}); card "
+            f"{CARD}")
+    else:
+        log(f"mh_nccl: dp_scaling_efficiency not measured: {cards} card "
+            f"visible, and two ranks need two")
+    return {"gather_rows": launches}
 
 
 def memory_table() -> list[str]:
@@ -3585,6 +3864,11 @@ def main() -> int:
     t0 = time.perf_counter()
     mh = phase_multihost(args.seed)
     log(f"mh: {time.perf_counter() - t0:.2f} s")
+    # 21. r2d2 over NCCL, one rank per card, one graph per macro-step
+    t0 = time.perf_counter()
+    mh["mh_nccl"] = phase_mh_nccl(args.seed,
+                                  mh["mh_r2d2"]["bytes_per_step"])
+    log(f"mh_nccl: {time.perf_counter() - t0:.2f} s")
     for line in memory_table():
         log(line)
 

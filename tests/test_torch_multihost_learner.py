@@ -110,23 +110,26 @@ def _r2d2_case():
 CASES = {"dqn": _dqn_case, "r2d2": _r2d2_case}
 
 
-def _train(case: str, rows: slice, exchange=None) -> dict:
-    """Build the case's dist learner over `rows` of the dp shards, add
-    those rows of every recorded block, then MACRO K-batch macro-steps
-    (the second block lands after the first two). -> params, trees, the
-    last loss."""
+def _train(case: str, rows: slice, exchange=None,
+           device: str | torch.device = "cpu") -> dict:
+    """Build the case's dist learner over `rows` of the dp shards on
+    `device`, add those rows of every recorded block, then MACRO K-batch
+    macro-steps (the second block lands after the first two). -> params
+    and trees (on the CPU), the last loss, the step graphs' classes."""
     family, spec, ncfg, lcfg, rcfg, item_spec, blocks = CASES[case]()
     dp_local = rows.stop - rows.start
-    mesh = make_mesh(dp=dp_local, tp=1, devices=["cpu"] * dp_local)
+    mesh = make_mesh(dp=dp_local, tp=1, devices=[device] * dp_local)
     net = build_network(ncfg, spec)
     init_params(net, component_generator(0, "net_init"))
+    net.to(device)
     replay = PrioritizedReplay(capacity=64, alpha=0.6, beta=0.4,
-                               device="cpu")
+                               device=device)
     learner = (DistSequenceLearner(replay, lcfg, rcfg, mesh,
                                    exchange=exchange)
                if family == "r2d2" else
                DistDQNLearner(replay, lcfg, mesh, exchange=exchange))
-    state = learner.init(net, item_spec, component_generator(0, "learner"))
+    state = learner.init(net, item_spec,
+                         component_generator(0, "learner", device=device))
 
     def add(block):
         items, td = block
@@ -141,10 +144,12 @@ def _train(case: str, rows: slice, exchange=None) -> dict:
             for block in blocks[1:]:
                 add(block)
         _, m = learner.train_step_k(state, K)
-    return {"params": {k: v.clone() for k, v in
+    return {"params": {k: v.cpu().clone() for k, v in
                        state.net.state_dict().items()},
-            "tree": state.replay.tree.clone(),
-            "loss": float(m["loss"]), "step": state.step}
+            "tree": state.replay.tree.cpu().clone(),
+            "loss": float(m["loss"]), "step": state.step,
+            "graphs": {k: type(g).__name__
+                       for k, g in learner.step_graphs().items()}}
 
 
 def _worker(rank: int, case: str, port: int, out_dir: str) -> None:
