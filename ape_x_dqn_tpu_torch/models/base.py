@@ -74,10 +74,12 @@ def hard_update(target: nn.Module, online: nn.Module,
     `target`'s parameters; returns `target`. `where`, a 0-dim bool
     tensor, makes it a masked copy that keeps the target unless it is
     true: the decision stays on the device, so a captured CUDA graph
-    can replay it."""
+    can replay it (moved beside each parameter of a net split across
+    cards)."""
     with torch.no_grad():
         for t, p in zip(target.parameters(), online.parameters()):
-            t.copy_(p if where is None else torch.where(where, p, t))
+            t.copy_(p if where is None
+                    else torch.where(where.to(p.device), p, t))
     return target
 
 

@@ -128,6 +128,8 @@ class ApeXLSTMQNet(nn.Module):
         b, t = obs.shape[:2]
         x = self._channels_first(obs)
         feats = self._torso(x.reshape(b * t, *x.shape[2:]))
+        if not isinstance(self.lstm, LSTMCell):
+            return self._split_unroll(feats.reshape(b, t, -1), state)
         xp = self.lstm.input_proj(feats).reshape(b, t, -1)
         w_hh, b_hh = self.lstm.recurrent_weights()
         c, h = (s.to(self.dt) for s in state)
@@ -139,9 +141,22 @@ class ApeXLSTMQNet(nn.Module):
         return (q.reshape(b, t, self.num_actions),
                 (c.float(), h.float()))
 
+    def _split_unroll(self, feats: torch.Tensor, state: LSTMState
+                      ) -> tuple[torch.Tensor, LSTMState]:
+        """The unroll of a cell column-split across cards
+        (parallel/tensor_parallel.py: ColumnSplitLSTMCell)."""
+        b, t = feats.shape[:2]
+        hs, state = self.lstm.unroll(feats, state)
+        q = self._head(hs.reshape(b * t, -1))
+        return q.reshape(b, t, self.num_actions), state
+
     def step(self, obs: torch.Tensor, state: LSTMState
              ) -> tuple[torch.Tensor, LSTMState]:
         """obs [B, ...], one timestep for acting."""
+        if not isinstance(self.lstm, LSTMCell):
+            feats = self._torso(self._channels_first(obs))
+            q, state = self._split_unroll(feats[:, None], state)
+            return q[:, 0], state
         xp = self.lstm.input_proj(self._torso(self._channels_first(obs)))
         c, h = (s.to(self.dt) for s in state)
         c, h = LSTMCell.cell(xp, c, h, *self.lstm.recurrent_weights())

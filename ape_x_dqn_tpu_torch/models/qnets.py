@@ -24,8 +24,12 @@ from torch import nn
 from ape_x_dqn_tpu_torch.models.base import dtype_of, preprocess_obs
 
 
-def _dense(layer: nn.Linear, x: torch.Tensor, dt: torch.dtype
+def _dense(layer: nn.Module, x: torch.Tensor, dt: torch.dtype
            ) -> torch.Tensor:
+    if not isinstance(layer, nn.Linear):
+        # a layer column-split across cards
+        # (parallel/tensor_parallel.py: ColumnSplitLinear)
+        return layer.dense(x, dt)
     return F.linear(x.to(dt), layer.weight.to(dt), layer.bias.to(dt))
 
 

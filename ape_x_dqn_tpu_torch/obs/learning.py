@@ -58,8 +58,11 @@ def percentiles(x: torch.Tensor, ps: Sequence[float]) -> list:
 
 def global_norm(tensors: Sequence[torch.Tensor]) -> torch.Tensor:
     """sqrt of the sum of squares over every element (optax's
-    ``global_norm``)."""
-    return torch.sqrt(sum((t.float() * t.float()).sum() for t in tensors))
+    ``global_norm``), on the first tensor's device (a net column-split
+    across cards holds pieces on several)."""
+    dev = tensors[0].device
+    return torch.sqrt(sum((t.float() * t.float()).sum().to(dev)
+                          for t in tensors))
 
 
 def sgd_diag(aux: dict, is_w: torch.Tensor, grads, updates,

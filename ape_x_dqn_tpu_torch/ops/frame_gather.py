@@ -138,12 +138,21 @@ def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
     if capturing:
         gather_rows.captured += 1
     else:
-        gather_rows.launches += 1
+        count_launches(src.device, 1)
         gather_rows.bytes_moved += 2 * m * row_bytes + m * idx.element_size()
     return out
 
 
+def count_launches(device: torch.device, n: int) -> None:
+    """Count n launches of the kernel on `device`: eager ones here, the
+    ones a replayed graph carries there (runtime/step_graph.py)."""
+    gather_rows.launches += n
+    key = str(device)
+    gather_rows.by_device[key] = gather_rows.by_device.get(key, 0) + n
+
+
 gather_rows.launches = 0   # kernel launches, graph replays included
+gather_rows.by_device = {}  # the same, by device ("cuda:1": n)
 gather_rows.captured = 0   # launches recorded into CUDA graphs
 # bytes the eager launches read and wrote (rows twice, the indices once):
 # what obs/profiling.py's analytic cost adds for them

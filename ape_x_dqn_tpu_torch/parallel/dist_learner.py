@@ -7,7 +7,10 @@ leading [dp] axis (storage [dp, cap_shard, ...], tree [dp, 2*cap_shard],
 cursor and fill [dp]; replay/prioritized.py: `ShardedReplayState`), with
 one set of params and one Adam state. The shards live stacked on one
 card (parallel/mesh.py): the semantics below do not depend on how many
-cards hold them.
+cards hold them. A one-process mesh over several cards runs one such
+learner per card group, each with its rows' shards on its owner and an
+in-process exchange among the groups (parallel/cards.py), with the
+same arithmetic as the multi-process form below.
 
 Across processes (the multi-host learner, runtime/multihost_driver.py):
 a learner built with a `GradExchange` (parallel/multihost.py) holds
@@ -63,8 +66,8 @@ every endpoint writes its state IN PLACE, and on the card `train_step`,
 replay captured CUDA graphs (runtime/step_graph.py; with an exchange,
 one graph or segments, as above); `sample_k` and `learn_k` stay
 eager. `tp` splits no layer on one card (a column split
-changes no number); `param_specs` holds what it would split
-(parallel/sharding.py).
+changes no number); `param_specs` holds what it splits across cards
+(parallel/sharding.py, parallel/tensor_parallel.py).
 """
 
 from __future__ import annotations
@@ -102,13 +105,16 @@ class _DistLearnerBase(SingleChipLearner):
     `_make_batch(flattened items) -> loss batch`. `replay` is configured
     with the PER-SHARD capacity. With an `exchange`, `mesh` is this
     process's dp_local x tp rows and the global dp is dp_local x the
-    process count (module docstring)."""
+    process count (module docstring); the card groups of a one-process
+    mesh over several cards (parallel/cards.py) pass their own `rows`
+    and an in-process exchange among the groups."""
 
     shard_dims = 1
 
     def __init__(self, replay, lcfg, mesh: Mesh,
                  optimizer: ClipAdam | None = None,
-                 exchange: GradExchange | None = None):
+                 exchange: GradExchange | None = None,
+                 rows: list[int] | None = None):
         self.replay = replay
         self.lcfg = lcfg
         self.mesh = mesh
@@ -116,9 +122,13 @@ class _DistLearnerBase(SingleChipLearner):
         self.nproc = exchange.nproc if exchange is not None else 1
         self.dp_local = mesh.dp
         self.dp = mesh.dp * self.nproc
-        self.row_start, self.row_stop = (
-            process_rows(self.dp) if exchange is not None else (0, self.dp))
-        assert self.row_stop - self.row_start == self.dp_local
+        if rows is None:
+            self.row_start, self.row_stop = (
+                process_rows(self.dp) if exchange is not None
+                else (0, self.dp))
+            rows = range(self.row_start, self.row_stop)
+        self.rows = list(rows)
+        assert len(self.rows) == self.dp_local
         assert lcfg.batch_size % self.dp == 0, \
             "batch_size must divide by dp"
         self.b_local = lcfg.batch_size // self.dp
@@ -137,7 +147,10 @@ class _DistLearnerBase(SingleChipLearner):
         frame ring, whose geometry fixes it)."""
         target = copy.deepcopy(net)
         target.requires_grad_(False)
-        self.param_specs = make_param_shardings(net, self.mesh)
+        if not self.param_specs:
+            # (a card group's are the whole net's, set before its net
+            # was split: parallel/cards.py)
+            self.param_specs = make_param_shardings(net, self.mesh)
         return DistTrainState(
             net=net, target_net=target,
             opt_state=self.optimizer.init(list(net.parameters())),
@@ -228,8 +241,10 @@ class _DistLearnerBase(SingleChipLearner):
         params = list(state.net.parameters())
         grads = torch.autograd.grad(loss, params)
         td_mean = aux["td_abs"].mean()
+        # on the owner: the pieces of a net split across cards come
+        # over (parallel/tensor_parallel.py), and go back below
         send = torch.cat([
-            torch.cat([g.reshape(-1) for g in grads]) * m_p,
+            torch.cat([g.reshape(-1).to(m_p.device) for g in grads]) * m_p,
             torch.stack([loss.detach() * m_p, td_mean.float(),
                          aux["q_mean"].float(), m_p])])
         recv = yield send
@@ -237,7 +252,7 @@ class _DistLearnerBase(SingleChipLearner):
         total = recv.sum(dim=0)         # rank order, alike everywhere
         scale = 1.0 / (m * self.nproc)
         flat = total[:-4] * scale
-        grads = [v.view_as(p) for v, p in
+        grads = [v.view_as(p).to(p.device) for v, p in
                  zip(flat.split([p.numel() for p in params]), params)]
         updates, params = self._apply_grads(state, grads)
         td_shard = aux["td_abs"].reshape(self.dp_local, self.b_local)
@@ -419,8 +434,9 @@ class DistDQNLearner(_DistLearnerBase):
 
     def __init__(self, replay, lcfg, mesh: Mesh,
                  optimizer: ClipAdam | None = None,
-                 exchange: GradExchange | None = None):
-        super().__init__(replay, lcfg, mesh, optimizer, exchange)
+                 exchange: GradExchange | None = None,
+                 rows: list[int] | None = None):
+        super().__init__(replay, lcfg, mesh, optimizer, exchange, rows)
         self.loss_fn = make_dqn_loss(
             double=lcfg.double_dqn, huber_delta=lcfg.huber_delta,
             rescale=lcfg.value_rescale)
@@ -441,8 +457,9 @@ class DistSequenceLearner(_DistLearnerBase):
 
     def __init__(self, replay, lcfg, rcfg, mesh: Mesh,
                  optimizer: ClipAdam | None = None,
-                 exchange: GradExchange | None = None):
-        super().__init__(replay, lcfg, mesh, optimizer, exchange)
+                 exchange: GradExchange | None = None,
+                 rows: list[int] | None = None):
+        super().__init__(replay, lcfg, mesh, optimizer, exchange, rows)
         self.loss_fn = make_r2d2_loss(
             burn_in=rcfg.burn_in, n_step=lcfg.n_step, gamma=lcfg.gamma,
             huber_delta=lcfg.huber_delta, double=lcfg.double_dqn,

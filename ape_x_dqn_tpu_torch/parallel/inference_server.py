@@ -47,10 +47,14 @@ non-blocking copy in, one device-to-host copy out.
 
 Mesh-sharded mode (both servers): pass a parallel/mesh.py `Mesh` and
 buckets round up to a multiple of the mesh size, so every shard of a
-batch gets identical work, as in the original. The port's meshes hold
-one card (repeated), so the forward runs whole on that card; the split
-of a batch over distinct cards waits for per-card placement (ROADMAP
-Queue A item 6).
+batch gets identical work, as in the original. On a mesh of one card
+(repeated) the forward runs whole on that card. On a mesh over several
+distinct cards each batch splits over the mesh positions
+(`batch_sharding`: a card takes the rows of its positions) and every
+card runs its part on its own replica of the params (`replicated`;
+`update_params` copies a publication to each card and waits for the
+copies); the batch is staged on the host and the replies are gathered
+there, in batch order (`_MeshSplit`).
 """
 
 from __future__ import annotations
@@ -66,6 +70,7 @@ import torch
 
 from ape_x_dqn_tpu_torch.obs.core import NULL_OBS
 from ape_x_dqn_tpu_torch.obs.health import make_lock
+from ape_x_dqn_tpu_torch.parallel.mesh import batch_sharding, replicated
 from ape_x_dqn_tpu_torch.utils.misc import next_pow2, resolve_device
 
 
@@ -75,6 +80,84 @@ def _tree_map(fn: Callable, tree):
     if isinstance(tree, dict):
         return {k: fn(v) for k, v in tree.items()}
     return fn(tree)
+
+
+def _lead(tree) -> int:
+    return (next(iter(tree.values())) if isinstance(tree, dict)
+            else tree).shape[0]
+
+
+class _MeshSplit:
+    """A server's mesh over several distinct cards: `place` puts a
+    replica of the params on every card (waiting for the copies, so the
+    serving thread never reads a replica in flight), `apply` runs
+    ``fn(replica, part)`` (or ``fn(replica, rows part, part)``) on every
+    card's rows of a host batch and gathers the outputs on the host in
+    batch order, as torch tensors. Every card's rows go up from pinned
+    memory without blocking and every card's forward is enqueued before
+    the first reply is waited for, so the cards' forwards overlap; the
+    replies come back into pinned buffers, one wait per card."""
+
+    def __init__(self, mesh: Any):
+        self.split = batch_sharding(mesh)
+        self.replicas = replicated(mesh)
+        self.cards = mesh.cards
+
+    def place(self, params: Any) -> Any:
+        if params is None:
+            return None
+        out = self.replicas.put(params)
+        for dev in self.cards:
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+        return out
+
+    def apply(self, fn: Callable, placed: dict, batch: Any,
+              rows: torch.Tensor | None = None) -> Any:
+        n = _lead(batch)
+        idx = self.split.rows(n)
+        outs = {}
+        for dev, i in idx.items():
+            part = _tree_map(lambda t: _rows_to(t, i, dev), batch)
+            if rows is None:
+                outs[dev] = fn(placed[dev], part)
+            else:
+                outs[dev] = fn(placed[dev], _rows_to(rows, i, dev), part)
+        host = {dev: _tree_map(_to_pinned_host, o)
+                for dev, o in outs.items()}
+        for dev in host:
+            if dev.type == "cuda":
+                torch.cuda.current_stream(dev).synchronize()
+        first = next(iter(host.values()))
+        if isinstance(first, dict):
+            return {k: self.split.gather({d: o[k] for d, o in host.items()},
+                                         n) for k in first}
+        return self.split.gather(host, n)
+
+
+def _rows_to(t: torch.Tensor, i: torch.Tensor,
+             dev: torch.device) -> torch.Tensor:
+    """Rows `i` (ascending) of the host tensor `t` on `dev`: on a card,
+    a slice of `t` where they are contiguous, else gathered, copied
+    from pinned memory without blocking (the caller waits for the
+    card before it rewrites `t`)."""
+    if dev.type != "cuda":
+        return t.index_select(0, i).to(dev)
+    lo, m = int(i[0]), i.numel()
+    part = t[lo:lo + m] if int(i[-1]) - lo + 1 == m else t.index_select(0, i)
+    if not part.is_pinned():
+        part = part.pin_memory()
+    return part.to(dev, non_blocking=True)
+
+
+def _to_pinned_host(t: torch.Tensor) -> torch.Tensor:
+    """A card's reply copied into pinned host memory without blocking
+    (read only after the card's stream is waited for)."""
+    if t.device.type != "cuda":
+        return t
+    out = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    out.copy_(t, non_blocking=True)
+    return out
 
 
 class _Request:
@@ -108,10 +191,14 @@ class BatchedInferenceServer:
         self.device = resolve_device(mesh.device if mesh is not None
                                      else device)
         self._min_bucket = mesh.size if mesh is not None else 1
-        self._batcher = _DeviceBatcher(self.device)
+        # a mesh over several cards splits every batch over them
+        self._split = (_MeshSplit(mesh) if mesh is not None
+                       and mesh.distinct else None)
+        self._batcher = _DeviceBatcher(self.device,
+                                       host=self._split is not None)
         self._warm: set[int] = set()  # warmed buckets (before traffic)
         self._apply = apply_fn
-        self._params = params  # guarded-by: _lock
+        self._params = self._place(params)  # guarded-by: _lock
         self._params_version = 0  # guarded-by: _lock
         self._max_batch = max_batch
         self._deadline_s = deadline_ms / 1000.0
@@ -177,7 +264,13 @@ class BatchedInferenceServer:
 
     # -- learner side ------------------------------------------------------
 
+    def _place(self, params: Any) -> Any:
+        """Params as the forward reads them: on every card of a split
+        mesh (`_MeshSplit.place`), else as given."""
+        return params if self._split is None else self._split.place(params)
+
     def update_params(self, params: Any, version: int) -> None:
+        params = self._place(params)
         with self._lock:
             self._params = params
             self._params_version = version
@@ -277,7 +370,10 @@ class BatchedInferenceServer:
         with self._lock:
             params = self._params
         with torch.inference_mode():
-            out = self._apply(params, stacked)
+            if self._split is not None:
+                out = self._split.apply(self._apply, params, stacked)
+            else:
+                out = self._apply(params, stacked)
             return _tree_map(lambda t: t.cpu().numpy(), out)
 
     def _serve_batch(self, reqs: list[_Request]) -> None:
@@ -328,9 +424,12 @@ class _DeviceBatcher:
     time (a server's serve or dispatch thread; warm-ups run before
     traffic)."""
 
-    def __init__(self, device: torch.device):
+    def __init__(self, device: torch.device, host: bool = False):
+        """host: leave the batch on the host (pinned on CUDA), for a
+        server that splits it over several cards."""
         self.device = device
         self._pinned = device.type == "cuda"
+        self._host = host
         self._staging: dict[tuple, torch.Tensor] = {}
 
     def stack(self, leads: list, padded: int) -> Any:
@@ -366,6 +465,8 @@ class _DeviceBatcher:
             host[off:off + a.shape[0]] = a
             off += a.shape[0]
         host[off:] = 0
+        if self._host:
+            return buf
         return buf.to(self.device, non_blocking=True)
 
 
@@ -612,7 +713,12 @@ class MultiPolicyInferenceServer:
         self.device = resolve_device(mesh.device if mesh is not None
                                      else device)
         self._min_bucket = mesh.size if mesh is not None else 1
-        self._batcher = _DeviceBatcher(self.device)  # dispatch thread
+        # a mesh over several cards splits every batch over them; the
+        # tenants' params (and a family's stack) then live on every card
+        self._split = (_MeshSplit(mesh) if mesh is not None
+                       and mesh.distinct else None)
+        self._batcher = _DeviceBatcher(   # dispatch thread
+            self.device, host=self._split is not None)
         self._classes = int(priority_classes)
         self._max_batch = max_batch
         self._deadline_s = deadline_ms / 1000.0
@@ -668,14 +774,21 @@ class MultiPolicyInferenceServer:
         from the FIRST registration; only params differ per tenant.
         Registration invalidates the family's stacked params and its
         coalesced warm set (the stack gains a row)."""
+        params = self._place(params)
         with self._lock:
             if policy_id in self._policies:
                 raise ValueError(f"policy {policy_id!r} already "
                                  f"registered")
             fam = self._families.get(family)
             if fam is None:
-                fam = _Family(family, apply_fn,
-                              _make_gather_apply(apply_fn), self._classes)
+                plain, gather = apply_fn, _make_gather_apply(apply_fn)
+                if self._split is not None:
+                    split = self._split
+                    plain = (lambda placed, batch, fn=plain:
+                             split.apply(fn, placed, batch))
+                    gather = (lambda stacked, rows, batch, fn=gather:
+                              split.apply(fn, stacked, batch, rows))
+                fam = _Family(family, plain, gather, self._classes)
                 self._families[family] = fam
             pol = _Policy(policy_id, family, params, version,
                           row=len(fam.policies))
@@ -688,8 +801,14 @@ class MultiPolicyInferenceServer:
         prio = min(max(int(priority), 0), self._classes - 1)
         return TenantClient(self, policy_id, prio)
 
+    def _place(self, params: Any) -> Any:
+        """A tenant's params as the forwards read them: {card: replica}
+        on a split mesh (`_MeshSplit.place`), else as given."""
+        return params if self._split is None else self._split.place(params)
+
     def update_params(self, policy_id: str, params: Any,
                       version: int) -> None:
+        params = self._place(params)
         with self._lock:
             pol = self._policies[policy_id]
             pol.params = params
@@ -956,10 +1075,17 @@ class MultiPolicyInferenceServer:
         batch. Caller holds _lock (publications are rare, so the device
         work under the lock is bounded)."""
         if fam.dirty:
-            fam.stacked = {
-                k: torch.stack([p.params[k] for p in fam.policies])
-                .to(self.device)
-                for k in fam.policies[0].params}
+            def stack(params: list[dict], device) -> dict:
+                return {k: torch.stack([p[k] for p in params]).to(device)
+                        for k in params[0]}
+
+            if self._split is None:
+                fam.stacked = stack([p.params for p in fam.policies],
+                                    self.device)
+            else:
+                fam.stacked = {
+                    dev: stack([p.params[dev] for p in fam.policies], dev)
+                    for dev in self._split.cards}
             fam.dirty = False
         return fam.stacked
 

@@ -87,7 +87,15 @@ of dp * stage_chunk units, and each ships as [dp, chunk] (or [g, dp,
 chunk]): unit i of a block goes to shard i // chunk, so the shards fill
 in lockstep; the cold tier's swap runs per shard, with the door closure
 per shard. The summary's ``replay_shards`` holds each shard's fill and
-mass.
+mass. Over several distinct cards (``cpu:0 .. cpu:3`` on the CPU) the
+learner is parallel/cards.py's: one group of stacked shards per owner
+card, the [.., dp, chunk] blocks split by rows with one add graph per
+group, the tp split across a row's cards, the servers' batches split
+over the cards (parallel/inference_server.py), the HBM check per card
+(`check_mesh_fits`), and the summary's ``mesh`` block (layout, the
+exchange's calls and bytes, the graphs a call replays, gather launches,
+peak and budget by card). The cold tier and legacy staging over
+distinct cards raise (ROADMAP Queue A item 6).
 
 Legacy staging (``replay.ingest_zero_copy=False``): batches append to a
 list and concatenate into fixed blocks at each flush (`_flush_stage`,
@@ -143,6 +151,8 @@ from ape_x_dqn_tpu_torch.models import build_network
 from ape_x_dqn_tpu_torch.obs import profiling
 from ape_x_dqn_tpu_torch.obs.core import ProfileWindow, build_obs
 from ape_x_dqn_tpu_torch.obs.fleet import MAX_SPAN_IDS, FleetAggregator
+from ape_x_dqn_tpu_torch.ops import frame_gather as fg
+from ape_x_dqn_tpu_torch.parallel.cards import CardsLearner, group_learner
 from ape_x_dqn_tpu_torch.parallel.dist_learner import (DistDQNLearner,
                                                        DistSequenceLearner)
 from ape_x_dqn_tpu_torch.parallel.inference_server import (
@@ -164,7 +174,7 @@ from ape_x_dqn_tpu_torch.runtime.remediation import (Actuators,
 from ape_x_dqn_tpu_torch.runtime.sequence_learner import SequenceLearner
 from ape_x_dqn_tpu_torch.runtime.single_process import build_replay
 from ape_x_dqn_tpu_torch.utils.checkpoint import CheckpointManager
-from ape_x_dqn_tpu_torch.utils.hbm import check_hbm_fits
+from ape_x_dqn_tpu_torch.utils.hbm import check_hbm_fits, check_mesh_fits
 from ape_x_dqn_tpu_torch.utils.metrics import (Metrics, Throughput,
                                                log_run_header)
 from ape_x_dqn_tpu_torch.utils.misc import next_pow2, resolve_device
@@ -208,20 +218,44 @@ class ApexDriver:
                     f"the mesh's device {self.mesh.device} is not a "
                     f"{self.device.type} device")
             self.device = resolve_device(self.mesh.device)
-        # early, loud fits-check: the replay + model state must fit the
-        # card BEFORE anything is allocated there (utils/hbm.py), with
-        # every replay shard the mesh puts on it
-        self.hbm_budget = check_hbm_fits(
-            cfg, self.spec.obs_shape, self.spec.obs_dtype,
-            param_count=sum(p.numel() for m in modules
-                            for p in m.parameters()),
-            device=self.device,
-            shards_per_card=(self.mesh.shards_on(self.device)
-                             if self.mesh is not None else 1))
+        # a mesh over several distinct cards: one card group per owner
+        # (parallel/cards.py)
+        self.cards = self.mesh is not None and self.mesh.distinct
         if self.is_dist and self.family == "dpg":
             raise NotImplementedError(
                 "the distributed learner covers the DQN and R2D2 "
                 "families; DPG nets are small — run dp=tp=1")
+        if self.cards:
+            for what, on in (
+                    ("the cold tier (replay.cold_tier_capacity > 0)",
+                     cfg.replay.cold_tier_capacity > 0),
+                    ("legacy staging (replay.ingest_zero_copy=False)",
+                     not getattr(cfg.replay, "ingest_zero_copy", True))):
+                if on:
+                    raise NotImplementedError(
+                        f"{what} over a mesh of several distinct cards "
+                        f"is not ported to the PyTorch package yet "
+                        f"(ROADMAP Queue A item 6); run it on one card "
+                        f"(a mesh of one card repeated)")
+        # early, loud fits-check: the replay + model state must fit the
+        # card BEFORE anything is allocated there (utils/hbm.py), with
+        # every replay shard the mesh puts on it; over several cards,
+        # every card with its own shards and param pieces
+        self.hbm_budgets: dict = {}
+        if self.cards:
+            self.hbm_budgets = check_mesh_fits(
+                cfg, self.spec.obs_shape, self.spec.obs_dtype,
+                {k: tuple(v.shape) for k, v in self.net.state_dict().items()},
+                self.mesh)
+            self.hbm_budget = self.hbm_budgets[self.device]
+        else:
+            self.hbm_budget = check_hbm_fits(
+                cfg, self.spec.obs_shape, self.spec.obs_dtype,
+                param_count=sum(p.numel() for m in modules
+                                for p in m.parameters()),
+                device=self.device,
+                shards_per_card=(self.mesh.shards_on(self.device)
+                                 if self.mesh is not None else 1))
         for module in modules:
             module.to(self.device)
         item_spec = setup.item_spec
@@ -235,14 +269,28 @@ class ApexDriver:
                 "distributed learner requires prioritized replay " \
                 "(kind='prioritized', or kind='sequence' for R2D2)"
             shard_cap = next_pow2(max(cfg.replay.capacity // self.dp, 2))
-            self.replay = build_prioritized_replay(
-                cfg, self.spec, shard_cap, self.device,
-                frame_mode=self._frame_mode)
-            self.learner = (
-                DistSequenceLearner(self.replay, cfg.learner, cfg.replay,
-                                    self.mesh)
-                if self.family == "r2d2"
-                else DistDQNLearner(self.replay, cfg.learner, self.mesh))
+
+            def shard_replay(device):
+                return build_prioritized_replay(
+                    cfg, self.spec, shard_cap, device,
+                    frame_mode=self._frame_mode)
+
+            r2d2 = self.family == "r2d2"
+            if self.cards:
+                self.learner = CardsLearner(
+                    group_learner(
+                        DistSequenceLearner if r2d2 else DistDQNLearner,
+                        cfg.learner, cfg.replay if r2d2 else None),
+                    shard_replay, cfg.learner, self.mesh)
+                self.replay = self.learner.replay
+            else:
+                self.replay = shard_replay(self.device)
+                self.learner = (
+                    DistSequenceLearner(self.replay, cfg.learner,
+                                        cfg.replay, self.mesh)
+                    if r2d2
+                    else DistDQNLearner(self.replay, cfg.learner,
+                                        self.mesh))
             self.state = self.learner.init(  # guarded-by: _state_lock
                 self.net, None if self._frame_mode else item_spec, lgen)
             self.capacity = shard_cap * self.dp
@@ -1643,6 +1691,26 @@ class ApexDriver:
         if m is not None and self._grad_steps_total > last_log:
             self._log_boundary(m)
 
+    def _mesh_summary(self) -> dict:
+        """The mesh over several cards: its layout, the exchange's calls
+        and bytes, the graphs a call of each train endpoint replays, the
+        gather launches by card and each card's peak memory (CUDA's
+        allocator; null on the CPU) against its budget."""
+        cuda = self.device.type == "cuda"
+        cards = {}
+        for dev, budget in self.hbm_budgets.items():
+            cards[str(dev)] = {
+                "budget_bytes": budget.total,
+                "peak_allocated_bytes": (torch.cuda.max_memory_allocated(dev)
+                                         if cuda else None),
+                "gather_launches": fg.gather_rows.by_device.get(str(dev), 0)}
+        return {**self.learner.layout(),
+                "exchange": self.learner.exchange.stats(),
+                "step_graphs": {
+                    (k if isinstance(k, str) else f"{k[0]}{k[1]}"): g.graphs
+                    for k, g in self.learner.step_graphs().items()},
+                "per_card": cards}
+
     def _log_boundary(self, m: dict) -> None:
         """The learner's log record and the observability publication,
         with ONE fetch of the logged metrics (and, with obs on, the
@@ -1781,7 +1849,8 @@ class ApexDriver:
         if self.device.type == "cuda":
             # the state was made on the default stream; the learner and
             # ingest streams do not wait for it on their own
-            torch.cuda.synchronize(self.device)
+            for dev in (self.mesh.cards if self.cards else [self.device]):
+                torch.cuda.synchronize(dev)
         ingest = threading.Thread(target=self._ingest_loop, name="ingest",
                                   daemon=True)
         learner = threading.Thread(target=self._learner_loop,
@@ -1945,6 +2014,8 @@ class ApexDriver:
             # the per-shard fill and mass, read from the shards at
             # teardown (every loop has joined)
             out["replay_shards"] = self.learner.shard_stats(self.state)
+        if self.cards:
+            out["mesh"] = self._mesh_summary()
         wire = self._wire_summary()
         if wire is not None:
             out["wire"] = wire

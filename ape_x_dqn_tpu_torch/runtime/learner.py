@@ -72,6 +72,10 @@ def checkpoint_tree(state, with_replay: bool = False) -> dict:
     "actor" and "critic"), "rng" (the generator's state), "step", and
     "replay" (storage, sum-tree, cursor, fill) when asked."""
 
+    if hasattr(state, "groups"):
+        # a mesh over several cards (parallel/cards.py): the same tree
+        return state.tree(with_replay)
+
     def adam(opt) -> dict:
         return {"count": opt.count, "mu": list(opt.mu), "nu": list(opt.nu)}
 
@@ -108,6 +112,10 @@ def restore_checkpoint_tree(state, tree: dict) -> None:
     Adam's device count, which also keys the masked hard target sync;
     the replay's cursor and fill go through their setters, which
     refresh the device mirrors the graphs read."""
+
+    if hasattr(state, "groups"):
+        state.restore(tree)     # parallel/cards.py, piece by piece
+        return
 
     def adam(opt, saved: dict) -> None:
         opt.count.copy_(saved["count"])
@@ -159,7 +167,10 @@ class ClipAdam:
     + b2 nu, update = -lr * (mu / (1 - b1^t)) / (sqrt(nu / (1 - b2^t))
     + eps). The moments and the count update IN PLACE, on the device:
     the bias corrections are float32 device values, as optax computes
-    them, so a captured graph replays them."""
+    them, so a captured graph replays them. The params may lie on
+    several cards (a net column-split across them,
+    parallel/tensor_parallel.py): the norm and the count live on the
+    first one, and each moment beside its param."""
 
     def __init__(self, max_norm: float, lr: float, eps: float = 1e-8,
                  b1: float = 0.9, b2: float = 0.999):
@@ -180,7 +191,8 @@ class ClipAdam:
         """-> the updates to add to the params; advances `state`."""
         g_norm = learn_obs.global_norm(grads)
         trigger = g_norm < self.max_norm
-        grads = [torch.where(trigger, g, (g / g_norm) * self.max_norm)
+        grads = [torch.where(trigger.to(g.device), g,
+                             (g / g_norm.to(g.device)) * self.max_norm)
                  for g in grads]
         state.count.add_(1)
         # bias corrections in float32, as optax computes decay**count
@@ -191,7 +203,8 @@ class ClipAdam:
         for g, mu, nu in zip(grads, state.mu, state.nu):
             mu.mul_(self.b1).add_((1 - self.b1) * g)
             nu.mul_(self.b2).add_((1 - self.b2) * (g * g))
-            u = (mu / bc1) / (torch.sqrt(nu / bc2) + self.eps)
+            u = (mu / bc1.to(g.device)) / (
+                torch.sqrt(nu / bc2.to(g.device)) + self.eps)
             updates.append(u * (-self.lr))
         return updates
 

@@ -130,7 +130,9 @@ class MultihostApexDriver:
                  transport=None, device: str | torch.device = "cuda"):
         """transport: as ApexDriver's (a SocketIngestServer also takes
         remote actor hosts). device: the card (default: cuda, card rank
-        % the visible cards; `multihost.local_device`), or "cpu"."""
+        % the visible cards; `multihost.local_device`), or "cpu". A
+        rank's mesh is its one card repeated; a multi-host rank that
+        holds several cards is not ported (ROADMAP Queue A item 6)."""
         if cfg.checkpoint_replay:
             # replicating every dp shard's replay into one payload would
             # multiply it by dp x capacity: needs a sharded save first

@@ -69,6 +69,16 @@ holds it depends on the exchange:
 On the CPU and with capture off both are `drive`, eagerly. A capture
 that fails raises here too.
 
+A one-process mesh over several cards (parallel/cards.py) runs one such
+generator per card group, in lockstep (`drive_cards`: every group's
+stretch, then one in-process exchange of the vectors they yielded).
+`CardsStep` captures each group's stretches as segments, with the
+exchange (an NCCL all-gather over the owners' streams) between them; a
+group whose rows split their layers across tp partner cards captures
+each stretch as one graph over its cards (the partners' streams join
+the owner's capture by events). A K=4 macro-step over g groups replays
+5 g graphs and 4 exchanges.
+
 `EvictGraph` and an `AddGraph` of the directed add are the tiered cold
 store's eviction swap (the counterparts of the JAX learner's
 `evict_region` and `add_at` jits): the evict graph writes the start of
@@ -95,6 +105,7 @@ its FLOPs and bytes (`profiling.count_cost`), kept as `cost`.
 
 from __future__ import annotations
 
+import contextlib
 import threading
 import time
 import weakref
@@ -103,7 +114,7 @@ from typing import Any, Callable
 import torch
 
 from ape_x_dqn_tpu_torch.obs import profiling
-from ape_x_dqn_tpu_torch.ops.frame_gather import gather_rows
+from ape_x_dqn_tpu_torch.ops.frame_gather import count_launches, gather_rows
 
 
 def _leaves(tree: dict, prefix: tuple = ()):
@@ -266,7 +277,7 @@ class StepGraph(_Captured):
     def _replay(self, noise: torch.Tensor) -> dict:
         self._noise.copy_(noise)
         self._graph.replay()
-        gather_rows.launches += self.gathers
+        count_launches(noise.device, self.gathers)
         return unpack_metrics(self._out.clone(), self._paths)
 
 
@@ -406,8 +417,212 @@ class SegmentedStep(_Captured):
             graph.replay()
             if i < len(self._sends):
                 self.exchange(self._sends[i], self._recvs[i])
-        gather_rows.launches += self.gathers
+        count_launches(noise.device, self.gathers)
         return unpack_metrics(self._out.clone(), self._paths)
+
+
+def drive_cards(gens: list, exchange: Callable) -> list:
+    """Run the card groups' exchanged step bodies of a one-process mesh
+    over several cards (parallel/cards.py) in lockstep: every
+    generator's stretch up to its next yield, then ONE exchange of the
+    vectors they yielded (-> one [ngroups, L] result per group, sent
+    back in); -> what each generator returned, in group order."""
+    xs = [None] * len(gens)
+    while True:
+        sends, outs = [], []
+        for gen, x in zip(gens, xs):
+            try:
+                sends.append(gen.send(x))
+            except StopIteration as stop:
+                outs.append(stop.value)
+        if outs:
+            if sends:
+                raise RuntimeError("the card groups' step bodies did not "
+                                   "yield alike")
+            return outs
+        xs = exchange(sends)
+
+
+def _route_to_pool(device: torch.device, pool) -> Callable[[], None]:
+    """While a graph captures on another card, route the allocations
+    this thread makes on `device`'s current stream (a tp partner's side
+    stream, joined into the capture) into a private pool of that
+    device, as the capture does on its own card; -> the call that ends
+    the routing. The pool is released with the graph
+    (`CardsStep._capture_group`)."""
+    idx = device.index
+    torch._C._cuda_beginAllocateCurrentStreamToPool(idx, pool)
+    return lambda: torch._C._cuda_endAllocateToPool(idx, pool)
+
+
+class CardsStep(_Captured):
+    """The step of a one-process mesh over several cards
+    (parallel/cards.py): one exchanged generator body per card group,
+    ``body(state, noise)``, driven in lockstep (`drive_cards`) with the
+    in-process exchange between their stretches.
+
+    On the CPU and with capture off, `drive_cards` eagerly. On the card
+    with capture on: the first call drives them eagerly on side streams
+    (one per card), the second captures each group's stretches as
+    graphs of their own (segments, as `SegmentedStep` does; the
+    vectors they yield are static outputs, the [ngroups, L] buffers the
+    next stretch reads static inputs) and replays them with the
+    exchange between them, later calls replay. A group whose rows split
+    their layers across tp partner cards captures each stretch as ONE
+    graph over its cards: the partners' side streams join the owner's
+    capture by events, their allocations go to a private pool of their
+    own, and they rejoin before the capture ends. The exchange (an NCCL
+    all-gather over the owners' streams) runs between the graphs, not
+    inside them. A capture that fails raises: there is no eager
+    fallback. `graphs` counts the graphs one call replays, over every
+    group."""
+
+    def __init__(self, bodies: list[Callable], exchange: Callable,
+                 groups: list, name: str = "step", steps: int = 1):
+        super().__init__(name, steps)
+        self.bodies = bodies
+        self.exchange = exchange
+        self.groups = groups        # parallel/mesh.py CardGroups
+        self.gathers: dict[torch.device, int] = {}   # per replay, by owner
+        self._segments: list[list[torch.cuda.CUDAGraph]] = []
+        self._sends: list[list[torch.Tensor]] = []   # [segment][group]
+        self._recvs: list[list[torch.Tensor]] = []
+        self._noise: list[torch.Tensor] = []
+        self._outs: list[tuple] = []
+        self._sides: dict[torch.device, torch.cuda.Stream] = {}
+
+    @property
+    def graphs(self) -> int:
+        return sum(len(s) for s in self._segments)
+
+    @property
+    def cards(self) -> list[torch.device]:
+        return list(dict.fromkeys(d for g in self.groups
+                                  for d in g.tp_devices))
+
+    def _drive(self, states: list, noises: list) -> list:
+        return drive_cards([body(s, u) for body, s, u in
+                            zip(self.bodies, states, noises)],
+                           self.exchange)
+
+    def _side(self, device: torch.device) -> torch.cuda.Stream:
+        if device not in self._sides:
+            self._sides[device] = torch.cuda.Stream(device=device)
+        return self._sides[device]
+
+    def __call__(self, states: list, noises: list, capture: bool) -> list:
+        if noises[0].device.type != "cuda" or not capture:
+            return self._eager(self._drive, states, noises)
+        if self._graph is None or self._bound is not states[0]:
+            if self._warm is not states[0]:
+                return self._warm_up_cards(states, noises)
+            self._capture_cards(states, noises)
+        return self._replay_cards(noises)
+
+    def _warm_up_cards(self, states: list, noises: list) -> list:
+        curs = {d: torch.cuda.current_stream(d) for d in self.cards}
+        with contextlib.ExitStack() as stack:
+            for d, cur in curs.items():
+                self._side(d).wait_stream(cur)
+                stack.enter_context(torch.cuda.stream(self._side(d)))
+            stack.enter_context(torch.cuda.device(self.groups[0].owner))
+            outs = self._eager(self._drive, states, noises)
+        for d, cur in curs.items():
+            cur.wait_stream(self._side(d))
+        for out in outs:
+            for _, v in _leaves(out):
+                v.record_stream(torch.cuda.current_stream(v.device))
+        self._warm = states[0]
+        return outs
+
+    @contextlib.contextmanager
+    def _capture_group(self, graph: torch.cuda.CUDAGraph, group):
+        owner = group.owner
+        side = self._side(owner)
+        partners = [d for d in dict.fromkeys(group.tp_devices)
+                    if d != owner]
+        # the graph's private pool, made before the capture so that the
+        # partners' allocations can route to a pool of the same id
+        pool = torch.cuda.graph_pool_handle()
+        with torch.cuda.graph(graph, pool=pool, stream=side,
+                              capture_error_mode="thread_local"):
+            with contextlib.ExitStack() as stack:
+                for d in partners:
+                    stack.enter_context(torch.cuda.stream(self._side(d)))
+                    stack.callback(_route_to_pool(d, pool))
+                    weakref.finalize(graph, torch._C._cuda_releasePool,
+                                     d.index, pool)
+                    self._side(d).wait_stream(side)   # join the capture
+                stack.enter_context(torch.cuda.device(owner))
+                yield
+                for d in partners:
+                    side.wait_stream(self._side(d))   # and rejoin
+
+    def _capture_cards(self, states: list, noises: list) -> None:
+        self._graph = self._bound = None    # segments of another state
+        n = len(self.groups)
+        self._segments = [[] for _ in range(n)]
+        self._sends, self._recvs = [], []
+        self._outs = [None] * n
+        self._noise = [torch.empty_like(u) for u in noises]
+        self.gathers = {}
+        owner0 = self.groups[0].owner
+        mem0 = _memory(owner0)
+        t0 = time.perf_counter()
+        gens: list = [None] * n
+        xs: list = [None] * n
+        while True:
+            sends = []
+            for i, group in enumerate(self.groups):
+                graph = torch.cuda.CUDAGraph()
+                before = gather_rows.captured
+                send = None
+                with self._capture_group(graph, group):
+                    try:
+                        if gens[i] is None:
+                            # made inside the first capture: what the
+                            # body runs before its first yield is captured
+                            gens[i] = self.bodies[i](states[i],
+                                                     self._noise[i])
+                            send = next(gens[i])
+                        else:
+                            send = gens[i].send(xs[i])
+                    except StopIteration as stop:
+                        self._outs[i] = pack_metrics(stop.value)
+                self.gathers[group.owner] = (
+                    self.gathers.get(group.owner, 0)
+                    + gather_rows.captured - before)
+                self._segments[i].append(graph)
+                sends.append(send)
+            if all(s is None for s in sends):
+                break
+            if any(s is None for s in sends):
+                raise RuntimeError("the card groups' step bodies did not "
+                                   "yield alike")
+            self._sends.append(sends)
+            xs = [torch.empty((self.exchange.nproc, s.numel()),
+                              dtype=torch.float32, device=s.device)
+                  for s in sends]
+            self._recvs.append(xs)
+        mem1 = _memory(owner0)
+        CAPTURES.add({"name": self.name, "ms": (time.perf_counter() - t0)
+                      * 1e3, "allocated_bytes": mem1[0] - mem0[0],
+                      "reserved_bytes": mem1[1] - mem0[1]})
+        self._graph, self._bound = self._segments[0][-1], states[0]
+
+    def _replay_cards(self, noises: list) -> list:
+        for buf, u in zip(self._noise, noises):
+            buf.copy_(u)
+        for s in range(len(self._segments[0])):
+            for i, group in enumerate(self.groups):
+                with torch.cuda.device(group.owner):
+                    self._segments[i][s].replay()
+            if s < len(self._sends):
+                self.exchange(self._sends[s], self._recvs[s])
+        for owner, k in self.gathers.items():
+            count_launches(owner, k)
+        return [unpack_metrics(vec.clone(), paths)
+                for vec, paths in self._outs]
 
 
 class AddGraph(_Captured):

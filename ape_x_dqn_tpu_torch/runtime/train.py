@@ -274,6 +274,16 @@ def main(argv: list[str] | None = None) -> int:
             from ape_x_dqn_tpu_torch.runtime.driver import ApexDriver
             driver = ApexDriver(cfg, metrics=metrics, transport=server,
                                 device=args.device)
+            if driver.cards:
+                # the layout of a mesh over several cards, beside the
+                # summary's mesh block (stdout stays one JSON line)
+                lay = driver.learner.layout()
+                print(f"mesh: dp={cfg.parallel.dp} x tp={cfg.parallel.tp} "
+                      f"over cards {lay['cards']}; rows per card "
+                      f"{lay['rows_per_card']}; tp partners "
+                      f"{lay['tp_partners']}; tp splits "
+                      f"{lay['split_layers'] or 'no layer'}",
+                      file=sys.stderr, flush=True)
             out = dict(driver.run(max_grad_steps=args.max_grad_steps,
                                   wall_clock_limit_s=args.wall_clock_limit))
             # the summary stays one parseable JSON line

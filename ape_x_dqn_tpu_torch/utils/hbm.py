@@ -30,6 +30,10 @@ the port's own:
 - `card_budget` prices one card of the dp-sharded learner's mesh at the
   replay shards the mesh puts there: the original prices a device at
   one shard, while the port's one-card meshes hold all dp shards.
+  `mesh_budgets` prices every card of a one-process mesh over several
+  cards: the shards it owns, the parameter pieces it holds, and NCCL's
+  part on the owners; `check_mesh_fits` raises naming the card that
+  does not fit.
 - `check_hbm_fits(processes_per_card=n)`: the multi-host learner's
   processes may share a card (two ranks on one card); each process's
   budget counts n times against it, or two processes that each fit
@@ -289,3 +293,73 @@ def check_hbm_fits(cfg: Any, obs_shape: tuple[int, ...], obs_dtype=np.uint8,
             f"wider, or switch replay.storage='frame_ring' for pixel "
             f"configs.")
     return budget
+
+
+def mesh_budgets(cfg: Any, obs_shape: tuple[int, ...], obs_dtype,
+                 param_shapes: dict[str, tuple[int, ...]], mesh,
+                 min_dim: int = 256) -> dict:
+    """The budget of every distinct card of a one-process mesh over
+    several cards (parallel/cards.py), {card: HbmBudget}: the replay
+    shards it owns (one copy per shard, on its row's owner), the
+    parameters it holds with their target and Adam moments (a card
+    group's replicated params and piece 0 of each split one on the
+    owner, piece t on tp partner t: parallel/sharding.py), the
+    headroom (the inference server's replica of the whole params rides
+    in it, as on one card), and NCCL's part on the owners when more
+    than one exchange over NCCL. `param_shapes`: the whole net's
+    ``{state_dict key: shape}``."""
+    from ape_x_dqn_tpu_torch.parallel.sharding import torch_split
+
+    base = run_budget(cfg, obs_shape, obs_dtype,
+                      sum(math.prod(s) for s in param_shapes.values()))
+    held: dict = {d: 0 for d in mesh.cards}
+    groups = mesh.groups
+    for g in groups:
+        tp = len(g.tp_devices) if g.split else 1
+        for key, shape in param_shapes.items():
+            n = math.prod(shape)
+            if torch_split(key, tuple(shape), tp, min_dim) is None:
+                held[g.owner] += n
+            else:
+                for dev in g.tp_devices:
+                    held[dev] += n // tp
+    nccl = NCCL_DEVICE_BYTES if (len(groups) > 1
+                                 and mesh.device.type == "cuda") else 0
+    owners = {g.owner for g in groups}
+    out = {}
+    for dev in mesh.cards:
+        shards = mesh.shards_on(dev)
+        b = dataclasses.replace(
+            base, replay_storage=base.replay_storage * shards,
+            replay_tree=base.replay_tree * shards,
+            capacity=base.capacity * shards,
+            model_state=model_state_bytes(held[dev]),
+            nccl=nccl if dev in owners else 0,
+            detail=dict(base.detail, shards_on_card=shards,
+                        params_on_card=held[dev]))
+        out[dev] = b
+    return out
+
+
+def check_mesh_fits(cfg: Any, obs_shape: tuple[int, ...], obs_dtype,
+                    param_shapes: dict[str, tuple[int, ...]], mesh,
+                    min_dim: int = 256, hbm_bytes: int | None = None
+                    ) -> dict:
+    """`check_hbm_fits` for every card of a one-process mesh over
+    several cards (`mesh_budgets`), before anything is allocated:
+    raises ValueError naming the first card that does not fit. ->
+    {card: budget}."""
+    budgets = mesh_budgets(cfg, obs_shape, obs_dtype, param_shapes, mesh,
+                           min_dim)
+    gib = 1024 ** 3
+    for dev, b in budgets.items():
+        limit = hbm_bytes if hbm_bytes is not None else device_hbm_bytes(dev)
+        if limit is not None and b.total > limit:
+            raise ValueError(
+                f"config {getattr(cfg, 'name', '?')!r} needs "
+                f"{b.total / gib:.2f} GiB on card {dev} of the mesh "
+                f"({b.detail['shards_on_card']} replay shards) but the "
+                f"card has {limit / gib:.2f} GiB of memory.\n{b.table()}\n"
+                f"Fix: lower replay.capacity, or spread the rows over "
+                f"more cards (parallel.dp, the device list).")
+    return budgets

@@ -5,6 +5,11 @@ Run from the repository root on a machine with one NVIDIA card:
 
     python3 chip_smoke.py [--seed 0]
 
+and on two or more cards, for the cards phase alone beside a one-card
+atari57_apex run at the same depth (no contract line),
+
+    python3 chip_smoke.py --cards-only
+
 Phases, one result line each with its seconds; any failure exits
 non-zero:
 1. device    the card's name and power limit (nvidia-smi); no CUDA -> exit 2
@@ -239,7 +244,32 @@ non-zero:
              captured all-gather at r2d2's size (checked against the
              budget's NCCL part), and the collective's device time
              (CUDA events around calls queued behind a device sleep)
-22. the memory table (each preset's budget beside its measured peak and
+22. cards    the one-process mesh over distinct cards, where two or more
+             are visible (on one card: `cards: skipped (1 card
+             visible)`): (a) both presets' learners alone at full width
+             on dp=4 x tp=2 spread over the cards ([c0, c1, c2, c3] * 2
+             on four, [c0, c1] * 4 on two): the graphs against the
+             eager bodies bitwise after 1 and CARDS_STEPS K=4
+             macro-steps, against the stacked learner on card 0 from
+             the same state (float32 without TF32, over the first
+             macro-step: Adam's first moment, the metrics and the
+             params' change within CARDS_REL_TOL, relative),
+             grad-steps/s
+             beside dist:'s, gather launches by card, graphs per
+             macro-step, each card's peak against its budget; (b)
+             `--config atari57_apex --set parallel.dp=<cards> --set
+             parallel.tp=1` through the CLI on the default mesh (dp
+             over the cards), (c) `--config r2d2 --set
+             parallel.dp=<cards/2> --set parallel.tp=2` (tp across the
+             cards, through the LSTM), each with dist_apex:'s and
+             dist_r2d2:'s 8 actors, cut deeper (CARDS_APEX_FRAMES,
+             CARDS_R2D2_FRAMES): a clean end, the summary's mesh block
+             (graphs replayed, the gather on every owner, each card's
+             peak under its budget), the window by part; (d) one batch of 64 through the
+             single-policy server split over the cards against the
+             one-card forward (bf16, 1e-2); and the gather at the CLI
+             runs' per-card shapes, timed on the last card
+23. the memory table (each preset's budget beside its measured peak and
              the card), the kernels line, the card line, and the
              contract's last line.
 
@@ -425,11 +455,41 @@ MH_NCCL_ACTORS = 8
 MH_NCCL_FRAMES = 30000
 MH_NCCL_STEPS = 192
 # nccl_probe: the device time of one all-gather from this many calls
-# queued behind a device sleep of NCCL_SLEEP_CYCLES (about 10 ms at an
-# H100's clock), so that the host's enqueue is not timed
+# queued behind a device sleep of NCCL_SLEEP_CYCLES (about 100 ms at an
+# H100's clock), so that the host's enqueue is not timed (a slow host
+# took 11.2 ms to enqueue the 20 calls, past a 10.6 ms sleep)
 NCCL_TIMED_CALLS = 20
-NCCL_SLEEP_CYCLES = 20_000_000
+NCCL_SLEEP_CYCLES = 200_000_000
 NCCL_PROBE_TIMEOUT_S = 180
+# cards: the one-process mesh over distinct cards (two or more visible):
+# macro-steps of the learners alone, the CLI runs (8 actors as in
+# dist_apex: and dist_r2d2:, cut deeper: atari57_apex to 24,000 frames
+# with min_fill 10,000, r2d2 to 15,000 frames), and the split server's
+# batch
+CARDS_STEPS = 4
+CARDS_APEX_SETS = ("actors.num_actors=8", "replay.min_fill=10000",
+                   "learner.publish_every=16")
+CARDS_APEX_FRAMES = 24000
+CARDS_APEX_WALL_S = 60
+CARDS_R2D2_FRAMES = 15000
+CARDS_R2D2_WALL_S = 60
+CARDS_SERVE_BATCH = 64
+# cards (a) against the stacked learner, both in float32 with TF32 off,
+# over the first macro-step (its four steps draw the same samples from
+# the same trees), as ||x_cards - x_stacked|| / ||x_stacked||: Adam's
+# first moment (the exchanged gradients' running mean), the scalar
+# metrics and the params' change, each within CARDS_REL_TOL. Adam moves
+# every param by about lr a step whatever its gradient, so the largest
+# param difference cannot tell a fault from rounding; these can. On
+# four H100s: the first moment 6.0e-5 (atari57_apex) and 1.4e-4 (r2d2,
+# gradients summed over 80 LSTM steps), the metrics 1.4e-6 / 2.1e-6,
+# the params' change 2.5e-5 / 3.5e-5; a learner left unchanged scores 1
+# on the params' change and the first moment, one whose groups skip the
+# exchange 0.70-0.75 (tests/test_torch_cards_cuda.py). Later draws
+# sample a full-width replay through priorities that differ in their
+# last bits, so a few samples move (the params' change 0.00533 after
+# four macro-steps of atari57_apex): reported, not held.
+CARDS_REL_TOL = 1e-3
 # the bf16 tolerance of the CPU parity tests (tests/test_torch_models.py)
 BF16_TOL = 3e-2
 # the card's name and power limit (nvidia-smi), set by main and printed
@@ -975,26 +1035,69 @@ def note_memory(name: str, budget=None, base: int = 0) -> float:
 
 
 @contextlib.contextmanager
-def timed_adds():
-    """ApexDriver._ship_staged timed by the host clock around each call
-    (the ingest thread's add: the host-to-device copies, the wait for
-    _state_lock and the add's dispatch). Yields the list of seconds."""
+def timed_parts():
+    """Three parts of a driver's run timed by the host clock around each
+    call: "add" (ApexDriver._ship_staged, the ingest thread's add: the
+    host-to-device copies, the wait for _state_lock and the add's
+    dispatch), "serve" (BatchedInferenceServer._forward, the serving
+    thread's forward of one batch, its split over cards included) and
+    "dispatch" (SingleChipLearner.train_many, the learner thread's
+    dispatch of its steps, warm-up and captures included). Yields
+    ({part: [seconds, ...]}, {part: [start, ...]})."""
+    from ape_x_dqn_tpu_torch.parallel.inference_server import (
+        BatchedInferenceServer)
     from ape_x_dqn_tpu_torch.runtime.driver import ApexDriver
+    from ape_x_dqn_tpu_torch.runtime.learner import SingleChipLearner
 
-    orig = ApexDriver._ship_staged
-    secs: list[float] = []
+    sites = {"add": (ApexDriver, "_ship_staged"),
+             "serve": (BatchedInferenceServer, "_forward"),
+             "dispatch": (SingleChipLearner, "train_many")}
+    secs: dict[str, list] = {name: [] for name in sites}
+    starts: dict[str, list] = {name: [] for name in sites}
+    origs = {name: getattr(cls, attr) for name, (cls, attr) in sites.items()}
 
-    def ship(self, views, g):
-        t0 = time.perf_counter()
-        out = orig(self, views, g)
-        secs.append(time.perf_counter() - t0)
-        return out
+    def timed(name):
+        orig = origs[name]
 
-    ApexDriver._ship_staged = ship
+        def call(self, *args, **kwargs):
+            t0 = time.perf_counter()
+            try:
+                return orig(self, *args, **kwargs)
+            finally:
+                starts[name].append(t0)
+                secs[name].append(time.perf_counter() - t0)
+        return call
+
+    for name, (cls, attr) in sites.items():
+        setattr(cls, attr, timed(name))
     try:
-        yield secs
+        yield secs, starts
     finally:
-        ApexDriver._ship_staged = orig
+        for name, (cls, attr) in sites.items():
+            setattr(cls, attr, origs[name])
+
+
+@contextlib.contextmanager
+def timed_adds():
+    """`timed_parts`' adds alone. Yields the list of seconds."""
+    with timed_parts() as (secs, _):
+        yield secs["add"]
+
+
+def parts_summary(secs: dict, starts: dict, t0: float, wall: float) -> str:
+    """Each part's host seconds and share of the run's wall seconds
+    (the parts run on their own threads, so the shares may sum past
+    1), and when the longest add started beside the first dispatch."""
+    bits = [f"{name} {len(v)} calls {sum(v):.2f} s ({sum(v) / wall:.4f})"
+            for name, v in secs.items()]
+    line = "window by part: " + ", ".join(bits)
+    if secs["add"] and secs["dispatch"]:
+        i = int(np.argmax(secs["add"]))
+        line += (f"; longest add {secs['add'][i] * 1e3:.1f} ms from "
+                 f"{starts['add'][i] - t0:.2f} s, first dispatch "
+                 f"{secs['dispatch'][0] * 1e3:.1f} ms from "
+                 f"{starts['dispatch'][0] - t0:.2f} s")
+    return line
 
 
 def adds_summary(secs: list[float], out: dict) -> str:
@@ -2764,12 +2867,31 @@ def deterministic():
         torch.use_deterministic_algorithms(old[1], warn_only=old[2])
 
 
-def dist_learner(dev, seed: int, preset: str, capture: bool):
+@contextlib.contextmanager
+def no_tf32():
+    """float32 matmuls and convolutions without TF32's rounding."""
+    old = (torch.backends.cuda.matmul.allow_tf32,
+           torch.backends.cudnn.allow_tf32)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    try:
+        yield
+    finally:
+        (torch.backends.cuda.matmul.allow_tf32,
+         torch.backends.cudnn.allow_tf32) = old
+
+
+def dist_learner(dev, seed: int, preset: str, capture: bool,
+                 devices: list | None = None, dtype: str | None = None):
     """The preset's dp-sharded learner at full width on its own dp x tp
-    mesh of this card, its shards filled in lockstep from numpy (the
-    same bits for every call with one seed). -> (cfg, learner, state)."""
+    mesh of this card (or of `devices`: over distinct cards, the card
+    groups' learner, parallel/cards.py), its shards filled in lockstep
+    from numpy (the same bits for every call with one seed); `dtype`
+    replaces the preset's compute dtype. -> (cfg, learner, state)."""
     from ape_x_dqn_tpu_torch.configs import get_config
     from ape_x_dqn_tpu_torch.models import build_network, init_params
+    from ape_x_dqn_tpu_torch.parallel.cards import (CardsLearner,
+                                                    group_learner)
     from ape_x_dqn_tpu_torch.parallel.dist_learner import (
         DistDQNLearner, DistSequenceLearner)
     from ape_x_dqn_tpu_torch.parallel.mesh import make_mesh
@@ -2780,11 +2902,14 @@ def dist_learner(dev, seed: int, preset: str, capture: bool):
     from ape_x_dqn_tpu_torch.utils.rng import component_generator
 
     cfg = get_config(preset)
+    if dtype is not None:
+        cfg = cfg.replace(network=dataclasses.replace(cfg.network,
+                                                      compute_dtype=dtype))
     _, spec = pong_setup(dev)
     dp, tp = cfg.parallel.dp, cfg.parallel.tp
     check(dp == 4 and tp == 2 and cfg.learner.sample_chunk == 4,
           f"{preset} preset drift: dp {dp}, tp {tp}")
-    mesh = make_mesh(dp=dp, tp=tp, devices=[dev] * (dp * tp))
+    mesh = make_mesh(dp=dp, tp=tp, devices=devices or [dev] * (dp * tp))
     net = build_network(cfg.network, spec)
     init_params(net, component_generator(seed, "net_init"))
     net.to(dev)
@@ -2793,9 +2918,17 @@ def dist_learner(dev, seed: int, preset: str, capture: bool):
     gen = component_generator(seed, "learner", device=dev)
     if cfg.replay.kind == "sequence":
         rep = cfg.replay
-        replay = PrioritizedReplay(shard_cap, alpha=rep.alpha, beta=rep.beta,
-                                   eps=rep.eps, device=dev)
-        learner = DistSequenceLearner(replay, cfg.learner, rep, mesh)
+
+        def seq_replay(d):
+            return PrioritizedReplay(shard_cap, alpha=rep.alpha,
+                                     beta=rep.beta, eps=rep.eps, device=d)
+
+        learner = (CardsLearner(group_learner(DistSequenceLearner,
+                                              cfg.learner, rep),
+                                seq_replay, cfg.learner, mesh)
+                   if mesh.distinct
+                   else DistSequenceLearner(seq_replay(dev), cfg.learner,
+                                            rep, mesh))
         state = learner.init(net, sequence_item_spec(
             (84, 84, 4), np.uint8, rep.seq_length, cfg.network.lstm_size,
             frame_mode=True), gen)
@@ -2818,16 +2951,23 @@ def dist_learner(dev, seed: int, preset: str, capture: bool):
         td = torch.from_numpy(rng.uniform(0.1, 2.0, lead).astype(np.float32))
         learner.add(state, items, td)
     else:
-        replay = build_prioritized_replay(cfg, spec, shard_cap, dev,
-                                          frame_mode=True)
-        learner = DistDQNLearner(replay, cfg.learner, mesh)
+        def ring(d):
+            return build_prioritized_replay(cfg, spec, shard_cap, d,
+                                            frame_mode=True)
+
+        learner = (CardsLearner(group_learner(DistDQNLearner, cfg.learner),
+                                ring, cfg.learner, mesh)
+                   if mesh.distinct
+                   else DistDQNLearner(ring(dev), cfg.learner, mesh))
+        replay = learner.replay
         state = learner.init(net, None, gen)
         per = 128
         for _ in range(DIST_FILL_SEGS // per):
             items, td = segments(replay, spec, dp, per, rng)
             learner.add(state, items, td)
     learner.capture = capture
-    torch.cuda.synchronize()
+    for d in mesh.cards:
+        torch.cuda.synchronize(d)
     return cfg, learner, state
 
 
@@ -3050,6 +3190,7 @@ def dist_driver(seed: int, preset: str, sets: tuple, frames: int,
     from ape_x_dqn_tpu_torch.parallel.inference_server import (
         BatchedInferenceServer)
     from ape_x_dqn_tpu_torch.runtime.driver import ApexDriver
+    from ape_x_dqn_tpu_torch.runtime.learner import SingleChipLearner
     from ape_x_dqn_tpu_torch.runtime.train import apply_overrides
 
     cfg = apply_overrides(get_config(preset), list(sets)).replace(seed=seed)
@@ -3066,7 +3207,8 @@ def dist_driver(seed: int, preset: str, sets: tuple, frames: int,
     def train_many(self, state, n, noise=None):
         calls["macro"] += n // k
         calls["singles"] += n % k
-        return orig[1](self, state, n, noise)
+        # through the base class's (timed, `timed_parts`) method
+        return SingleChipLearner.train_many(self, state, n, noise)
 
     dev = torch.device(DEVICE)
     threads_before = {t.ident for t in threading.enumerate()}
@@ -3079,7 +3221,7 @@ def dist_driver(seed: int, preset: str, sets: tuple, frames: int,
     t0 = time.perf_counter()
     try:
         # the stager binds the (timed) ship when the driver is built
-        with timed_adds() as adds:
+        with timed_parts() as (secs, starts):
             driver = ApexDriver(cfg, device=dev,
                                 mesh_devices=[dev] * (dp * tp))
             fg.gather_rows.launches = 0   # count the main path's run only
@@ -3090,6 +3232,7 @@ def dist_driver(seed: int, preset: str, sets: tuple, frames: int,
         BatchedInferenceServer.update_params, _DistLearnerBase.train_many = \
             orig
     wall = time.perf_counter() - t0
+    adds = secs["add"]
     launches = {"gather_rows": fg.gather_rows.launches}
     left = [t.name for t in threading.enumerate()
             if t.ident not in threads_before]
@@ -3108,7 +3251,8 @@ def dist_driver(seed: int, preset: str, sets: tuple, frames: int,
         f"{out['grad_steps']} ({calls['macro']} macro-steps); host ms per "
         f"add median {add_ms:.2f} ({single}: "
         f"{ADD_MS.get(single, math.nan):.2f}); "
-        f"{adds_summary(adds, out)}; add graph replays {replays}; "
+        f"{adds_summary(adds, out)}; {parts_summary(secs, starts, t0, wall)}; "
+        f"add graph replays {replays}; "
         f"dropped {out['ingest_dropped']} (per shard "
         f"{out['ingest_dropped_per_shard']}); publications {len(v)} "
         f"(versions {v[:3]}...{v[-1:]}); replay_shards="
@@ -3740,6 +3884,394 @@ def phase_mh_nccl(seed: int, gloo_bytes: int) -> dict:
     return {"gather_rows": launches}
 
 
+def cards_devices() -> list:
+    """The presets' dp=4 x tp=2 mesh spread over the visible cards:
+    [c0, c1, c2, c3] * 2 with four or more (two card groups, each split
+    over two cards), [c0, c1] * 4 with two or three (one group on c0,
+    split with c1)."""
+    n = 4 if torch.cuda.device_count() >= 4 else 2
+    cards = [torch.device("cuda", i) for i in range(n)]
+    return cards * (8 // n)
+
+
+def cards_snapshot(state, m) -> dict:
+    """`dist_snapshot` of a learner over cards, through its layout-free
+    checkpoint tree (params, target and Adam whole), the groups' trees
+    and cursors in group order, and every metric, on the host."""
+    from ape_x_dqn_tpu_torch.runtime.learner import checkpoint_tree
+    from ape_x_dqn_tpu_torch.runtime.step_graph import pack_metrics
+
+    def host(t):
+        return t.detach().cpu().clone()
+
+    tree = checkpoint_tree(state)
+    snap = {f"{part}.{k}": host(v)
+            for part in ("params", "target_params")
+            for k, v in tree[part].items()}
+    opt = tree["opt_state"]
+    snap["opt.count"] = host(opt["count"])
+    for i, (mu, nu) in enumerate(zip(opt["mu"], opt["nu"])):
+        snap[f"opt.mu{i}"], snap[f"opt.nu{i}"] = host(mu), host(nu)
+    groups = getattr(state, "groups", [state])
+    for i, st in enumerate(groups):
+        snap[f"tree{i}"] = host(st.replay.tree)
+        snap[f"cursors{i}"] = torch.cat([host(st.replay.pos_dev),
+                                         host(st.replay.size_dev)])
+    snap["metrics"] = host(pack_metrics(m)[0])
+    for k, v in m.items():
+        if k != "diag":         # the diagnostics are per group's rows
+            snap[f"metric.{k}"] = host(v).float().reshape(-1)
+    return snap
+
+
+def rel_change(got: dict, want: dict, base: dict | None = None) -> float:
+    """||(got - base) - (want - base)|| / ||want - base|| over the keys
+    of `want` (without `base`: ||got - want|| / ||want||)."""
+    def d(x, k):
+        return x[k].double() - (base[k].double() if base else 0)
+
+    num = sum(float(((d(got, k) - d(want, k)) ** 2).sum()) for k in want)
+    den = sum(float((d(want, k) ** 2).sum()) for k in want)
+    return (num / den) ** 0.5
+
+
+def cards_run(dev, seed: int, preset: str, devices: list,
+              capture: bool, dtype: str | None = None) -> dict:
+    """CARDS_STEPS K=4 macro-steps of the preset's learner over
+    `devices` (graphs, or eager with `capture` off; deterministic),
+    snapshots after the 1st and the last, the params before the first;
+    with the graphs at the preset's dtype, the gather launches by card,
+    the graphs a macro-step replays, then the rate (host clock over
+    RATE_STEPS macro-steps, the graph captured anew without the
+    deterministic algorithms) and each card's peak against its budget.
+    `dtype` "float32" runs without TF32 and measures nothing. The
+    learner is freed before this returns."""
+    from ape_x_dqn_tpu_torch.ops import frame_gather as fg
+    from ape_x_dqn_tpu_torch.utils.hbm import mesh_budgets
+
+    cards = list(dict.fromkeys(devices))
+    base = {}
+    for d in cards:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+        base[d] = torch.cuda.memory_allocated(d)
+    t0 = time.perf_counter()
+    cfg, learner, state = dist_learner(dev, seed, preset, capture, devices,
+                                       dtype)
+    build_s = time.perf_counter() - t0
+    k = cfg.learner.sample_chunk
+    init = {n: v.detach().cpu().clone()
+            for n, v in checkpoint_params(state).items()}
+    fg.gather_rows.by_device.clear()
+    fg.gather_rows.launches = 0       # count this learner's run only
+    snaps = []
+    with deterministic(), (no_tf32() if dtype == "float32"
+                           else contextlib.nullcontext()):
+        for i in range(CARDS_STEPS):
+            state, m = learner.train_step_k(state, k)
+            if i in (0, CARDS_STEPS - 1):
+                snaps.append(cards_snapshot(state, m))
+    torch.cuda.synchronize(dev)
+    out = {"snaps": snaps, "build_s": build_s, "init": init,
+           "launches": dict(fg.gather_rows.by_device)}
+    if capture and len(cards) > 1 and dtype is None:
+        graph = learner.step_graphs()[("k", k)]
+        out.update(captured=graph.captured, graphs=graph.graphs,
+                   gathers={str(o): n for o, n in graph.gathers.items()},
+                   layout=learner.layout(),
+                   exchange=learner.exchange.stats())
+        learner.__dict__.pop("_graphs")
+        del graph
+        gc.collect()
+        learner_step(learner, state, k)      # the eager warm-up
+        out["rate"] = learner_rate(learner, state, k, RATE_STEPS, True)
+        budgets = mesh_budgets(
+            cfg, (84, 84, 4), np.uint8,
+            {key: tuple(v.shape) for key, v in
+             checkpoint_params(state).items()}, learner.mesh)
+        out["memory"] = {
+            str(d): (torch.cuda.max_memory_allocated(d) - base[d],
+                     budgets[d].total) for d in cards}
+    del learner, state, m
+    gc.collect()
+    for d in cards:
+        torch.cuda.synchronize(d)
+    torch.cuda.empty_cache()
+    return out
+
+
+def checkpoint_params(state) -> dict:
+    from ape_x_dqn_tpu_torch.runtime.learner import checkpoint_tree
+
+    return checkpoint_tree(state)["params"]
+
+
+def cards_learners(dev, seed: int) -> dict:
+    """cards (a): both presets' learners alone on their dp=4 x tp=2 mesh
+    spread over the visible cards (`cards_devices`): the graphs against
+    the eager bodies, bitwise, after 1 and CARDS_STEPS macro-steps; the
+    learner against the stacked learner on this card (every shard here,
+    the layers whole) from the same state and noise, both in float32
+    without TF32, over the first macro-step (its four steps draw the
+    same samples from the same trees): Adam's first moment, the scalar
+    metrics and the params' change within CARDS_REL_TOL (`rel_change`);
+    grad-steps/s beside dist:'s; gather launches by
+    card; graphs per macro-step; each card's peak against its budget.
+    -> the gather launches of the graph runs."""
+    devices = cards_devices()
+    launches = 0
+    for preset in ("atari57_apex", "r2d2"):
+        t0 = time.perf_counter()
+        stacked = cards_run(dev, seed, preset, [dev] * 8, True, "float32")
+        exact = cards_run(dev, seed, preset, devices, True, "float32")
+        g = cards_run(dev, seed, preset, devices, True)
+        e = cards_run(dev, seed, preset, devices, False)
+        check(g["captured"], f"cards {preset}: the graph run did not "
+              f"capture")
+        for after, gs, es in zip((1, CARDS_STEPS), g["snaps"], e["snaps"]):
+            check(gs.keys() == es.keys(), f"cards {preset}: snapshot keys")
+            for name in gs:
+                check(torch.equal(gs[name], es[name]), f"cards {preset}: "
+                      f"{name} of the graphs != the eager bodies after "
+                      f"{after} macro-steps")
+
+        def params(snap):
+            return {n[len("params."):]: v for n, v in snap.items()
+                    if n.startswith("params.")}
+
+        def scalars(snap):
+            return {n: v for n, v in snap.items() if n.startswith("metric.")}
+
+        init = stacked["init"]
+        check(all(torch.equal(exact["init"][n], init[n]) for n in init),
+              f"cards {preset}: the two learners start apart")
+        def moments(snap):
+            return {n: v for n, v in snap.items() if n.startswith("opt.mu")}
+
+        mu = rel_change(moments(exact["snaps"][0]),
+                        moments(stacked["snaps"][0]))
+        first = rel_change(scalars(exact["snaps"][0]),
+                           scalars(stacked["snaps"][0]))
+        change = rel_change(params(exact["snaps"][0]),
+                            params(stacked["snaps"][0]), init)
+        later = rel_change(params(exact["snaps"][-1]),
+                           params(stacked["snaps"][-1]), init)
+        unchanged = rel_change(init, params(stacked["snaps"][0]), init)
+        check(max(mu, first, change) <= CARDS_REL_TOL,
+              f"cards {preset}: over the first macro-step, float32, Adam's "
+              f"first moment {mu:.3g}, the metrics {first:.3g} and the "
+              f"params' change {change:.3g} from the stacked learner's "
+              f"(tolerance {CARDS_REL_TOL})")
+        check(unchanged == 1.0, f"cards {preset}: the control scores "
+              f"{unchanged}")
+        per_draw = 1 if preset == "r2d2" else 2
+        owners = g["layout"]["rows_per_card"]
+        check(set(g["launches"]) == set(owners)
+              and all(n == CARDS_STEPS * per_draw
+                      for n in g["launches"].values()),
+              f"cards {preset}: gather launches by card {g['launches']}, "
+              f"expected {CARDS_STEPS * per_draw} on each owner {owners}")
+        for card, (peak, budget) in g["memory"].items():
+            check(peak <= budget, f"cards {preset}: card {card} peaked at "
+                  f"{peak / 1e9:.2f} GB above its budget "
+                  f"{budget / 1e9:.2f} GB")
+        launches += sum(g["launches"].values())
+        RATES[f"cards_{preset}"] = g["rate"]
+        mem = {c: f"{p / 1e9:.2f}/{b / 1e9:.2f}"
+               for c, (p, b) in g["memory"].items()}
+        log(f"cards: {preset} learner alone on dp=4 x tp=2 over "
+            f"{[str(d) for d in devices]}: layout "
+            f"{json.dumps(g['layout'])}; graph == eager bitwise (params, "
+            f"target, Adam, every group's trees and cursors, metrics) after "
+            f"1 and {CARDS_STEPS} K=4 macro-steps; vs the stacked learner "
+            f"on one card, float32 without TF32, relative distances over "
+            f"the first macro-step: Adam's first moment {mu:.3g}, the "
+            f"metrics {first:.3g}, the params' change {change:.3g} "
+            f"(tolerance {CARDS_REL_TOL}; a learner left unchanged scores "
+            f"{unchanged:.3g}); the params' change "
+            f"after {CARDS_STEPS} {later:.3g} (not held: from the second "
+            f"draw on, priorities that differ in their last bits move "
+            f"some samples); graphs "
+            f"per macro-step {g['graphs']}; gather "
+            f"launches by card {g['launches']} ({g['gathers']} a replay); "
+            f"exchange {json.dumps(g['exchange'])}; grad-steps/s graph="
+            f"{g['rate']:.2f} (host clock over {RATE_STEPS} macro-steps; "
+            f"dist: one card {RATES.get(f'dist_{preset}_graph', math.nan):.2f}"
+            f", this call); peak/budget GB by card {mem}; build "
+            f"{g['build_s']:.2f} s; {time.perf_counter() - t0:.2f} s; "
+            f"card {CARD}")
+    return {"gather_rows": launches}
+
+
+def cards_cli(seed: int, name: str, preset: str, dp: int, tp: int,
+              sets: tuple, frames: int, wall_s: float) -> dict:
+    """cards (b)/(c): the preset through the CLI (`--config preset --set
+    parallel.dp=.. --set parallel.tp=..`) on its default mesh, the
+    visible cards: a clean end, the summary's mesh block (each card's
+    peak above what it held before under its budget, graphs replayed,
+    the gather on every owner), publications. -> its launches."""
+    from ape_x_dqn_tpu_torch.ops import frame_gather as fg
+
+    cards = [torch.device(DEVICE, i)
+             for i in range(torch.cuda.device_count())]
+    base = {}
+    for d in cards:
+        torch.cuda.synchronize(d)
+        torch.cuda.reset_peak_memory_stats(d)
+        base[str(d)] = torch.cuda.memory_allocated(d)
+    argv = ["--config", preset, "--seed", str(seed), "--device", DEVICE,
+            "--total-env-frames", str(frames),
+            "--wall-clock-limit", str(wall_s),
+            "--set", f"parallel.dp={dp}", "--set", f"parallel.tp={tp}"]
+    for s_ in sets:
+        argv += ["--set", s_]
+    t0 = time.perf_counter()
+    with timed_parts() as (secs, starts):
+        fg.gather_rows.launches = 0   # count the main path's run only
+        fg.gather_rows.by_device.clear()
+        out, wall = run_cli(argv)
+    adds = secs["add"]
+    launches = fg.gather_rows.launches
+    mesh = out.get("mesh")
+    check(mesh is not None, f"{name}: the summary has no mesh block")
+    check(out["actor_errors"] == [] and out["loop_errors"] == [],
+          f"{name}: actor_errors {out['actor_errors']}, loop_errors "
+          f"{out['loop_errors']}")
+    check(out["grad_steps"] > 0, f"{name}: no grad-steps")
+    k = "k4"
+    check(mesh["step_graphs"].get(k, 0) > 0, f"{name}: no captured "
+          f"macro-step graphs: {mesh['step_graphs']}")
+    owners = set(mesh["rows_per_card"])
+    per_card = mesh["per_card"]
+    check(all(per_card[o]["gather_launches"] > 0 for o in owners),
+          f"{name}: the gather did not launch on every owner: {per_card}")
+    for card, c in per_card.items():
+        peak = c["peak_allocated_bytes"] - base[card]
+        check(peak <= c["budget_bytes"], f"{name}: card {card} peaked at "
+              f"{peak / 1e9:.2f} GB above its budget "
+              f"{c['budget_bytes'] / 1e9:.2f} GB")
+    if tp > 1:
+        check(mesh["split_layers"], f"{name}: tp={tp} split no layer")
+    fps = out["frames"] / wall
+    mem = {c: f"{(v['peak_allocated_bytes'] - base[c]) / 1e9:.2f}/"
+              f"{v['budget_bytes'] / 1e9:.2f}" for c, v in per_card.items()}
+    log(f"{name}: `{' '.join(argv)}` on the visible cards: frames="
+        f"{out['frames']} frames/s={fps:.1f} (one card, "
+        f"{'dist_apex' if 'apex' in name else 'dist_r2d2'}: "
+        f"{RATES.get('dist_apex' if 'apex' in name else 'dist_r2d2', math.nan):.1f}"
+        f"); grad_steps={out['grad_steps']}; layout cards {mesh['cards']}, "
+        f"rows {mesh['rows_per_card']}, tp partners {mesh['tp_partners']}, "
+        f"split {mesh['split_layers']}; graphs per call "
+        f"{mesh['step_graphs']}; exchange {json.dumps(mesh['exchange'])}; "
+        f"gather launches {launches} by card "
+        f"{ {c: v['gather_launches'] for c, v in per_card.items()} }; "
+        f"{adds_summary(adds, out)}; {parts_summary(secs, starts, t0, wall)}; "
+        f"dropped {out['ingest_dropped']}; "
+        f"peak/budget GB by card {mem}; {wall:.2f} s; card {CARD}")
+    RATES[name] = fps
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"gather_rows": launches}
+
+
+def cards_server(seed: int) -> None:
+    """cards (d): one batch of CARDS_SERVE_BATCH pong observations
+    through the single-policy server over a mesh of the visible cards
+    (the batch split over them, a replica of the params on each)
+    against the plain forward of the whole batch on card 0 (bf16,
+    1e-2)."""
+    from ape_x_dqn_tpu_torch.parallel.inference_server import (
+        BatchedInferenceServer)
+    from ape_x_dqn_tpu_torch.parallel.mesh import make_mesh
+
+    n = torch.cuda.device_count()
+    dev = torch.device(DEVICE, 0)
+    _, spec, apply, params = serve_net(dev)
+    mesh = make_mesh(dp=n, tp=1)
+    server = BatchedInferenceServer(apply, params[0],
+                                    max_batch=CARDS_SERVE_BATCH, mesh=mesh,
+                                    device=dev)
+    t0 = time.perf_counter()
+    try:
+        rng = np.random.default_rng(seed)
+        x = rng.integers(0, 255, (CARDS_SERVE_BATCH, *spec.obs_shape),
+                         dtype=np.uint8)
+        got = server.query_batch(x, CARDS_SERVE_BATCH)
+        with torch.inference_mode():
+            want = apply(params[0], torch.from_numpy(x).to(dev)).cpu()
+        err = float(np.abs(np.asarray(got) - want.numpy()).max())
+        check(np.asarray(got).shape == tuple(want.shape) and err <= 1e-2,
+              f"cards server: the split batch's q {err} from the one-card "
+              f"forward")
+    finally:
+        server.stop()
+    log(f"cards: server over {[str(d) for d in mesh.cards]}: one batch of "
+        f"{CARDS_SERVE_BATCH} pong observations split {mesh.size} ways, "
+        f"max |q - one-card q| {err:.3g} (bf16, tolerance 1e-2); "
+        f"{time.perf_counter() - t0:.2f} s; card {CARD}")
+
+
+def cards_sites(seed: int) -> list[dict]:
+    """The gather at the per-card shapes of the CLI runs over the cards,
+    timed on the last card (the launcher's per-card set-up): one side
+    of atari57_apex's K=4 x 512 draw at dp = the cards (one shard of
+    524,288 transitions a card, 8192 / cards frame rows), and r2d2's at
+    dp = cards / 2 (one shard of 65,536 / dp sequences on each owner,
+    256 / dp rows)."""
+    from ape_x_dqn_tpu_torch.configs import get_config
+    from ape_x_dqn_tpu_torch.replay.packing import PixelPacker
+    from ape_x_dqn_tpu_torch.replay.sequence import sequence_item_spec
+    from ape_x_dqn_tpu_torch.runtime.build import build_prioritized_replay
+    from ape_x_dqn_tpu_torch.utils.misc import next_pow2
+
+    n = torch.cuda.device_count()
+    last = torch.device("cuda", n - 1)
+    a57 = get_config("atari57_apex")
+    shard = build_prioritized_replay(
+        a57, pong_setup(last)[1], next_pow2(a57.replay.capacity // n), last)
+    kb = a57.learner.sample_chunk * a57.learner.batch_size
+    r2 = get_config("r2d2")
+    spec = sequence_item_spec((84, 84, 4), np.uint8, r2.replay.seq_length,
+                              r2.network.lstm_size, frame_mode=True)
+    seq_row = PixelPacker(spec).storage_spec(spec)["seq_frames"].shape[0]
+    r2_dp = max(n // 2, 1)
+    seq_m = r2.learner.sample_chunk * r2.learner.batch_size
+    with torch.cuda.device(last):
+        return [kernel_site(last, seed, "cards_frame_ring",
+                            shard.S * shard.F, shard.frame_row,
+                            kb * shard.stack // n),
+                kernel_site(last, seed, "cards_sequence",
+                            next_pow2(r2.replay.capacity // r2_dp), seq_row,
+                            seq_m // r2_dp)]
+
+
+def phase_cards(dev, seed: int) -> dict | None:
+    """The one-process mesh over distinct cards, where two or more are
+    visible: (a) `cards_learners`; (b) atari57_apex through the CLI
+    with dp = the cards, tp=1 (dp over the cards); (c) r2d2 through
+    the CLI with dp = cards / 2, tp=2 (tp across the cards, through
+    the LSTM), both cut as CARDS_* say; (d) `cards_server`;
+    and the gather at the per-card shapes (`cards_sites`). On one card:
+    skipped, None."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"cards: skipped ({n} card visible)")
+        return None
+    t0 = time.perf_counter()
+    out = {"learners": cards_learners(dev, seed)}
+    log(f"cards (a): {time.perf_counter() - t0:.2f} s")
+    out["cards_apex"] = cards_cli(seed, "cards_apex", "atari57_apex", n, 1,
+                                  CARDS_APEX_SETS, CARDS_APEX_FRAMES,
+                                  CARDS_APEX_WALL_S)
+    out["cards_r2d2"] = cards_cli(seed, "cards_r2d2", "r2d2",
+                                  max(n // 2, 1), 2, DIST_R2D2_SETS,
+                                  CARDS_R2D2_FRAMES, CARDS_R2D2_WALL_S)
+    cards_server(seed)
+    out["sites"] = cards_sites(seed)
+    log(f"cards: {time.perf_counter() - t0:.2f} s")
+    return out
+
+
 def memory_table() -> list[str]:
     """The HBM budget of each preset's run beside its measured peak and
     the card's memory; the transient the budget must cover (the peak
@@ -3770,9 +4302,45 @@ def memory_table() -> list[str]:
     return lines
 
 
+def cards_only(dev, seed: int) -> int:
+    """`--cards-only`, on two or more cards: atari57_apex through
+    ApexDriver on its dp=4 x tp=2 mesh of card 0 at cards_apex's depth
+    (`dist_driver` with CARDS_APEX_SETS and CARDS_APEX_FRAMES), then the
+    cards phase, so that the one-card and the over-cards rates and
+    windows come from one call. Prints no contract line. -> 0 when
+    every check passed."""
+    n = torch.cuda.device_count()
+    if n < 2:
+        log(f"cards-only: needs two cards or more, {n} visible")
+        return 1
+    failed = []
+    t0 = time.perf_counter()
+    try:
+        dist_driver(seed, "atari57_apex", CARDS_APEX_SETS,
+                    CARDS_APEX_FRAMES, CARDS_APEX_WALL_S, "dist_apex")
+    except Exception as e:    # reported, and the exit code says so
+        failed.append(f"dist_apex: {e!r}")
+    log(f"dist_apex (one card, cards_apex's depth): "
+        f"{time.perf_counter() - t0:.2f} s")
+    try:
+        out = phase_cards(dev, seed)
+        log("cards sites: " + json.dumps(out["sites"]))
+        log("cards launches: " + json.dumps(
+            {k: v["gather_rows"] for k, v in out.items() if k != "sites"}))
+    except Exception as e:
+        failed.append(f"cards: {e!r}")
+    log(f"cards-only: {'FAILED ' + '; '.join(failed) if failed else 'passed'}"
+        f" in {time.perf_counter() - t0:.2f} s; card {CARD}")
+    return 1 if failed else 0
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--cards-only", action="store_true",
+                    help="on two or more cards: dist_apex at cards_apex's "
+                         "depth and the cards phase only (`cards_only`); "
+                         "no contract line")
     args = ap.parse_args()
 
     # 1. device
@@ -3791,6 +4359,8 @@ def main() -> int:
     from ape_x_dqn_tpu_torch.ops import frame_gather as fg
     build_s = fg.build()
     log(f"build: frame_gather.cu with nvcc for sm_90a in {build_s:.2f} s")
+    if args.cards_only:
+        return cards_only(dev, args.seed)
 
     # 3. kernel vs plain at every call site's shape (four sites)
     sites = phase_kernel(dev, args.seed)
@@ -3869,6 +4439,8 @@ def main() -> int:
     mh["mh_nccl"] = phase_mh_nccl(args.seed,
                                   mh["mh_r2d2"]["bytes_per_step"])
     log(f"mh_nccl: {time.perf_counter() - t0:.2f} s")
+    # 22. the one-process mesh over distinct cards (two or more visible)
+    cards = phase_cards(dev, args.seed)
     for line in memory_table():
         log(line)
 
@@ -3881,6 +4453,14 @@ def main() -> int:
     sites[4]["launches"] = dist_apex["gather_rows"]
     sites[5]["launches"] = dist_r2d2["gather_rows"]
     sites[6]["launches"] = mh["mh_apex"]["gather_rows"]
+    by_path = {}
+    if cards is not None:
+        cards["sites"][0]["launches"] = cards["cards_apex"]["gather_rows"]
+        cards["sites"][1]["launches"] = cards["cards_r2d2"]["gather_rows"]
+        sites += cards["sites"]
+        by_path = {k: cards[k]["gather_rows"]
+                   for k in ("learners", "cards_apex", "cards_r2d2")}
+        by_path["cards_learners"] = by_path.pop("learners")
     for site in sites:
         check(site["launches"] > 0, f"gather_rows never launched on the "
               f"{site['site']} path")
@@ -3910,7 +4490,8 @@ def main() -> int:
                                  "legacy": legacy["gather_rows"],
                                  "dist_cold": dist_cold["gather_rows"],
                                  **{k: v["gather_rows"]
-                                    for k, v in mh.items()}},
+                                    for k, v in mh.items()},
+                                 **by_path},
             "max_abs_err": max(s_["max_abs_err"] for s_ in sites),
             "ms": top["ms"], "plain_ms": top["plain_ms"],
             "bound_ms": top["bound_ms"], "bound_by": "bytes",

@@ -205,10 +205,12 @@ def test_counters_survive_thread_contention():
 
 def test_driver_refuses_what_is_not_ported():
     """What the original builds, the port builds: a dp=2 mesh (on the
-    CPU repeated) gives the dp-sharded learner, ingest_zero_copy=False
-    the legacy staging path, and the profiler capture and the
-    remediation plane (items 17 and 19) build. Only a mesh over more
-    than one DISTINCT device still waits, naming ROADMAP item 6."""
+    CPU repeated) gives the dp-sharded learner, a dp=2 mesh over two
+    distinct devices its card groups (parallel/cards.py),
+    ingest_zero_copy=False the legacy staging path, and the profiler
+    capture and the remediation plane (items 17 and 19) build. Over
+    distinct devices, the cold tier and legacy staging still wait,
+    naming ROADMAP item 6."""
     base = _tiny_cfg()
     dist = ApexDriver(base.replace(parallel=ParallelConfig(dp=2, tp=1)),
                       device="cpu", mesh_devices=["cpu", "cpu"])
@@ -217,11 +219,21 @@ def test_driver_refuses_what_is_not_ported():
         kind="prioritized", capacity=2048, ingest_zero_copy=False)),
         device="cpu")
     assert legacy._stager is None and not legacy.is_dist
-    for d in (dist, legacy):
+    cards = ApexDriver(base.replace(parallel=ParallelConfig(dp=2, tp=1)),
+                       device="cpu", mesh_devices=["cpu:0", "cpu:1"])
+    assert cards.cards and len(cards.learner.groups) == 2
+    assert [st.replay.tree.shape[0] for st in cards.state.groups] == [1, 1]
+    for d in (dist, legacy, cards):
         d.server.stop()
-    with pytest.raises(NotImplementedError, match="item 6\\b"):
-        ApexDriver(base.replace(parallel=ParallelConfig(dp=2, tp=1)),
-                   device="cpu", mesh_devices=["cpu", "cuda:0"])
+    two = base.replace(parallel=ParallelConfig(dp=2, tp=1))
+    for cfg in (two.replace(replay=ReplayConfig(
+                    kind="prioritized", capacity=2048,
+                    ingest_zero_copy=False)),
+                two.replace(replay=ReplayConfig(
+                    kind="prioritized", capacity=2048,
+                    cold_tier_capacity=1024))):
+        with pytest.raises(NotImplementedError, match="item 6\\b"):
+            ApexDriver(cfg, device="cpu", mesh_devices=["cpu:0", "cpu:1"])
     for cfg in (base.replace(profile_dir="prof"),
                 base.replace(remediation=type(base.remediation)(
                     mode="observe"))):

@@ -215,8 +215,10 @@ def test_pow2_buckets_cover_every_request_size():
 def test_server_refuses_a_mesh_and_a_missing_card():
     """A mesh is the original's sharded mode (buckets in multiples of
     the mesh size, on the mesh's device; tests/test_torch_parallel.py
-    serves through it); a mesh over distinct devices still waits for
-    item 6; a CUDA server without a card raises."""
+    serves through it); a mesh over distinct devices splits each batch
+    over them (tests/test_torch_driver_cards.py holds the replies); a
+    mesh over devices of two types raises; a CUDA server without a card
+    raises."""
     from ape_x_dqn_tpu_torch.parallel.mesh import make_mesh
     server = BatchedInferenceServer(
         lambda p, o: o, None,
@@ -226,7 +228,17 @@ def test_server_refuses_a_mesh_and_a_missing_card():
         assert [server._bucket(n) for n in (1, 6, 7, 13)] == [6, 12, 12, 18]
     finally:
         server.stop()
-    with pytest.raises(NotImplementedError, match="item 6\\b"):
+    split = BatchedInferenceServer(
+        lambda p, o: o * p, 2.0,
+        mesh=make_mesh(dp=2, tp=1, devices=["cpu:0", "cpu:1"]),
+        device="cuda")
+    try:
+        assert split._split is not None and split._bucket(3) == 4
+        x = np.arange(6, dtype=np.float32).reshape(3, 2)
+        np.testing.assert_array_equal(split.query_batch(x, 3), 2 * x)
+    finally:
+        split.stop()
+    with pytest.raises(ValueError, match="one type"):
         make_mesh(dp=2, tp=1, devices=["cpu", "cuda:0"])
     if not torch.cuda.is_available():
         with pytest.raises(RuntimeError, match="CUDA is not available"):

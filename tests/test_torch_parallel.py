@@ -97,8 +97,13 @@ def test_mesh_construction():
     with pytest.raises(AssertionError, match=r"dp\(3\) \* tp\(3\) > "
                                              r"device count \(8\)"):
         make_mesh(dp=3, tp=3, devices=["cpu"] * 8)
-    # more than one DISTINCT device waits for per-card placement
-    with pytest.raises(NotImplementedError, match="item 6\\b"):
+    # distinct devices build a mesh of card groups (parallel/cards.py;
+    # tests/test_torch_mesh_cards.py), one device repeated stays one
+    cards = make_mesh(dp=2, tp=1, devices=["cpu:0", "cpu:1"])
+    assert cards.distinct and [g.rows for g in cards.groups] == [(0,), (1,)]
+    assert not mesh.distinct and len(mesh.groups) == 1
+    # devices of two types still raise
+    with pytest.raises(ValueError, match="one type"):
         make_mesh(dp=2, tp=1, devices=["cpu", "cuda:0"])
     if not torch.cuda.is_available():
         # the default device list is the visible cards: none here
