@@ -71,14 +71,37 @@ _CPU_PEAK_BW = 40e9
 def device_peaks(device=None) -> tuple[float, float]:
     """(peak FLOP/s, peak HBM bytes/s) of the card (`device`, default
     the current one) by ``torch.cuda.get_device_name``; the CPU proxy
-    without a card."""
-    if torch.cuda.is_available():
+    without a card, or for a CPU `device`."""
+    cpu = device is not None and torch.device(device).type != "cuda"
+    if torch.cuda.is_available() and not cpu:
         name = torch.cuda.get_device_name(device)
         for prefix, flops, bw in _PEAKS:
             if name.lower().startswith(prefix.lower()):
                 return flops, bw
     cores = os.cpu_count() or 1
     return cores * _CPU_PEAK_FLOPS_PER_CORE, _CPU_PEAK_BW
+
+
+def train_step_flops_analytic(batch_size: int, num_actions: int = 18,
+                              dense: int = 512) -> float:
+    """Analytic FLOP/step of the flagship dueling Nature-CNN train step
+    (models/qnets.py shapes: 84x84x4 -> conv 32x8s4 -> 64x4s2 -> 64x3s1
+    -> dense 512 -> dueling heads), the count of the original's bench
+    (``bench.py: train_step_flops_analytic``): the double-DQN loss runs
+    the online net on obs with its gradient (~3x a forward), the online
+    net on next_obs and the target net on next_obs (1x each), so 5x one
+    forward's MACs, 2 FLOPs per MAC. Elementwise, optimizer and replay
+    work is left out (bandwidth-, not FLOP-bound). The MFU numerator of
+    utils/batch_study.py."""
+    convs = [  # (out_h, out_w, c_out, k, c_in)
+        (20, 20, 32, 8, 4),
+        (9, 9, 64, 4, 32),
+        (7, 7, 64, 3, 64),
+    ]
+    macs = sum(h * w * co * k * k * ci for h, w, co, k, ci in convs)
+    macs += 7 * 7 * 64 * dense            # torso dense
+    macs += dense * (num_actions + 1)     # dueling heads
+    return 2.0 * macs * batch_size * 5.0
 
 
 # -- analytic cost -----------------------------------------------------------

@@ -24,7 +24,26 @@ owner):
   first card and sliced per group (as `process_rows` slices it per
   rank), so the draws are the stacked learner's;
 - ingest (`land_add`, `add_landed`, `add`) splits each
-  [.., dp, chunk] block by rows and adds per group.
+  [.., dp, chunk] block by rows and adds per group; the legacy path's
+  eager `add` takes the block on the host and moves each group's rows
+  straight to its owner;
+- the cold tier's eviction swap (`evict_landed`, `land_add_at`,
+  `add_at_landed`) runs per group: each plans, reads and overwrites
+  its own rows' regions on its owner, one evict graph and one add_at
+  graph per group on the card, and the [dp] starts, regions and
+  priorities come back per group, which the driver reads into global
+  row order (runtime/driver.py: `_fetch_region`).
+
+Across processes (the multi-host learner over a rank that holds several
+cards, runtime/multihost_driver.py): the learner holds the rank's rows
+[row_start, row_start + mesh.dp) of the global dp, and its exchange has
+two levels (`CardExchange(cross=...)`): the in-process all-gather over
+the rank's owners, then the group's cross-rank `GradExchange`
+(parallel/multihost.py) from the rank's first owner, then the global
+[groups, L] result goes to the rank's other owners (NCCL's broadcast on
+the card, copies on the CPU). Every owner of every rank then holds the
+same vectors in global group order (rank-major), which is the
+arithmetic of the one-process learner over all ranks' cards.
 
 The exchange. On the card it is one ``torch.cuda.nccl.all_gather`` over
 one tensor and one stream per owner (torch's binding of NCCL, made with
@@ -52,9 +71,6 @@ params, the target and Adam's moments are saved whole (the pieces
 joined), the replay stacked [dp, ...] in row order, exactly as the
 stacked learner saves them; a restore copies them into the pieces in
 place (the graphs hold the addresses).
-
-The cold tier and legacy staging over distinct cards are not ported
-(ROADMAP Queue A item 6): the driver raises for them.
 """
 
 from __future__ import annotations
@@ -86,15 +102,24 @@ class CardExchange:
     (parallel/multihost.py) for a call that takes every group's vector
     at once: `nproc` (the groups), `count`, `stats`, `capturable`
     (False: the call runs between graphs, runtime/step_graph.py:
-    `CardsStep`)."""
+    `CardsStep`).
+
+    `cross`: a rank's `GradExchange` across processes (module
+    docstring). The local groups' [local, L] all-gather lands on the
+    first owner, goes through `cross` as one [local * L] vector, and the
+    [ranks * local, L] result is broadcast to the other owners; `nproc`
+    is then every rank's groups."""
 
     capturable = False
 
-    def __init__(self, devices: list[torch.device]):
+    def __init__(self, devices: list[torch.device], cross=None):
         self.devices = [torch.device(d) for d in devices]
-        self.nproc = len(self.devices)
+        self.local = len(self.devices)
+        self.cross = cross
+        self.nproc = self.local * (cross.nproc if cross is not None else 1)
         cuda = self.devices[0].type == "cuda"
-        self.mode = "nccl" if cuda and self.nproc > 1 else "copy"
+        self.mode = "nccl" if cuda and self.local > 1 else "copy"
+        self._stage: list[torch.Tensor] = []   # the local [local, L]
         self.reset()
         if self.mode == "nccl":
             self._make_communicator()
@@ -109,9 +134,11 @@ class CardExchange:
                 f"the exchange over {[str(d) for d in self.devices]} "
                 f"needs NCCL, which this torch build lacks; not falling "
                 f"back to host copies")
-        outs = [torch.empty(self.nproc, device=d) for d in self.devices]
+        outs = [torch.empty(self.local, device=d) for d in self.devices]
         try:
             nccl.all_gather(xs, outs)
+            if self.cross is not None:
+                nccl.broadcast(outs, root=0)
             for d in self.devices:
                 torch.cuda.synchronize(d)
         except RuntimeError as e:
@@ -120,6 +147,32 @@ class CardExchange:
                                f"{e}; not falling back to host copies"
                                ) from e
 
+    def _streams(self, xs: list[torch.Tensor]) -> list:
+        return [torch.cuda.current_stream(x.device) for x in xs]
+
+    def _gather(self, sends: list[torch.Tensor],
+                outs: list[torch.Tensor]) -> None:
+        """The local groups' vectors -> [local, L] on every owner."""
+        if self.mode == "nccl":
+            from torch.cuda import nccl
+
+            nccl.all_gather(sends, [o.view(-1) for o in outs],
+                            streams=self._streams(sends))
+            return
+        for out in outs:
+            for i, s in enumerate(sends):
+                out[i].copy_(s)
+
+    def _broadcast(self, outs: list[torch.Tensor]) -> None:
+        """The first owner's result -> every other owner's."""
+        if self.mode == "nccl":
+            from torch.cuda import nccl
+
+            nccl.broadcast(outs, root=0, streams=self._streams(outs))
+            return
+        for out in outs[1:]:
+            out.copy_(outs[0])
+
     def __call__(self, sends: list[torch.Tensor],
                  outs: list[torch.Tensor] | None = None
                  ) -> list[torch.Tensor]:
@@ -127,17 +180,18 @@ class CardExchange:
         if outs is None:
             outs = [torch.empty((self.nproc, n), dtype=torch.float32,
                                 device=s.device) for s in sends]
-        if self.mode == "nccl":
-            from torch.cuda import nccl
-
-            nccl.all_gather(
-                sends, [o.view(-1) for o in outs],
-                streams=[torch.cuda.current_stream(s.device)
-                         for s in sends])
+        if self.cross is None:
+            self._gather(sends, outs)
         else:
-            for out in outs:
-                for i, s in enumerate(sends):
-                    out[i].copy_(s)
+            if not self._stage or self._stage[0].shape[1] != n:
+                self._stage = [torch.empty((self.local, n),
+                                           dtype=torch.float32, device=d)
+                               for d in self.devices]
+            self._gather(sends, self._stage)
+            # rank-major: rank r's groups fill rows [r * local, ...)
+            self.cross(self._stage[0].view(-1),
+                       outs[0].view(self.cross.nproc, self.local * n))
+            self._broadcast(outs)
         self.count([n])
         return outs
 
@@ -149,13 +203,18 @@ class CardExchange:
 
     def reset(self) -> None:
         self.calls = self.bytes_sent = self.bytes_received = 0
+        if self.cross is not None:
+            self.cross.reset()
 
     def stats(self) -> dict:
-        return {"calls": self.calls, "bytes_sent": self.bytes_sent,
-                "bytes_received": self.bytes_received,
-                "groups": self.nproc, "backend": self.mode,
-                "per": "group and call: bytes_sent is one group's vector, "
-                       "bytes_received the [groups, L] it gets back"}
+        out = {"calls": self.calls, "bytes_sent": self.bytes_sent,
+               "bytes_received": self.bytes_received,
+               "groups": self.nproc, "backend": self.mode,
+               "per": "group and call: bytes_sent is one group's vector, "
+                      "bytes_received the [groups, L] it gets back"}
+        if self.cross is not None:
+            out.update(local_groups=self.local, cross=self.cross.stats())
+        return out
 
 
 @dataclass
@@ -274,13 +333,17 @@ class CardsLearner(SingleChipLearner):
     `make_learner(replay, mesh, exchange, rows)` builds one group's
     `DistDQNLearner` or `DistSequenceLearner`; `make_replay(device)` its
     per-shard replay on its owner. `min_dim`: the smallest dimension
-    the tp split divides (parallel/sharding.py)."""
+    the tp split divides (parallel/sharding.py). `cross`: a multi-host
+    rank's `GradExchange`, whose rows start at `row_start` of the
+    global dp (the mesh's dp times the ranks; module docstring)."""
 
     def __init__(self, make_learner: Callable, make_replay: Callable,
-                 lcfg, mesh: Mesh, min_dim: int = 256):
+                 lcfg, mesh: Mesh, min_dim: int = 256, cross=None,
+                 row_start: int = 0):
         self.mesh = mesh
         self.lcfg = lcfg
-        self.dp = mesh.dp
+        self.dp = mesh.dp * (cross.nproc if cross is not None else 1)
+        self.row_start = row_start
         self.min_dim = min_dim
         self.groups: list[CardGroup] = mesh.groups
         sizes = {len(g.rows) for g in self.groups}
@@ -288,11 +351,12 @@ class CardsLearner(SingleChipLearner):
             raise NotImplementedError(
                 f"the card groups hold {sorted(sizes)} rows: the "
                 f"exchange's arithmetic needs as many on every owner")
-        self.exchange = CardExchange([g.owner for g in self.groups])
+        self.exchange = CardExchange([g.owner for g in self.groups],
+                                     cross=cross)
         self.learners = [
             make_learner(make_replay(g.owner),
                          Mesh([list(g.tp_devices)] * len(g.rows)),
-                         self.exchange, list(g.rows))
+                         self.exchange, self._global_rows(g))
             for g in self.groups]
         self.replay = self.learners[0].replay
         self.b_local = lcfg.batch_size // self.dp
@@ -364,6 +428,10 @@ class CardsLearner(SingleChipLearner):
         for s in streams.values():
             cur.wait_stream(s)
 
+    def _global_rows(self, group: CardGroup) -> list[int]:
+        """The group's rows in the global dp (this rank's offset)."""
+        return [self.row_start + r for r in group.rows]
+
     def _each(self, fn: Callable) -> list:
         """fn(i, group, learner) for every group, with its owner the
         current device."""
@@ -382,12 +450,13 @@ class CardsLearner(SingleChipLearner):
 
     def _noises(self, state: CardsTrainState, n: int,
                 noise: torch.Tensor | None) -> list[torch.Tensor]:
-        """The full [dp, n] draw (or the fed one), sliced per group onto
-        its owner."""
+        """The full [dp, n] draw of the global dp (or the fed one),
+        sliced per group onto its owner."""
         if noise is None:
             noise = torch.rand((self.dp, n), generator=state.generator,
                                device=self.mesh.device)
-        return [noise[list(g.rows)].to(g.owner) for g in self.groups]
+        return [noise[self._global_rows(g)].to(g.owner)
+                for g in self.groups]
 
     def _metrics(self, outs: list[dict]) -> dict:
         """Group 0's metrics (the loss, the means and the gradient are
@@ -471,10 +540,23 @@ class CardsLearner(SingleChipLearner):
             return x.narrow(axis, rows[0], len(rows))
         return x.index_select(axis, torch.tensor(rows, device=x.device))
 
+    def _group_views(self, views: dict, lead: tuple, axis: int,
+                     group: CardGroup) -> tuple[dict, tuple]:
+        """The group's rows of staged views {key: [prod(lead), ...]}
+        whose lead axis `axis` is the dp -> (its views, its lead)."""
+        sub_lead = lead[:axis] + (len(group.rows),) + lead[axis + 1:]
+        sub = {}
+        for k, v in views.items():
+            x = self._rows(v.reshape(lead + tuple(v.shape[1:])), axis,
+                           group.rows)
+            sub[k] = x.reshape(-1, *v.shape[1:])
+        return sub, sub_lead
+
     def add(self, state: CardsTrainState, items: Any,
             td_abs: torch.Tensor) -> CardsTrainState:
-        """items {key: [dp, B, ...]}, td_abs [dp, B]: each group adds
-        its rows (eagerly)."""
+        """items {key: [dp, B, ...]}, td_abs [dp, B], on the host or on
+        any card: each group adds its rows (eagerly), moved from where
+        they lie straight to its owner."""
         with self.on_cards():
             self._each(lambda i, g, lrn: lrn.add(
                 state.groups[i],
@@ -489,13 +571,8 @@ class CardsLearner(SingleChipLearner):
         axis = 1 if g > 1 else 0
 
         def one(i, group, lrn):
-            sub_lead = lead[:axis] + (len(group.rows),) + lead[axis + 1:]
-            sub = {}
-            for k, v in views.items():
-                x = self._rows(v.reshape(lead + tuple(v.shape[1:])), axis,
-                               group.rows)
-                sub[k] = x.reshape(-1, *v.shape[1:])
-            return lrn.land_add(g, sub, sub_lead)
+            return lrn.land_add(g, *self._group_views(views, lead, axis,
+                                                      group))
 
         with self.on_cards():
             return self._each(one)
@@ -507,9 +584,60 @@ class CardsLearner(SingleChipLearner):
                 state.groups[i], g, inputs[i]))
         return state
 
+    def release_graphs(self) -> None:
+        """Drop the step graphs, and every group's (the multi-host
+        driver's `close`)."""
+        super().release_graphs()
+        for lrn in self.learners:
+            lrn.release_graphs()
+
     def add_graphs(self) -> dict:
         """Group 0's add graphs (every group replays its own alike)."""
         return self.learners[0].add_graphs()
+
+    # -- the cold tier's eviction swap ---------------------------------------
+
+    def land_add_at(self, views: dict, lead: tuple) -> list:
+        """`GraphedEndpoints.land_add_at` per group: each takes its rows
+        of the [dp, block] block (`lead`) into its add_at graph's static
+        inputs on its owner."""
+        def one(i, group, lrn):
+            return lrn.land_add_at(*self._group_views(views, lead, 0,
+                                                      group))
+
+        with self.on_cards():
+            return self._each(one)
+
+    def evict_landed(self, state: CardsTrainState, block: int) -> list:
+        """Each group's eviction plan and read of `block` units on its
+        owner (one evict graph replay per group on the card): -> per
+        group (start [dp_c], items [dp_c, block, ...], priorities), the
+        evict graphs' static outputs, which their next replays
+        overwrite."""
+        with self.on_cards():
+            return self._each(lambda i, g, lrn: lrn.evict_landed(
+                state.groups[i], block))
+
+    def add_at_landed(self, state: CardsTrainState, inputs: list,
+                      start: list, start_host) -> CardsTrainState:
+        """Each group's directed add at its device starts (`start`, one
+        evict result per group), its host cursor following from its
+        rows of `start_host` ([dp] in row order)."""
+        start_host = np.asarray(start_host)
+        with self.on_cards():
+            self._each(lambda i, g, lrn: lrn.add_at_landed(
+                state.groups[i], inputs[i], start[i],
+                start_host[list(g.rows)]))
+        return state
+
+    def swap_graphs(self) -> dict:
+        """Group 0's swap graphs (every group replays its own alike)."""
+        return self.learners[0].swap_graphs()
+
+    def swap_graphs_by_card(self) -> dict:
+        """{owner: {"evict": EvictGraph, "add_at": AddGraph}}."""
+        return {str(g.owner): lrn.swap_graphs()
+                for g, lrn in zip(self.groups, self.learners)}
 
     # -- publication and observability ------------------------------------------
 
@@ -529,7 +657,7 @@ class CardsLearner(SingleChipLearner):
                for lrn, st in zip(self.learners, state.groups)]
         out: dict = {}
         for key in ("sizes", "live", "fill", "tree_mass"):
-            vals = [None] * self.dp
+            vals = [None] * self.mesh.dp
             for st, g in zip(per, self.groups):
                 for r, v in zip(g.rows, st[key]):
                     vals[r] = v

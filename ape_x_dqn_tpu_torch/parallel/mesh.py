@@ -40,8 +40,10 @@ mesh positions, the flattened (dp, tp) grid, as the inference servers
 split a batch; the rows of one device grouped).
 
 Across processes (the multi-host learner, runtime/multihost_driver.py)
-each process holds its own dp rows on its one card; a rank whose mesh
-covers several cards is not ported (ROADMAP Queue A item 6).
+each process holds its own dp rows, on its one card (the card
+repeated), or over its several cards (`rank_mesh`): then its rows form
+a mesh of distinct cards, as a one-process mesh over the visible cards
+does, and a row's tp partners are always cards of that rank.
 """
 
 from __future__ import annotations
@@ -158,6 +160,31 @@ def make_mesh(dp: int | None = None, tp: int = 1,
         raise ValueError(f"a mesh holds devices of one type, got {types} "
                          f"({[str(d) for d in used]})")
     return Mesh([used[d * tp:(d + 1) * tp] for d in range(dp)])
+
+
+def rank_mesh(dp: int, tp: int, cards: list) -> Mesh:
+    """A multi-host rank's dp x tp rows (its `process_rows`) over its
+    `cards`, laid out as `make_mesh` lays a one-process mesh over the
+    visible cards, the card list repeated to dp * tp positions: one
+    card holds every position (the card repeated). Over several cards,
+    tp must divide the rank's card count, so that a row's tp partners
+    are cards of this rank (the original asserts that tp divides the
+    local device count), and the positions must cover every card alike;
+    else ValueError."""
+    cards = [torch.device(c) for c in cards]
+    n, positions = len(cards), dp * tp
+    if n > 1:
+        if n % tp:
+            raise ValueError(
+                f"tp={tp} must divide this rank's {n} cards "
+                f"({[str(c) for c in cards]}): a row's tp partners are "
+                f"cards of one rank")
+        if positions % n:
+            raise ValueError(
+                f"this rank's {dp} x {tp} mesh positions do not cover its "
+                f"{n} cards alike ({[str(c) for c in cards]})")
+    return make_mesh(dp=dp, tp=tp, devices=cards * (positions // n)
+                     if n > 1 else cards * positions)
 
 
 class Replicated:

@@ -8,7 +8,9 @@ collectives (the gradient psum, the publication all-gather) into those
 programs, on the device. Here every learner process joins a
 ``torch.distributed`` process group (`init_multihost`), holds its own
 contiguous dp rows (`process_rows`) as a process-local mesh of its own
-card, and makes the cross-process steps explicit:
+card (or, given a list of cards, its rows over them as a mesh of its
+own: `local_devices`, parallel/mesh.py: `rank_mesh`), and makes the
+cross-process steps explicit:
 
 - `global_stats`: ONE collective per round of the host-local control
   scalars (ingest readiness, idleness, frame counts). Every
@@ -32,9 +34,11 @@ build) the group is gloo. The host collectives above all run over CPU
 int64 tensors, so through gloo, whatever the placement.
 
 The exchange has one mode for the whole group (`agreed_exchange_mode`,
-one collective over every rank's count of processes on its card):
+one collective over every rank's count of processes on its card; for a
+rank over several cards, the most on any of them,
+`processes_on_devices`):
 
-- ``"nccl"`` when EVERY rank runs on a card it has to itself: one
+- ``"nccl"`` when EVERY rank runs on cards it has to itself: one
   ``all_gather_into_tensor`` from the caller's device tensor into its
   device output, on the caller's stream, with no host buffer and no
   host wait. A CUDA graph can hold it (`GradExchange.capturable`), so
@@ -72,12 +76,18 @@ import torch.distributed as dist
 TIMEOUT = datetime.timedelta(seconds=600)
 # the exchange's modes (module docstring)
 MODES = ("gloo", "nccl")
+# the most cards one rank may hold (`processes_on_devices` gathers this
+# many digests from every rank)
+MAX_LOCAL_CARDS = 16
+
 
 def group_backend(device: str | torch.device) -> str:
     """The backend `init_multihost` joins with for a process that runs
-    on `device`: gloo for CPU tensors and NCCL for CUDA tensors when
-    `device` is a card of a CUDA build with NCCL, else gloo alone."""
-    if torch.device(device).type == "cuda" and torch.cuda.is_available() \
+    on `device` (or on a comma-separated list of cards, by its first):
+    gloo for CPU tensors and NCCL for CUDA tensors when it is a card of
+    a CUDA build with NCCL, else gloo alone."""
+    first = torch.device(str(device).split(",")[0].strip())
+    if first.type == "cuda" and torch.cuda.is_available() \
             and dist.is_nccl_available():
         return "cpu:gloo,cuda:nccl"
     return "gloo"
@@ -110,13 +120,38 @@ def process_rows(dp: int) -> tuple[int, int]:
     """[start, stop) of the global mesh's `dp` rows that this process
     owns: contiguous, rank-ordered. The port's mesh is process-local
     (parallel/mesh.py: this process's dp_local x tp rows on its own
-    card), so the global row count comes from the config."""
+    card, or over its cards: `rank_mesh`, which refuses a row whose tp
+    partners would straddle ranks), so the global row count comes from
+    the config."""
     nproc = process_count()
     rows_per_proc = dp // nproc
     assert rows_per_proc * nproc == dp, \
         f"dp={dp} must divide by process count {nproc}"
     start = process_index() * rows_per_proc
     return start, start + rows_per_proc
+
+
+def local_devices(device: str | torch.device) -> list[torch.device]:
+    """The cards this process runs on: `device`, or a comma-separated
+    list of this rank's cards (``"cuda:0,cuda:1"``; ``"cpu:0,cpu:1"`` on
+    the CPU). One entry is `local_device` (a bare ``cuda`` is card rank
+    % the visible cards); in a list every entry names its own index, of
+    one type, each once, else ValueError."""
+    parts = [p.strip() for p in str(device).split(",") if p.strip()]
+    if len(parts) <= 1:
+        return [local_device(parts[0] if parts else device)]
+    devs = [torch.device(p) for p in parts]
+    if len({d.type for d in devs}) > 1:
+        raise ValueError(f"a rank's cards are of one type, got {parts}")
+    if any(d.index is None for d in devs):
+        raise ValueError(f"each card of a rank's list names its index "
+                         f"(cuda:0,cuda:1), got {parts}")
+    if len(set(devs)) < len(devs):
+        raise ValueError(f"a rank's list names a card twice: {parts}")
+    if len(devs) > MAX_LOCAL_CARDS:
+        raise ValueError(f"a rank holds at most {MAX_LOCAL_CARDS} cards, "
+                         f"got {len(devs)}")
+    return devs
 
 
 def local_device(device: str | torch.device) -> torch.device:
@@ -153,18 +188,30 @@ def _device_key(device: torch.device) -> int:
     return int.from_bytes(hashlib.sha256(key.encode()).digest()[:7], "big")
 
 
+def processes_on_devices(devices: list[torch.device]) -> int:
+    """The most of the group's processes (this one included) that run
+    on any one of this process's cards `devices`: a one-off gather of
+    every rank's card digests (padded with 0 to MAX_LOCAL_CARDS; the
+    CPU counts as one device per host, so CPU devices of one host all
+    count as one). 1 without a group."""
+    keys = sorted({_device_key(torch.device(d)) for d in devices})
+    rows = _gather_ints(keys + [0] * (MAX_LOCAL_CARDS - len(keys)))
+    return max(int(sum(bool((row == key).any()) for row in rows))
+               for key in keys)
+
+
 def processes_on_device(device: torch.device) -> int:
     """How many of the group's processes run on `device`'s card (this
-    one included): a one-off gather of each card's digest. 1 without a
-    group."""
-    keys = _gather_ints([_device_key(torch.device(device))])[:, 0]
-    return int((keys == keys[process_index()]).sum())
+    one included): `processes_on_devices` of one card."""
+    return processes_on_devices([device])
 
 
 def agreed_exchange_mode(on_card: bool, processes_on_card: int) -> str:
     """The exchange's mode for the whole group, from ONE collective:
-    "nccl" when every rank runs on a card (`on_card`) that it has to
-    itself (`processes_on_card` 1), else "gloo" (module docstring)."""
+    "nccl" when every rank runs on cards (`on_card`) that it has to
+    itself (`processes_on_card` 1: for a rank over several cards, the
+    most ranks on any of them), else "gloo" (module docstring). Never
+    a fallback from one to the other."""
     rows = _gather_ints([int(on_card), int(processes_on_card)])
     alone = bool(rows[:, 0].min() == 1 and rows[:, 1].max() == 1)
     return "nccl" if alone else "gloo"

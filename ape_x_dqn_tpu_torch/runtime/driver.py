@@ -92,10 +92,12 @@ learner is parallel/cards.py's: one group of stacked shards per owner
 card, the [.., dp, chunk] blocks split by rows with one add graph per
 group, the tp split across a row's cards, the servers' batches split
 over the cards (parallel/inference_server.py), the HBM check per card
-(`check_mesh_fits`), and the summary's ``mesh`` block (layout, the
-exchange's calls and bytes, the graphs a call replays, gather launches,
-peak and budget by card). The cold tier and legacy staging over
-distinct cards raise (ROADMAP Queue A item 6).
+(`check_mesh_fits`, with the cold tier's swap buffers on each owner),
+and the summary's ``mesh`` block (layout, the exchange's calls and
+bytes, the graphs a call replays, gather launches, peak and budget by
+card). The cold tier's swap runs per group on its owner (below), and
+legacy staging moves each group's rows from the host straight to its
+owner.
 
 Legacy staging (``replay.ingest_zero_copy=False``): batches append to a
 list and concatenate into fixed blocks at each flush (`_flush_stage`,
@@ -129,7 +131,11 @@ card the plan and read, and the directed add, replay captured graphs
 (runtime/step_graph.py). When the ingest queue runs dry, the refill tick
 recalls the heaviest cold segments through the same stager
 (`_cold_refill_tick`). The summary's ``cold_tier`` block holds the door
-closure ``evicted == stored + dropped`` in transitions.
+closure ``evicted == stored + dropped`` in transitions. Over several
+cards each card group plans, reads and overwrites its own rows' regions
+on its owner; every owner's reads are enqueued into pinned host buffers
+of its own before one wait per owner, then the directed adds follow,
+and the closure holds per shard as on one card.
 """
 
 from __future__ import annotations
@@ -174,7 +180,8 @@ from ape_x_dqn_tpu_torch.runtime.remediation import (Actuators,
 from ape_x_dqn_tpu_torch.runtime.sequence_learner import SequenceLearner
 from ape_x_dqn_tpu_torch.runtime.single_process import build_replay
 from ape_x_dqn_tpu_torch.utils.checkpoint import CheckpointManager
-from ape_x_dqn_tpu_torch.utils.hbm import check_hbm_fits, check_mesh_fits
+from ape_x_dqn_tpu_torch.utils.hbm import (check_hbm_fits, check_mesh_fits,
+                                          swap_bytes)
 from ape_x_dqn_tpu_torch.utils.metrics import (Metrics, Throughput,
                                                log_run_header)
 from ape_x_dqn_tpu_torch.utils.misc import next_pow2, resolve_device
@@ -225,18 +232,6 @@ class ApexDriver:
             raise NotImplementedError(
                 "the distributed learner covers the DQN and R2D2 "
                 "families; DPG nets are small — run dp=tp=1")
-        if self.cards:
-            for what, on in (
-                    ("the cold tier (replay.cold_tier_capacity > 0)",
-                     cfg.replay.cold_tier_capacity > 0),
-                    ("legacy staging (replay.ingest_zero_copy=False)",
-                     not getattr(cfg.replay, "ingest_zero_copy", True))):
-                if on:
-                    raise NotImplementedError(
-                        f"{what} over a mesh of several distinct cards "
-                        f"is not ported to the PyTorch package yet "
-                        f"(ROADMAP Queue A item 6); run it on one card "
-                        f"(a mesh of one card repeated)")
         # early, loud fits-check: the replay + model state must fit the
         # card BEFORE anything is allocated there (utils/hbm.py), with
         # every replay shard the mesh puts on it; over several cards,
@@ -246,7 +241,11 @@ class ApexDriver:
             self.hbm_budgets = check_mesh_fits(
                 cfg, self.spec.obs_shape, self.spec.obs_dtype,
                 {k: tuple(v.shape) for k, v in self.net.state_dict().items()},
-                self.mesh)
+                self.mesh, swap_per_shard=(
+                    swap_bytes(setup.item_spec, setup.stage_chunk,
+                               cfg.replay.seg_transitions
+                               if setup.frame_mode else None)
+                    if cfg.replay.cold_tier_capacity > 0 else 0))
             self.hbm_budget = self.hbm_budgets[self.device]
         else:
             self.hbm_budget = check_hbm_fits(
@@ -493,9 +492,9 @@ class ApexDriver:
         self._cold_dropped_seen = 0
         self._cold_displaced_seen = 0
         self._disk_seen: dict = {}
-        # the swap's pinned host buffers for the evicted region (ingest
-        # thread only)
-        self._region_host: dict[str, torch.Tensor] = {}
+        # the swap's pinned host buffers for the evicted region, one set
+        # per card group (ingest thread only)
+        self._region_host: dict[int, dict[str, torch.Tensor]] = {}
         cold_cap = cfg.replay.cold_tier_capacity
         if cold_cap > 0:
             if self.family != "dqn" or not getattr(
@@ -1245,8 +1244,10 @@ class ApexDriver:
         goes through the ColdStore's door. On the mesh each shard plans,
         reads and overwrites its own region ([dp] starts), and each
         shard's region goes through the door as its own segment, so the
-        closure holds per shard. -> the event of the last host-to-device
-        copy (none on the CPU)."""
+        closure holds per shard; over several cards each card group does
+        so on its owner, on the learner's streams there (`on_cards`).
+        -> the event of the last host-to-device copy (none on the
+        CPU)."""
         chunk = self._stage_chunk
         units = chunk * self.dp
         lead = self._shard_lead(1)
@@ -1259,10 +1260,13 @@ class ApexDriver:
                 if self._learn_done is not None:
                     # the swap writes what the last train dispatch reads
                     self._ingest_stream.wait_event(self._learn_done)
-                with self.obs.span("replay.evict", units=units):
-                    start, ev_items, ev_pri = self.learner.evict_landed(
-                        self.state, chunk)
-                    region = self._fetch_region(start, ev_items, ev_pri)
+                with self.obs.span("replay.evict", units=units), (
+                        self.learner.on_cards() if self.cards
+                        else contextlib.nullcontext()):
+                    evicted = self.learner.evict_landed(self.state, chunk)
+                    region = self._fetch_region(evicted)
+                    start = ([e[0] for e in evicted] if self.cards
+                             else evicted[0])
                     self.state = self.learner.add_at_landed(
                         self.state, inputs, start, region.pop("start"))
             ev_pri = region.pop("priorities")
@@ -1290,27 +1294,47 @@ class ApexDriver:
         self._emit_cold_gauges()
         return handles
 
-    def _fetch_region(self, start: torch.Tensor, items: dict,
-                      pri: torch.Tensor) -> dict:
+    def _fetch_region(self, evicted) -> dict:
         """The evicted region on the host ({item keys, "priorities",
-        "start"} as numpy): on CUDA one non-blocking copy per leaf into
-        pinned buffers kept for the swap, then a wait on an event
-        recorded after them on this (the ingest) stream, so every read
-        has landed before the directed add is enqueued and before the
-        next swap rewrites the buffers."""
-        leaves = dict(items, priorities=pri, start=start)
-        if self.device.type != "cuda":
-            return {k: v.numpy() for k, v in leaves.items()}
-        for k, v in leaves.items():
-            buf = self._region_host.get(k)
-            if buf is None:
-                buf = self._region_host[k] = torch.empty(
-                    v.shape, dtype=v.dtype, pin_memory=True)
-            buf.copy_(v, non_blocking=True)
-        done = torch.cuda.Event()
-        done.record()
-        done.synchronize()
-        return {k: self._region_host[k].numpy() for k in leaves}
+        "start"} as numpy, [dp, ...] in row order on the mesh) from
+        `evicted`, the evict result (start, items, priorities), or one
+        per card group over several cards. On CUDA one non-blocking
+        copy per leaf into pinned buffers kept for the swap, one set per
+        group, on its owner's current stream (the ingest stream, or the
+        learner's stream forked from it there); every owner's copies
+        are enqueued before the first wait, then one event per owner
+        is waited for, so every read has landed before the directed
+        adds are enqueued and before the next swap rewrites the
+        buffers."""
+        parts = evicted if self.cards else [evicted]
+        hosts, done = [], []
+        for i, (start, items, pri) in enumerate(parts):
+            leaves = dict(items, priorities=pri, start=start)
+            if start.device.type != "cuda":
+                hosts.append({k: v.numpy() for k, v in leaves.items()})
+                continue
+            bufs = self._region_host.setdefault(i, {})
+            for k, v in leaves.items():
+                buf = bufs.get(k)
+                if buf is None:
+                    buf = bufs[k] = torch.empty(
+                        v.shape, dtype=v.dtype, pin_memory=True)
+                buf.copy_(v, non_blocking=True)
+            ev = torch.cuda.Event()
+            ev.record(torch.cuda.current_stream(start.device))
+            done.append(ev)
+            hosts.append({k: bufs[k].numpy() for k in leaves})
+        for ev in done:
+            ev.synchronize()
+        if not self.cards:
+            return hosts[0]
+        out = {}
+        for k, first in hosts[0].items():
+            whole = np.empty((self.dp, *first.shape[1:]), first.dtype)
+            for host, group in zip(hosts, self.learner.groups):
+                whole[list(group.rows)] = host[k]
+            out[k] = whole
+        return out
 
     def _cold_refill_tick(self) -> None:
         """Idle-time recall (ingest thread, queue dry): pop up to
@@ -1400,8 +1424,8 @@ class ApexDriver:
     def _cold_summary(self) -> dict:
         """The run summary's cold_tier block: the transition-denominated
         door closure evicted == stored + dropped (per shard too), the
-        store's state, the swap graphs' replays and the disk rung's
-        stats."""
+        store's state, the swap graphs' replays (by card over several)
+        and the disk rung's stats."""
         cold = self._cold
         out = {
             "evicted": self._cold_evicted,
@@ -1420,6 +1444,11 @@ class ApexDriver:
                 k: g.replays
                 for k, g in sorted(self.learner.swap_graphs().items())},
         }
+        if self.cards:
+            out["swap_graph_replays_by_card"] = {
+                card: {k: g.replays for k, g in sorted(graphs.items())}
+                for card, graphs in
+                self.learner.swap_graphs_by_card().items()}
         if self._disk is not None:
             out["disk"] = self._disk.stats()
         return out
@@ -1439,12 +1468,14 @@ class ApexDriver:
         """The legacy path's add of one block of `count` staging units
         ({key: [count, ...]} numpy, with "priorities"): [dp, chunk, ...]
         on the mesh, through the learner's eager `add` under the state
-        lock, on the ingest stream after the last train dispatch."""
+        lock, on the ingest stream after the last train dispatch. Over
+        several cards the block stays on the host and each card group's
+        rows go straight to its owner (`CardsLearner.add`)."""
         def put(v):
             t = torch.from_numpy(np.ascontiguousarray(v))
             if self.is_dist:
                 t = t.reshape(self.dp, self._stage_chunk, *t.shape[1:])
-            return t.to(self.device)
+            return t if self.cards else t.to(self.device)
 
         items = {k: put(v) for k, v in take.items() if k != "priorities"}
         pris = put(take["priorities"])

@@ -13,7 +13,15 @@ experience. Here:
   (parallel/dist_learner.py) from the same seed, over a process-local
   mesh of its own dp rows (`process_rows`: dp_local = dp / nproc, on its
   own card; on one card every rank takes it, and `check_hbm_fits` counts
-  the ranks there). Each SGD step's gradient crosses processes in one
+  the ranks there). A rank given several cards (``device="cuda:0,
+  cuda:1"``) lays its rows over them as a one-process mesh over the
+  visible cards is laid (parallel/mesh.py: `rank_mesh`; a row's tp
+  partners are cards of this rank), and its learner is a
+  parallel/cards.py `CardsLearner` over its card groups whose exchange
+  has two levels: the in-process all-gather over its owners, then the
+  group's cross-rank exchange from its first owner, then the global
+  vectors to its other owners; `check_mesh_fits` prices each of its
+  cards. Each SGD step's gradient crosses processes in one
   exchange, whose mode the group agrees on once, after counting the
   processes on each card (`agreed_exchange_mode`): NCCL on the device
   when every rank is alone on its card, each macro-step then ONE
@@ -96,11 +104,12 @@ from ape_x_dqn_tpu_torch.obs.fleet import FleetAggregator
 from ape_x_dqn_tpu_torch.obs.health import StallWatchdog, make_lock
 from ape_x_dqn_tpu_torch.ops import frame_gather
 from ape_x_dqn_tpu_torch.parallel import multihost
+from ape_x_dqn_tpu_torch.parallel.cards import CardsLearner, group_learner
 from ape_x_dqn_tpu_torch.parallel.dist_learner import (DistDQNLearner,
                                                        DistSequenceLearner)
 from ape_x_dqn_tpu_torch.parallel.inference_server import (
     BatchedInferenceServer, build_serving_tier)
-from ape_x_dqn_tpu_torch.parallel.mesh import make_mesh
+from ape_x_dqn_tpu_torch.parallel.mesh import rank_mesh
 from ape_x_dqn_tpu_torch.runtime.build import build_prioritized_replay
 from ape_x_dqn_tpu_torch.runtime.driver import ApexDriver
 from ape_x_dqn_tpu_torch.runtime.evaluation import (
@@ -111,7 +120,7 @@ from ape_x_dqn_tpu_torch.runtime.family import (
 from ape_x_dqn_tpu_torch.runtime.learner import (checkpoint_tree,
                                                  restore_checkpoint_tree)
 from ape_x_dqn_tpu_torch.utils.checkpoint import CheckpointManager
-from ape_x_dqn_tpu_torch.utils.hbm import check_hbm_fits
+from ape_x_dqn_tpu_torch.utils.hbm import check_hbm_fits, check_mesh_fits
 from ape_x_dqn_tpu_torch.utils.metrics import Metrics, log_run_header
 from ape_x_dqn_tpu_torch.utils.misc import next_pow2, resolve_device
 from ape_x_dqn_tpu_torch.utils.rng import component_generator
@@ -130,9 +139,11 @@ class MultihostApexDriver:
                  transport=None, device: str | torch.device = "cuda"):
         """transport: as ApexDriver's (a SocketIngestServer also takes
         remote actor hosts). device: the card (default: cuda, card rank
-        % the visible cards; `multihost.local_device`), or "cpu". A
-        rank's mesh is its one card repeated; a multi-host rank that
-        holds several cards is not ported (ROADMAP Queue A item 6)."""
+        % the visible cards; `multihost.local_device`), or "cpu"; or a
+        comma-separated list of this rank's cards ("cuda:0,cuda:1";
+        "cpu:0,cpu:1" on the CPU), over which its rows form a mesh
+        (`multihost.local_devices`, parallel/mesh.py: `rank_mesh`). One
+        device keeps the rank's mesh its one card repeated."""
         if cfg.checkpoint_replay:
             # replicating every dp shard's replay into one payload would
             # multiply it by dp x capacity: needs a sharded save first
@@ -165,7 +176,9 @@ class MultihostApexDriver:
                 f"replay.kind={cfg.replay.kind!r}")
         self.rank = multihost.process_index()
         self.nproc = multihost.process_count()
-        self.device = resolve_device(multihost.local_device(device))
+        self.devices = [resolve_device(d)
+                        for d in multihost.local_devices(device)]
+        self.device = self.devices[0]
         if self.device.type == "cuda":
             # streams, events and NCCL's communicator default to it
             torch.cuda.set_device(self.device)
@@ -179,10 +192,10 @@ class MultihostApexDriver:
         self.dp = cfg.parallel.dp
         self.row_start, self.row_stop = multihost.process_rows(self.dp)
         self.dp_local = self.row_stop - self.row_start
-        tp = cfg.parallel.tp
-        # this process's rows, every one on its own card
-        self.mesh = make_mesh(dp=self.dp_local, tp=tp,
-                              devices=[self.device] * (self.dp_local * tp))
+        # this process's rows: on its one card, or over its cards (a
+        # ValueError for a layout whose tp partners straddle ranks)
+        self.mesh = rank_mesh(self.dp_local, cfg.parallel.tp, self.devices)
+        self.cards = self.mesh.distinct
 
         setup = family_setup(cfg, self.spec, self.net, obs0)
         self._frame_mode = setup.frame_mode
@@ -194,21 +207,35 @@ class MultihostApexDriver:
         # ends this process if one never answers
         with self._watched("joining the group: the placement and mode "
                            "agreement, NCCL's communicator"):
-            # the processes that share the card (a one-off gather), then
-            # one exchange mode for the whole group (one collective)
-            self.processes_on_card = multihost.processes_on_device(
-                self.device)
+            # the processes that share the card, or any of this rank's
+            # cards (a one-off gather), then one exchange mode for the
+            # whole group (one collective)
+            self.processes_on_card = multihost.processes_on_devices(
+                self.mesh.cards)
             mode = multihost.agreed_exchange_mode(
                 self.device.type == "cuda", self.processes_on_card)
             # early, loud fits-check: this process's shards + model
             # state, times the processes on the card, and NCCL's buffers
-            self.hbm_budget = check_hbm_fits(
-                cfg, self.spec.obs_shape, self.spec.obs_dtype,
-                param_count=sum(p.numel() for p in self.net.parameters()),
-                device=self.device,
-                shards_per_card=self.mesh.shards_on(self.device),
-                processes_per_card=self.processes_on_card,
-                nccl=mode == "nccl")
+            # (over several cards: each card, with the cross-rank
+            # communicator's part on the first)
+            self.hbm_budgets: dict = {}
+            if self.cards:
+                self.hbm_budgets = check_mesh_fits(
+                    cfg, self.spec.obs_shape, self.spec.obs_dtype,
+                    {k: tuple(v.shape)
+                     for k, v in self.net.state_dict().items()},
+                    self.mesh, processes_per_card=self.processes_on_card,
+                    cross_nccl=mode == "nccl")
+                self.hbm_budget = self.hbm_budgets[self.device]
+            else:
+                self.hbm_budget = check_hbm_fits(
+                    cfg, self.spec.obs_shape, self.spec.obs_dtype,
+                    param_count=sum(p.numel()
+                                    for p in self.net.parameters()),
+                    device=self.device,
+                    shards_per_card=self.mesh.shards_on(self.device),
+                    processes_per_card=self.processes_on_card,
+                    nccl=mode == "nccl")
             # the NCCL exchange makes its communicator now, before any
             # capture, and raises rather than fall back to gloo
             self.exchange = multihost.GradExchange(mode, self.device)
@@ -217,16 +244,30 @@ class MultihostApexDriver:
         # identical construction on every process (same cfg.seed) ->
         # identical initial params and learner generator
         shard_cap = next_pow2(max(cfg.replay.capacity // self.dp, 2))
-        self.replay = build_prioritized_replay(
-            cfg, self.spec, shard_cap, self.device,
-            frame_mode=self._frame_mode)
+
+        def shard_replay(dev):
+            return build_prioritized_replay(cfg, self.spec, shard_cap, dev,
+                                            frame_mode=self._frame_mode)
+
         self.capacity = shard_cap * self.dp
-        self.learner = (
-            DistSequenceLearner(self.replay, cfg.learner, cfg.replay,
-                                self.mesh, exchange=self.exchange)
-            if self.family == "r2d2"
-            else DistDQNLearner(self.replay, cfg.learner, self.mesh,
-                                exchange=self.exchange))
+        r2d2 = self.family == "r2d2"
+        if self.cards:
+            # the rank's card groups, exchanging in two levels
+            self.learner = CardsLearner(
+                group_learner(DistSequenceLearner if r2d2
+                              else DistDQNLearner,
+                              cfg.learner, cfg.replay if r2d2 else None),
+                shard_replay, cfg.learner, self.mesh, cross=self.exchange,
+                row_start=self.row_start)
+            self.replay = self.learner.replay
+        else:
+            self.replay = shard_replay(self.device)
+            self.learner = (
+                DistSequenceLearner(self.replay, cfg.learner, cfg.replay,
+                                    self.mesh, exchange=self.exchange)
+                if r2d2
+                else DistDQNLearner(self.replay, cfg.learner, self.mesh,
+                                    exchange=self.exchange))
         self.state = self.learner.init(
             self.net, None if self._frame_mode else setup.item_spec,
             component_generator(cfg.seed, "learner", device=self.device))
@@ -329,7 +370,8 @@ class MultihostApexDriver:
         wait for the card is watched too."""
         with self._watched("releasing the step graphs"):
             if self.device.type == "cuda":
-                torch.cuda.synchronize(self.device)
+                for dev in self.mesh.cards:
+                    torch.cuda.synchronize(dev)
             self.learner.release_graphs()
 
     # -- checkpoint/resume -------------------------------------------------
@@ -538,10 +580,17 @@ class MultihostApexDriver:
                                                   self._chunk))
         self.state = self.learner.add_landed(self.state, 1, staged)
 
+    def _replay_states(self) -> list:
+        """This process's replay states: one, or one per card group."""
+        if self.cards:
+            return [st.replay for st in self.state.groups]
+        return [self.state.replay]
+
     def _filled(self) -> int:
         """The global replay fill: lockstep adds keep every process's
         shards alike, so this process's host cursors times nproc."""
-        return int(np.sum(self.state.replay.size)) * self.nproc
+        return sum(int(np.sum(rs.size))
+                   for rs in self._replay_states()) * self.nproc
 
     def _min_fill(self) -> int:
         return min(self.cfg.replay.min_fill, self.capacity // 2)
@@ -570,15 +619,16 @@ class MultihostApexDriver:
         if chunk_steps > 1:   # the tail of a run dispatches single steps
             for _ in range(2):
                 self.state, _ = self.learner.train_step(self.state)
-        rs = self.state.replay
-        with torch.no_grad():
-            for t in rs.storage.values():
-                t.zero_()
-            rs.tree.zero_()
-        rs.pos = np.zeros(self.dp_local, np.int64)
-        rs.size = np.zeros(self.dp_local, np.int64)
+        for rs in self._replay_states():
+            with torch.no_grad():
+                for t in rs.storage.values():
+                    t.zero_()
+                rs.tree.zero_()
+            rs.pos = np.zeros(len(rs.pos), np.int64)
+            rs.size = np.zeros(len(rs.size), np.int64)
         restore_checkpoint_tree(self.state, keep)
-        self.exchange.reset()
+        # the card groups' exchange restarts its cross-rank level too
+        (self.learner.exchange if self.cards else self.exchange).reset()
 
     @staticmethod
     def _part(parts: dict, name: str, t0: float,
@@ -627,6 +677,12 @@ class MultihostApexDriver:
               f"[{self.row_start}, {self.row_stop}) of dp={self.dp}, "
               f"device {self.device}, {self.processes_on_card} "
               f"process(es) on this card", file=sys.stderr, flush=True)
+        if self.cards:
+            lay = self.learner.layout()
+            print(f"[multihost] process {self.rank}: rows over cards "
+                  f"{lay['cards']}; rows per card {lay['rows_per_card']} "
+                  f"(local rows); tp partners {lay['tp_partners']}",
+                  file=sys.stderr, flush=True)
         self._warmup()
         if self.device.type == "cuda":
             # the state was made on the default stream
@@ -867,7 +923,7 @@ class MultihostApexDriver:
         peak = torch.cuda.max_memory_allocated(self.device) if cuda else None
         peak_reserved = (torch.cuda.max_memory_reserved(self.device)
                          if cuda else None)
-        return {
+        out = {
             "process": self.rank,
             "frames": int(frames_global),
             "frames_local": self._frames_local,
@@ -909,4 +965,25 @@ class MultihostApexDriver:
                 "hbm_budget_nccl_bytes": self.hbm_budget.nccl,
             },
         }
+        if self.cards:
+            out["multihost"]["cards"] = self._cards_summary()
+        return out
+
+    def _cards_summary(self) -> dict:
+        """A rank over several cards: its layout, the in-process level
+        of the exchange, gather launches and peak against budget by
+        card (the budget counts NCCL's parts on the cards that hold
+        them)."""
+        cuda = self.device.type == "cuda"
+        per_card = {}
+        for dev, b in self.hbm_budgets.items():
+            per_card[str(dev)] = {
+                "gather_launches": frame_gather.gather_rows.by_device.get(
+                    str(dev), 0),
+                "peak_mem_bytes": (torch.cuda.max_memory_allocated(dev)
+                                   if cuda else None),
+                "budget_bytes": b.total, "nccl_bytes": b.nccl}
+        return {**self.learner.layout(),
+                "local_exchange": self.learner.exchange.stats(),
+                "per_card": per_card}
 

@@ -36,11 +36,12 @@ device it runs on. `--coordinator HOST:PORT --num-processes N
 HOST:PORT (parallel/multihost.py) before anything is built on the
 device, owns dp / N of the replay shards and trains in lockstep. On
 the card the group carries CPU tensors over gloo and CUDA tensors over
-NCCL; rank r takes card r % the visible cards. When every rank is alone
-on its card (one rank per card), the gradient exchange is NCCL on the
-device, inside each macro-step's graph; ranks that share a card (more
-ranks than cards), and `--device cpu`, exchange over gloo through the
-host. The summary's `multihost.backend` says which; an NCCL that is
+NCCL; rank r takes card r % the visible cards, or, with `--device
+cuda:0,cuda:1`, the cards it lists: its rows then form a mesh over them
+(`cpu:0,cpu:1` on the CPU). When every rank is alone on its cards (no
+card shared by two ranks), the gradient exchange is NCCL on the
+device; ranks that share a card (more ranks than cards), and `--device
+cpu`, exchange over gloo through the host. The summary's `multihost.backend` says which; an NCCL that is
 missing or fails with one rank per card raises, with no fallback to
 gloo. `--compilation-cache-dir` exits 2: the port
 compiles nothing at run time. `--single-process` refuses `--listen` and
@@ -124,7 +125,9 @@ def build_parser() -> argparse.ArgumentParser:
     ap.add_argument("--total-env-frames", type=int, default=None)
     ap.add_argument("--device", default="cuda",
                     help="torch device to train on (default cuda; a CUDA "
-                         "request without a card raises)")
+                         "request without a card raises); with "
+                         "--coordinator, a comma-separated list of this "
+                         "rank's cards (cuda:0,cuda:1)")
     ap.add_argument("--metrics-file", default=None,
                     help="JSONL metrics sink")
     ap.add_argument("--tensorboard-dir", default=None,
@@ -196,6 +199,10 @@ def main(argv: list[str] | None = None) -> int:
         if args.eval_only:
             parser.error("--eval-only is single-process (no learner "
                          "mesh); drop --coordinator")
+    if "," in args.device and args.coordinator is None:
+        parser.error("a --device list names a multi-host rank's cards "
+                     "(with --coordinator); the one-process driver's mesh "
+                     "is the visible cards")
     if args.compilation_cache_dir is not None:
         print("--compilation-cache-dir does not apply to the PyTorch "
               "package: nothing is jit-compiled (the CUDA graphs are "

@@ -31,9 +31,14 @@ the port's own:
   replay shards the mesh puts there: the original prices a device at
   one shard, while the port's one-card meshes hold all dp shards.
   `mesh_budgets` prices every card of a one-process mesh over several
-  cards: the shards it owns, the parameter pieces it holds, and NCCL's
-  part on the owners; `check_mesh_fits` raises naming the card that
-  does not fit.
+  cards: the shards it owns, the parameter pieces it holds, NCCL's
+  part on the owners, and with the cold tier each owner's swap buffers
+  (`swap_bytes`: the evict graph's outputs and the add_at graph's
+  static inputs, per shard it owns); `check_mesh_fits` raises naming
+  the card that does not fit. A multi-host rank that holds several
+  cards prices its cards the same way, with the processes that share
+  each card and the cross-rank communicator's part on its first
+  owner.
 - `check_hbm_fits(processes_per_card=n)`: the multi-host learner's
   processes may share a card (two ranks on one card); each process's
   budget counts n times against it, or two processes that each fit
@@ -114,12 +119,13 @@ class HbmBudget:
     detail: dict
     serving_transient: int = 0
     nccl: int = 0          # outside the allocator (NCCL_DEVICE_BYTES)
+    swap: int = 0          # the cold tier's swap buffers (`swap_bytes`)
 
     @property
     def total(self) -> int:
         return (self.replay_storage + self.replay_tree
                 + self.model_state + self.headroom
-                + self.serving_transient + self.nccl)
+                + self.serving_transient + self.nccl + self.swap)
 
     def table(self) -> str:
         gib = 1024 ** 3
@@ -129,6 +135,7 @@ class HbmBudget:
                 ("transient headroom", self.headroom),
                 ("serving gather", self.serving_transient),
                 ("NCCL buffers", self.nccl),
+                ("cold swap buffers", self.swap),
                 ("TOTAL per device", self.total)]
         body = "\n".join(f"  {k:<20} {v / gib:8.2f} GiB" for k, v in rows)
         extra = ", ".join(f"{k}={v}" for k, v in self.detail.items())
@@ -295,9 +302,26 @@ def check_hbm_fits(cfg: Any, obs_shape: tuple[int, ...], obs_dtype=np.uint8,
     return budget
 
 
+def swap_bytes(item_spec: dict, block: int,
+               ptail: int | None = None) -> int:
+    """The cold tier's swap buffers for one replay shard: the evict
+    graph's outputs (the start, `block` staging units of `item_spec` in
+    staging layout, their leaf priorities) and the add_at graph's static
+    inputs (the same again), which stay allocated on the shard's card.
+    `ptail`: the priorities' trailing length (a frame ring's segment),
+    None for one priority a unit."""
+    unit = sum(math.prod(s.shape)
+               * torch.empty(0, dtype=s.dtype).element_size()
+               for s in item_spec.values())
+    pri = 4 * (ptail or 1)
+    return 2 * (block * (unit + pri) + 8)
+
+
 def mesh_budgets(cfg: Any, obs_shape: tuple[int, ...], obs_dtype,
                  param_shapes: dict[str, tuple[int, ...]], mesh,
-                 min_dim: int = 256) -> dict:
+                 min_dim: int = 256, swap_per_shard: int = 0,
+                 processes_per_card: int = 1,
+                 cross_nccl: bool = False) -> dict:
     """The budget of every distinct card of a one-process mesh over
     several cards (parallel/cards.py), {card: HbmBudget}: the replay
     shards it owns (one copy per shard, on its row's owner), the
@@ -305,9 +329,13 @@ def mesh_budgets(cfg: Any, obs_shape: tuple[int, ...], obs_dtype,
     group's replicated params and piece 0 of each split one on the
     owner, piece t on tp partner t: parallel/sharding.py), the
     headroom (the inference server's replica of the whole params rides
-    in it, as on one card), and NCCL's part on the owners when more
-    than one exchange over NCCL. `param_shapes`: the whole net's
-    ``{state_dict key: shape}``."""
+    in it, as on one card), NCCL's part on the owners when more than
+    one exchange over NCCL, and `swap_per_shard` (`swap_bytes` above)
+    for each shard an owner holds. `param_shapes`: the whole net's
+    ``{state_dict key: shape}``. For a multi-host rank over several
+    cards: `cross_nccl` adds the cross-rank communicator's part on the
+    first owner, and `processes_per_card` (the most ranks on one of
+    its cards) multiplies each card's total in `check_mesh_fits`."""
     from ape_x_dqn_tpu_torch.parallel.sharding import torch_split
 
     base = run_budget(cfg, obs_shape, obs_dtype,
@@ -323,41 +351,51 @@ def mesh_budgets(cfg: Any, obs_shape: tuple[int, ...], obs_dtype,
             else:
                 for dev in g.tp_devices:
                     held[dev] += n // tp
-    nccl = NCCL_DEVICE_BYTES if (len(groups) > 1
-                                 and mesh.device.type == "cuda") else 0
+    cuda = mesh.device.type == "cuda"
+    nccl = NCCL_DEVICE_BYTES if (len(groups) > 1 and cuda) else 0
     owners = {g.owner for g in groups}
     out = {}
     for dev in mesh.cards:
         shards = mesh.shards_on(dev)
+        part = nccl if dev in owners else 0
+        if cross_nccl and cuda and dev == mesh.device:
+            part += NCCL_DEVICE_BYTES
+        detail = dict(base.detail, shards_on_card=shards,
+                      params_on_card=held[dev])
+        if processes_per_card > 1:
+            detail["processes_per_card"] = processes_per_card
         b = dataclasses.replace(
             base, replay_storage=base.replay_storage * shards,
             replay_tree=base.replay_tree * shards,
             capacity=base.capacity * shards,
             model_state=model_state_bytes(held[dev]),
-            nccl=nccl if dev in owners else 0,
-            detail=dict(base.detail, shards_on_card=shards,
-                        params_on_card=held[dev]))
+            nccl=part, swap=swap_per_shard * shards, detail=detail)
         out[dev] = b
     return out
 
 
 def check_mesh_fits(cfg: Any, obs_shape: tuple[int, ...], obs_dtype,
                     param_shapes: dict[str, tuple[int, ...]], mesh,
-                    min_dim: int = 256, hbm_bytes: int | None = None
-                    ) -> dict:
+                    min_dim: int = 256, hbm_bytes: int | None = None,
+                    swap_per_shard: int = 0, processes_per_card: int = 1,
+                    cross_nccl: bool = False) -> dict:
     """`check_hbm_fits` for every card of a one-process mesh over
-    several cards (`mesh_budgets`), before anything is allocated:
-    raises ValueError naming the first card that does not fit. ->
-    {card: budget}."""
+    several cards, or of a multi-host rank's (`mesh_budgets`), before
+    anything is allocated: raises ValueError naming the first card that
+    does not fit. -> {card: budget}."""
     budgets = mesh_budgets(cfg, obs_shape, obs_dtype, param_shapes, mesh,
-                           min_dim)
+                           min_dim, swap_per_shard=swap_per_shard,
+                           processes_per_card=processes_per_card,
+                           cross_nccl=cross_nccl)
     gib = 1024 ** 3
     for dev, b in budgets.items():
         limit = hbm_bytes if hbm_bytes is not None else device_hbm_bytes(dev)
-        if limit is not None and b.total > limit:
+        if limit is not None and b.total * processes_per_card > limit:
+            shared = (f" x {processes_per_card} processes"
+                      if processes_per_card > 1 else "")
             raise ValueError(
                 f"config {getattr(cfg, 'name', '?')!r} needs "
-                f"{b.total / gib:.2f} GiB on card {dev} of the mesh "
+                f"{b.total / gib:.2f} GiB{shared} on card {dev} of the mesh "
                 f"({b.detail['shards_on_card']} replay shards) but the "
                 f"card has {limit / gib:.2f} GiB of memory.\n{b.table()}\n"
                 f"Fix: lower replay.capacity, or spread the rows over "

@@ -6,7 +6,8 @@ Run from the repository root on a machine with one NVIDIA card:
     python3 chip_smoke.py [--seed 0]
 
 and on two or more cards, for the cards phase alone beside a one-card
-atari57_apex run at the same depth (no contract line),
+atari57_apex run at the same depth and, on four cards, mh_nccl's two
+one-card ranks (no contract line),
 
     python3 chip_smoke.py --cards-only
 
@@ -43,6 +44,11 @@ non-zero:
              torch.profiler pass of each: device busy share, kernels per
              macro-step and top kernels. Its 10.3 GB ring is freed
              before the next phases.
+5b. batch_study `python -m ape_x_dqn_tpu_torch.utils.batch_study
+             --capacity 65536 --batches 512,1024 --steps-per-dispatch 10
+             --dispatches 2` (its defaults cut): the pong learner at full
+             width over a frame ring, A-B-B-A, grad-steps/s, samples/s
+             and MFU against the card's own peak; the gather launched
 6. apex      `python -m ape_x_dqn_tpu_torch.runtime.train --config pong
              --total-env-frames 40000 --wall-clock-limit 120`, the
              default CLI mode: the Ape-X driver with 8 vector actors x 16
@@ -55,7 +61,7 @@ non-zero:
              read back from the ring bitwise; the driver freed after
 7. r2d2      `python -m ape_x_dqn_tpu_torch.runtime.train --config r2d2
              --set parallel.dp=1 --set parallel.tp=1 --actors 8 --set
-             replay.min_fill=256 --total-env-frames 20000
+             replay.min_fill=256 --total-env-frames 10000
              --wall-clock-limit 180`: the R2D2 preset at full width
              (Nature-CNN torso, LSTM 512, dueling, bf16, sequences of 80
              with burn-in 40, batch 64, K=4) through the default CLI
@@ -74,8 +80,8 @@ non-zero:
              cartpole_smoke --single-process` for 9,000 frames on the
              card: the repo's quick learning bar (last20 > 60)
 9. pong-sp   the same CLI with `--config pong --set
-             learner.sample_prefetch=True --set replay.min_fill=10000`
-             for 12,000 frames: the
+             learner.sample_prefetch=True --set replay.min_fill=5000`
+             for 6,000 frames: the
              dueling Nature-CNN at full width over a 2^20-slot flat
              prioritized replay (59.3 GB of packed pixel rows), K=4 with
              the double-buffered sampler; launch counts zeroed just
@@ -83,7 +89,7 @@ non-zero:
              sample_k call; one drawn sample bitwise vs plain
 10. dpg      `python -m ape_x_dqn_tpu_torch.runtime.train --config
              apex_dpg --set env.id=pendulum --actors 8 --set
-             replay.min_fill=5000 --total-env-frames 30000
+             replay.min_fill=5000 --total-env-frames 15000
              --wall-clock-limit 90`: the Ape-X DPG preset at its width
              (actor and critic MLPs of 300/200, batch 256, a 2^20-slot
              prioritized replay) through the default CLI mode, on the
@@ -102,7 +108,7 @@ non-zero:
              --wall-clock-limit 150`, fed by two `python -m
              ape_x_dqn_tpu_torch.runtime.actor_host --config pong`
              processes on the card (4 vector actors x 16 envs each,
-             actor offsets 0 and 4, 4,000 frames per actor: the apex
+             actor offsets 0 and 4, 3,500 frames per actor: the apex
              phase's 8 x 16 fleet): host A over shared memory, host B
              over TCP (comm.shm=false on its side); frames from both
              hosts reach replay, both pull params past version 0, host
@@ -163,7 +169,7 @@ non-zero:
              replay.min_fill=8192 --set replay.cold_tier_capacity=16384
              --set replay.cold_tier_disk_dir=<tmp> --set
              replay.cold_tier_disk_capacity=262144 --total-env-frames
-             60000 --wall-clock-limit 150` (8 vector actors x 16 envs):
+             40000 --wall-clock-limit 110` (8 vector actors x 16 envs):
              the door closure evicted == stored + dropped, evictions and
              recalls, disk spills and promotions, the hot ring exactly
              full with its host and device cursors equal, the evict and
@@ -186,9 +192,9 @@ non-zero:
              graph grad-steps/s beside main's and r2d2's, the peak
              memory against the budget of four shards, shard_stats.
              Then both presets through ApexDriver on those meshes
-             (atari57_apex: 8 actors x 16 envs, min_fill 20,000, 40,000
-             frames, 120 s; r2d2: 8 actors, min_fill 256, 30,000
-             frames, 180 s): a clean end, grad-steps, graph replays, the
+             (atari57_apex: 8 actors x 16 envs, min_fill 10,000, 20,000
+             frames, 60 s; r2d2: 8 actors, min_fill 256, 10,000
+             frames, 120 s): a clean end, grad-steps, graph replays, the
              gather once per draw and side over all shards, the
              per-shard drop closure, replay_shards in lockstep,
              publications advancing; frames/s and host ms per add
@@ -198,17 +204,18 @@ non-zero:
              --wall-clock-limit 20`: the legacy staging path (no stager)
              to a clean end, frames reaching replay, the learner
              training; host ms per flush's add
-19. dist_cold the tiers: configuration at dp=2 through ApexDriver: at
-             least one swap per shard, evicted == stored + dropped per
-             shard, the swap graphs replayed
+19. dist_cold the tiers: configuration at dp=2 through ApexDriver,
+             24,000 frames: at least one swap per shard, evicted ==
+             stored + dropped per shard, the swap graphs replayed, host
+             ms per swap
 20. mh       the multi-host learner as two processes on this card over
              gloo, each through the CLI (`--coordinator 127.0.0.1:<free
              port> --num-processes 2 --process-id i`): mh_apex
              (atari57_apex at full width on its dp=4 x tp=2 mesh, two
              shards of 524,288 transitions a rank, 4 actors x 16 envs a
-             rank, min_fill 20,000, 40,000 frames), mh_r2d2 (r2d2 the
+             rank, min_fill 10,000, 20,000 frames), mh_r2d2 (r2d2 the
              same way, two shards of 16,384 sequences a rank, min_fill
-             256, 30,000 frames, 32 grad-steps) and mh_resume (pong at a
+             256, 20,000 frames, 32 grad-steps) and mh_resume (pong at a
              small width, one shard a rank: 20 grad-steps into a
              checkpoint directory, then a second pair resumes at 20 and
              trains to 30). Before them this process frees its cache and
@@ -267,8 +274,20 @@ non-zero:
              (graphs replayed, the gather on every owner, each card's
              peak under its budget), the window by part; (d) one batch of 64 through the
              single-policy server split over the cards against the
-             one-card forward (bf16, 1e-2); and the gather at the CLI
-             runs' per-card shapes, timed on the last card
+             one-card forward (bf16, 1e-2); (e) cards_cold:
+             atari57_apex at dp = the cards with dist_cold:'s RAM and
+             disk cold stores (the closure per shard, every card's swap
+             graphs replayed, host ms per swap beside dist_cold:'s);
+             (f) cards_legacy: pong's legacy staging at dp = the cards
+             for 20 s (ms a flush beside legacy:'s); (g) mh_cards, on
+             four cards or more: two CLI ranks of r2d2 at full width,
+             each holding half the cards (`--device cuda:0,cuda:1`,
+             dp=4 x tp=2: two rows a rank split over its cards), NCCL
+             across them: lockstep, equal CRC-32, grad-steps/s beside
+             mh_nccl's two one-card ranks and cards_r2d2, NCCL's bytes,
+             peak against budget by card; and the gather at the CLI
+             runs' per-card shapes, timed on the last card. On one card
+             each part prints `skipped`
 23. the memory table (each preset's budget beside its measured peak and
              the card), the kernels line, the card line, and the
              contract's last line.
@@ -314,26 +333,27 @@ RATE_STEPS = 8
 # r2d2: macro-steps of the learner alone after the driver's run
 R2D2_ALONE = 4
 # pong-sp: frames of the single-process run at a cut min_fill; the first
-# PONG_SP_MIN_FILL only fill the replay, then every frame trains (~2,000
+# PONG_SP_MIN_FILL only fill the replay, then every frame trains (~1,000
 # grad-steps)
-PONG_SP_FRAMES = 12000
-PONG_SP_MIN_FILL = 10000
+PONG_SP_FRAMES = 6000
+PONG_SP_MIN_FILL = 5000
 # r2d2: the driver run's frame budget
-R2D2_FRAMES = 20000
+R2D2_FRAMES = 10000
 # dpg: grad-steps of the learner alone after the driver's run
 DPG_ALONE = 64
 # the entry points' device (the CLI's and the actor hosts')
 DEVICE = "cuda"
 # apex and dpg: the driver runs' frame budgets (apex trains ~64
-# grad-steps at the preset's pace of 1.6e-3 a frame)
+# grad-steps at the preset's pace of 1.6e-3 a frame: a publication every
+# 50)
 APEX_FRAMES = 40000
-DPG_FRAMES = 30000
+DPG_FRAMES = 15000
 # remote: two actor hosts of 4 vector actors (the apex fleet's 8 x 16),
-# 4,000 frames per actor (32,000 in all: ~51 grad-steps at the preset's
+# 3,500 frames per actor (28,000 in all: ~45 grad-steps at the preset's
 # 1.6e-3 per frame, so publications every 16 and checkpoints every 32
 # grad-steps both happen)
 REMOTE_HOST_ACTORS = 4
-REMOTE_FRAMES_PER_ACTOR = 4000
+REMOTE_FRAMES_PER_ACTOR = 3500
 REMOTE_WALL_S = 150
 REMOTE_HOST_TIMEOUT_S = 120
 REMOTE_SETS = ("comm.shm=true", "checkpoint_every=32",
@@ -391,38 +411,41 @@ SERVE_SETS: tuple[str, ...] = ()
 # tiers: the pong driver over a 16,384-transition ring with the RAM
 # cold tier (16,384 transitions) and the disk rung (262,144)
 TIERS_CAPACITY = 16384
-TIERS_FRAMES = 60000
-TIERS_WALL_S = 150
+TIERS_FRAMES = 40000
+TIERS_WALL_S = 110
 TIERS_SETS: tuple[str, ...] = ()
 # frames/s of the driver phases, by phase (the tiers phase reads apex's),
 # and the learners' rates alone (main_*, r2d2_*: the dist phase reads
 # them); the ingest add's host ms median, by driver phase
 RATES: dict[str, float] = {}
 ADD_MS: dict[str, float] = {}
+# host ms per eviction swap (median, one block), by cold-tier phase
+SWAP_MS: dict[str, float] = {}
 # dist: the dp-sharded learners alone on their presets' dp=4 x tp=2
 # meshes of this card (graph vs eager bitwise after 1 and DIST_STEPS
 # macro-steps; the fill: DIST_FILL_SEGS segments a shard on the frame
 # ring, DIST_FILL_SEQS sequences a shard on r2d2's replay), then the
-# drivers: atari57_apex cut as apex: is (8 actors x 16 envs, 40,000
-# frames, 120 s; min_fill 20,000), r2d2 cut as r2d2: is (8 actors,
-# min_fill 256, 30,000 frames, 180 s)
+# drivers: atari57_apex (8 actors x 16 envs, 20,000 frames, 60 s;
+# min_fill 10,000, a publication every 16 grad-steps), r2d2 (8 actors,
+# min_fill 256, 10,000 frames, 120 s)
 DIST_STEPS = 5
 DIST_FILL_SEGS = 512
 DIST_FILL_SEQS = 128
-DIST_APEX_SETS = ("actors.num_actors=8", "replay.min_fill=20000")
-DIST_APEX_FRAMES = 40000
-DIST_APEX_WALL_S = 120
+DIST_APEX_SETS = ("actors.num_actors=8", "replay.min_fill=10000",
+                  "learner.publish_every=16")
+DIST_APEX_FRAMES = 20000
+DIST_APEX_WALL_S = 60
 DIST_R2D2_SETS = ("actors.num_actors=8", "replay.min_fill=256")
-DIST_R2D2_FRAMES = 30000
-DIST_R2D2_WALL_S = 180
+DIST_R2D2_FRAMES = 10000
+DIST_R2D2_WALL_S = 120
 # legacy: pong with the legacy staging path, 4 actors, 20 s (a small
 # min_fill so the learner trains, and the gather runs, in that time)
 LEGACY_SETS = ("replay.ingest_zero_copy=False", "actors.num_actors=4",
                "replay.min_fill=2048")
 LEGACY_WALL_S = 20
 # dist_cold: the tiers: configuration at dp=2 (two shards of 8,192)
-DIST_COLD_FRAMES = 30000
-DIST_COLD_WALL_S = 90
+DIST_COLD_FRAMES = 24000
+DIST_COLD_WALL_S = 75
 # mh: the multi-host learner as two processes on this card over gloo,
 # each launched through the CLI: atari57_apex and r2d2 on their own dp=4
 # x tp=2 meshes, two shards a process (4 actors x 16 envs each, the 8
@@ -432,12 +455,12 @@ DIST_COLD_WALL_S = 90
 # width (pong with a small CNN, one shard a process, free-running);
 # publications every 16 grad-steps, so each run publishes
 MH_TIMEOUT_S = 420
-MH_APEX_SETS = ("actors.num_actors=4", "replay.min_fill=20000",
+MH_APEX_SETS = ("actors.num_actors=4", "replay.min_fill=10000",
                 "learner.publish_every=16", "multihost_watchdog_s=120")
-MH_APEX_FRAMES = 40000
+MH_APEX_FRAMES = 20000
 MH_R2D2_SETS = ("actors.num_actors=4", "replay.min_fill=256",
                 "learner.publish_every=16", "multihost_watchdog_s=120")
-MH_R2D2_FRAMES = 30000
+MH_R2D2_FRAMES = 20000
 MH_R2D2_STEPS = 32
 MH_RESUME_SETS = ("parallel.dp=2", "parallel.tp=1",
                   "network.cnn_channels=(8,16,16)", "network.torso_dense=32",
@@ -453,13 +476,15 @@ MH_NCCL_SETS = ("replay.min_fill=256", "learner.publish_every=16",
                 "multihost_watchdog_s=120")
 MH_NCCL_ACTORS = 8
 MH_NCCL_FRAMES = 30000
-MH_NCCL_STEPS = 192
+MH_NCCL_STEPS = 96
 # nccl_probe: the device time of one all-gather from this many calls
 # queued behind a device sleep of NCCL_SLEEP_CYCLES (about 100 ms at an
 # H100's clock), so that the host's enqueue is not timed (a slow host
 # took 11.2 ms to enqueue the 20 calls, past a 10.6 ms sleep)
 NCCL_TIMED_CALLS = 20
 NCCL_SLEEP_CYCLES = 200_000_000
+# times the probe may time again behind a 4x longer sleep
+NCCL_PROBE_ATTEMPTS = 3
 NCCL_PROBE_TIMEOUT_S = 180
 # cards: the one-process mesh over distinct cards (two or more visible):
 # macro-steps of the learners alone, the CLI runs (8 actors as in
@@ -474,6 +499,25 @@ CARDS_APEX_WALL_S = 60
 CARDS_R2D2_FRAMES = 15000
 CARDS_R2D2_WALL_S = 60
 CARDS_SERVE_BATCH = 64
+# cards (e): atari57_apex at dp = the cards with the tiers: phase's RAM
+# and disk cold stores (a 16,384-transition ring, 8 actors); (f): pong's
+# legacy staging at dp = the cards, LEGACY_SETS; (g): two CLI ranks of
+# r2d2 at full width, each holding half the visible cards (dp=4 x tp=2:
+# two rows a rank, column-split over its two cards), the 8 actors of
+# mh_nccl: split over them, cut by frames and grad-steps; beside them,
+# mh_nccl's two one-card ranks cut alike in --cards-only
+CARDS_COLD_FRAMES = 30000
+CARDS_COLD_WALL_S = 60
+CARDS_LEGACY_WALL_S = 20
+MH_CARDS_FRAMES = 20000
+MH_CARDS_STEPS = 96
+# batch_study: the learner's batch-size study (utils/batch_study.py) on
+# one card, cut: a 65,536-transition ring, batches 512 and 1024 (A-B-B-
+# A), 2 dispatches of 10 grad-steps (its defaults: 2^20, 512/1024/2048,
+# 8 of 50), meant to end within BATCH_STUDY_LIMIT_S
+BATCH_STUDY_ARGS = ("--capacity", "65536", "--batches", "512,1024",
+                    "--steps-per-dispatch", "10", "--dispatches", "2")
+BATCH_STUDY_LIMIT_S = 40
 # cards (a) against the stacked learner, both in float32 with TF32 off,
 # over the first macro-step (its four steps draw the same samples from
 # the same trees), as ||x_cards - x_stacked|| / ||x_stacked||: Adam's
@@ -2692,7 +2736,7 @@ def phase_tiers(seed: int) -> dict:
     """The pong driver through the CLI with the tiered cold replay, at
     full width (Nature CNN, 84x84x4, batch 512, K=4). Cuts:
     replay.capacity 16,384 (the ring fills early), min_fill 8,192, 8
-    vector actors x 16 envs, 60,000 frames, 150 s. Tier:
+    vector actors x 16 envs, 40,000 frames, 110 s. Tier:
     cold_tier_capacity 16,384 (the RAM store fills and displaces),
     cold_tier_disk_capacity 262,144 in a temporary directory. Wrapped:
     ApexDriver.__init__ keeps the driver and splits its swaps
@@ -3301,17 +3345,11 @@ def phase_legacy(seed: int) -> dict:
     from ape_x_dqn_tpu_torch.runtime.driver import ApexDriver
 
     seen: dict = {}
-    flushes: list[float] = []
-    orig = (ApexDriver.__init__, ApexDriver._add_block)
+    orig = ApexDriver.__init__
 
     def driver_init(self, *a, **kw):
-        orig[0](self, *a, **kw)
+        orig(self, *a, **kw)
         seen["driver"] = self
-
-    def add_block(self, take, count):
-        t0 = time.perf_counter()
-        orig[1](self, take, count)
-        flushes.append(time.perf_counter() - t0)
 
     argv = ["--config", "pong", "--seed", str(seed), "--total-env-frames",
             "60000", "--wall-clock-limit", str(LEGACY_WALL_S),
@@ -3321,12 +3359,13 @@ def phase_legacy(seed: int) -> dict:
     threads_before = {t.ident for t in threading.enumerate()}
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    ApexDriver.__init__, ApexDriver._add_block = driver_init, add_block
+    ApexDriver.__init__ = driver_init
     fg.gather_rows.launches = 0       # count the main path's run only
     try:
-        out, wall = run_cli(argv)
+        with timed_flushes() as flushes:
+            out, wall = run_cli(argv)
     finally:
-        ApexDriver.__init__, ApexDriver._add_block = orig
+        ApexDriver.__init__ = orig
     launches = {"gather_rows": fg.gather_rows.launches}
     left = [t.name for t in threading.enumerate()
             if t.ident not in threads_before]
@@ -3344,6 +3383,7 @@ def phase_legacy(seed: int) -> dict:
     check(out["grad_steps"] > 0 and launches["gather_rows"] > 0,
           f"legacy: grad_steps {out['grad_steps']}, launches {launches}")
     ms = np.asarray(flushes) * 1e3
+    ADD_MS["legacy"] = float(np.median(ms))
     log(f"legacy: `{' '.join(argv)}`: frames={out['frames']} "
         f"frames/s={out['frames'] / wall:.1f} (apex: "
         f"{RATES.get('apex', math.nan):.1f}); {len(ms)} block adds, host "
@@ -3358,6 +3398,31 @@ def phase_legacy(seed: int) -> dict:
     gc.collect()
     torch.cuda.empty_cache()
     return launches
+
+
+@contextlib.contextmanager
+def timed_swaps():
+    """ApexDriver._ship_staged_cold timed on the host clock, per block:
+    each call's seconds over its g blocks (one eviction swap a block).
+    Yields the list of seconds per swap."""
+    from ape_x_dqn_tpu_torch.runtime.driver import ApexDriver
+
+    orig = ApexDriver._ship_staged_cold
+    per: list[float] = []
+
+    def ship_cold(self, views, g):
+        t0 = time.perf_counter()
+        try:
+            return orig(self, views, g)
+        finally:
+            dt = (time.perf_counter() - t0) / g
+            per.extend([dt] * g)
+
+    ApexDriver._ship_staged_cold = ship_cold
+    try:
+        yield per
+    finally:
+        ApexDriver._ship_staged_cold = orig
 
 
 def phase_dist_cold(seed: int) -> dict:
@@ -3387,8 +3452,9 @@ def phase_dist_cold(seed: int) -> dict:
     t0 = time.perf_counter()
     driver = ApexDriver(cfg, device=dev, mesh_devices=[dev, dev])
     fg.gather_rows.launches = 0       # count the main path's run only
-    out = driver.run(total_env_frames=DIST_COLD_FRAMES,
-                     wall_clock_limit_s=DIST_COLD_WALL_S)
+    with timed_swaps() as swaps:
+        out = driver.run(total_env_frames=DIST_COLD_FRAMES,
+                         wall_clock_limit_s=DIST_COLD_WALL_S)
     torch.cuda.synchronize()
     wall = time.perf_counter() - t0
     launches = {"gather_rows": fg.gather_rows.launches}
@@ -3417,10 +3483,16 @@ def phase_dist_cold(seed: int) -> dict:
           and (rs.size == TIERS_CAPACITY // 2).all(),
           f"dist_cold: shard cursors {rs.pos}/{rs.size} vs device "
           f"{rs.pos_dev.tolist()}/{rs.size_dev.tolist()}")
+    ms = np.asarray(swaps) * 1e3
+    SWAP_MS["dist_cold"] = float(np.median(ms)) if len(ms) else math.nan
+    RATES["dist_cold"] = out["frames"] / wall
     log(f"dist_cold: the tiers: configuration at dp=2 (sets {sets}): "
         f"frames={out['frames']} frames/s={out['frames'] / wall:.1f} "
         f"(tiers: {RATES.get('tiers', math.nan):.1f}); grad_steps="
-        f"{out['grad_steps']}; evicted per shard {ev.tolist()} = stored "
+        f"{out['grad_steps']}; {len(ms)} swaps, host ms per swap median "
+        f"{SWAP_MS['dist_cold']:.2f} p90 "
+        f"{np.percentile(ms, 90) if len(ms) else math.nan:.2f}; "
+        f"evicted per shard {ev.tolist()} = stored "
         f"{st.tolist()} + dropped {dr.tolist()}; recalled "
         f"{ct.get('recalled')}; swap graph replays {graphs}; "
         f"launches={launches}; peak_mem_gb={peak_gb:.2f}; {wall:.2f} s; "
@@ -3460,11 +3532,12 @@ def free_port() -> int:
 
 
 def mh_ranks(name: str, argv: list[str], nproc: int = 2,
-             device: str | None = None) -> list[dict]:
+             device: str | list | None = None) -> list[dict]:
     """`nproc` ranks of `python -m ape_x_dqn_tpu_torch.runtime.train ARGV
     --device DEVICE --coordinator 127.0.0.1:<free port> --num-processes
     NPROC --process-id i`, started together (`device` None: the gloo
-    pairs' one card, cuda:0, shared; "cuda" places rank i on card i);
+    pairs' one card, cuda:0, shared; "cuda" places rank i on card i; a
+    list gives each rank its own, "cuda:0,cuda:1" a rank's cards);
     each must exit 0 within MH_TIMEOUT_S (a rank that dies fails the
     phase, and its survivor's collective fails or its StallWatchdog ends
     it). Each rank writes to files, not pipes (a full pipe would stall a
@@ -3474,6 +3547,7 @@ def mh_ranks(name: str, argv: list[str], nproc: int = 2,
     -> their summaries, with each one's stderr header."""
     if device is None:
         device = DEVICE if DEVICE == "cpu" else "cuda:0"
+    devices = device if isinstance(device, list) else [device] * nproc
     port = free_port()
     logs = tempfile.mkdtemp(prefix=f"apex-chip-smoke-{name}-")
     files = [(open(os.path.join(logs, f"rank{pid}.out"), "w+"),
@@ -3482,7 +3556,7 @@ def mh_ranks(name: str, argv: list[str], nproc: int = 2,
     env = dict(os.environ, PYTHONFAULTHANDLER="1")
     procs = [subprocess.Popen(
         [sys.executable, "-m", "ape_x_dqn_tpu_torch.runtime.train", *argv,
-         "--device", device, "--coordinator", f"127.0.0.1:{port}",
+         "--device", devices[pid], "--coordinator", f"127.0.0.1:{port}",
          "--num-processes", str(nproc), "--process-id", str(pid)],
         stdout=out, stderr=err, env=env,
         cwd=os.path.dirname(os.path.abspath(__file__)))
@@ -3527,7 +3601,7 @@ def mh_ranks(name: str, argv: list[str], nproc: int = 2,
 
 
 def mh_check(name: str, outs: list[dict], steps0: int = 0,
-             backend: str = "gloo") -> dict:
+             backend: str = "gloo", cards: bool = False) -> dict:
     """The lockstep invariants of a multi-rank run and what it measured:
     equal grad_steps, frames, loss and param checksum on every rank;
     each rank fed experience, exchanged once per SGD step of this run
@@ -3537,6 +3611,9 @@ def mh_check(name: str, outs: list[dict], steps0: int = 0,
     its add graph, launched the gather, and peaked under its memory
     budget (less its NCCL part, which lies outside the allocator and
     `nccl_probe` holds apart) on a card that holds every rank on it.
+    `cards`: each rank holds several cards (`mh_cards`): its macro-step
+    replays 5 graphs a card group (the in-process level of the exchange
+    runs between them), and every card's peak is held to its budget.
     -> the run's numbers."""
     nproc = len(outs)
     key = [(o["grad_steps"], o["frames"], o["loss"],
@@ -3564,6 +3641,9 @@ def mh_check(name: str, outs: list[dict], steps0: int = 0,
         check(ex["calls"] == steps, f"{name}: rank {pid} exchanged "
               f"{ex['calls']} times for {steps} SGD steps")
         one_graph = bool(graphs) and all(n == 1 for n in graphs)
+        if cards:
+            groups = len(mh["cards"]["rows_per_card"])
+            one_graph = bool(graphs) and max(graphs) == 5 * groups
         check((one_graph if backend == "nccl"
                else any(n > 1 for n in graphs))
               and mh["add_graph_replays"] > 0,
@@ -3580,6 +3660,12 @@ def mh_check(name: str, outs: list[dict], steps0: int = 0,
               f"({nccl_budget} B of it NCCL's)")
         check(mh["gather_rows_launches"] > 0,
               f"{name}: rank {pid} never launched gather_rows")
+        for dev, c in (mh["cards"]["per_card"].items() if cards else ()):
+            check(c["peak_mem_bytes"] <= c["budget_bytes"] - c["nccl_bytes"],
+                  f"{name}: rank {pid}'s card {dev} peaked at "
+                  f"{c['peak_mem_bytes'] / 1e9:.2f} GB, its budget less "
+                  f"NCCL's part {(c['budget_bytes'] - c['nccl_bytes']) / 1e9:.2f}"
+                  f" GB")
         calls = max(ex["calls"], 1)
         window = max(o["train_wall_s"], 1e-9)
         per.append({
@@ -3750,26 +3836,33 @@ def nccl_probe_rank(rank: int, nproc: int, port: int, numel: int,
             1, nproc + 1, dtype=torch.float32, device=dev)[:, None]
             .expand(nproc, numel)))
         # the device time: calls queued behind a device sleep, timed from
-        # the end of the first one (which waits for every peer's sleep)
+        # the end of the first one (which waits for every peer's sleep);
+        # a host that enqueued them slower than the sleep timed itself,
+        # so every rank times again behind a 4x longer sleep (agreed by
+        # a collective, so the ranks' calls stay alike)
         multihost.barrier()
         stream = torch.cuda.current_stream(dev)
-        slept, start, end = (torch.cuda.Event(enable_timing=True)
-                             for _ in range(3))
-        slept.record(stream)
-        torch.cuda._sleep(NCCL_SLEEP_CYCLES)
-        ex(send, out)
-        start.record(stream)
-        t0 = time.perf_counter()
-        for _ in range(NCCL_TIMED_CALLS):
+        for attempt in range(NCCL_PROBE_ATTEMPTS):
+            slept, start, end = (torch.cuda.Event(enable_timing=True)
+                                 for _ in range(3))
+            slept.record(stream)
+            torch.cuda._sleep(NCCL_SLEEP_CYCLES * 4 ** attempt)
             ex(send, out)
-        enqueue_ms = (time.perf_counter() - t0) * 1e3
-        end.record(stream)
-        end.synchronize()
+            start.record(stream)
+            t0 = time.perf_counter()
+            for _ in range(NCCL_TIMED_CALLS):
+                ex(send, out)
+            enqueue_ms = (time.perf_counter() - t0) * 1e3
+            end.record(stream)
+            end.synchronize()
+            sleep_ms = slept.elapsed_time(start)
+            if multihost.global_min_scalar(int(enqueue_ms < sleep_ms)):
+                break
         res = {"rank": rank, "right": right, "nccl_bytes_eager": eager,
                "nccl_bytes": graphed,
                "device_ms_per_call": start.elapsed_time(end)
                / NCCL_TIMED_CALLS,
-               "sleep_ms": slept.elapsed_time(start),
+               "sleep_ms": sleep_ms, "attempts": attempt + 1,
                "enqueue_ms": enqueue_ms, "calls": ex.stats()["calls"]}
         with open(os.path.join(out_dir, f"rank{rank}.json"), "w") as f:
             json.dump(res, f)
@@ -3812,7 +3905,8 @@ def nccl_probe(nproc: int, numel: int) -> dict:
             ranks.append(json.load(f))
     shutil.rmtree(out_dir, ignore_errors=True)
     for res in ranks:
-        check(res["right"] and res["calls"] == 2 + NCCL_TIMED_CALLS,
+        check(res["right"] and res["calls"] == 1 + res["attempts"]
+              * (1 + NCCL_TIMED_CALLS),
               f"nccl_probe: rank {res['rank']} gathered wrong values or "
               f"miscounted: {res}")
         check(res["nccl_bytes"] <= NCCL_DEVICE_BYTES,
@@ -3832,13 +3926,16 @@ def nccl_probe(nproc: int, numel: int) -> dict:
         f"{[round(r['device_ms_per_call'], 5) for r in ranks]} ms a call "
         f"({NCCL_TIMED_CALLS} calls behind a "
         f"{[round(r['sleep_ms'], 2) for r in ranks]} ms device sleep, "
-        f"enqueued in {[round(r['enqueue_ms'], 2) for r in ranks]} ms), "
+        f"enqueued in {[round(r['enqueue_ms'], 2) for r in ranks]} ms; "
+        f"timed {ranks[0]['attempts']} time(s)), "
         f"{[round(numel * 4 * nproc / r['device_ms_per_call'] / 1e6, 1) for r in ranks]} "
         f"GB/s received; card {CARD}")
     return {"ranks": ranks}
 
 
-def phase_mh_nccl(seed: int, gloo_bytes: int) -> dict:
+def phase_mh_nccl(seed: int, gloo_bytes: int | None,
+                  counts: tuple | None = None, probe: bool = True,
+                  steps: int = MH_NCCL_STEPS) -> dict:
     """r2d2 at full width over NCCL, one rank per card, each through the
     CLI with `--device cuda` (rank i on card i): a world of one (the
     whole dp=4 mesh on card 0), then, where two or more cards are
@@ -3847,16 +3944,19 @@ def phase_mh_nccl(seed: int, gloo_bytes: int) -> dict:
     `nccl_probe` at the same placement. Each run: the backend nccl, one
     graph per macro-step, the lockstep invariants, one exchange per SGD
     step of `gloo_bytes` (mh_r2d2's: the same model), each rank's peak
-    under its budget. -> the gather launches (every rank of every
-    run)."""
+    under its budget. `counts`: the rank counts to run (default: 1, and
+    2 with two cards or more); `probe` off skips `nccl_probe`; a None
+    `gloo_bytes` skips the bytes' comparison (--cards-only runs the two
+    one-card ranks alone, cut to `steps`). -> the gather launches (every
+    rank of every run)."""
     cards = 1 if DEVICE == "cpu" else torch.cuda.device_count()
     rates, launches = {}, 0
-    for nproc in ((1, 2) if cards >= 2 else (1,)):
-        if DEVICE != "cpu":
+    for nproc in counts or ((1, 2) if cards >= 2 else (1,)):
+        if DEVICE != "cpu" and probe:
             nccl_probe(nproc, gloo_bytes // 4)
         argv = ["--config", "r2d2", "--seed", str(seed),
                 "--total-env-frames", str(MH_NCCL_FRAMES),
-                "--max-grad-steps", str(MH_NCCL_STEPS),
+                "--max-grad-steps", str(steps),
                 "--set", f"actors.num_actors={MH_NCCL_ACTORS // nproc}"]
         for s_ in MH_NCCL_SETS:
             argv += ["--set", s_]
@@ -3864,21 +3964,24 @@ def phase_mh_nccl(seed: int, gloo_bytes: int) -> dict:
         outs = mh_ranks("mh_nccl", argv, nproc, DEVICE)
         wall = time.perf_counter() - t0
         got = mh_check("mh_nccl", outs, backend="nccl")
-        check(all(r["bytes_per_step"] == gloo_bytes for r in got["ranks"]),
+        check(gloo_bytes is None or all(
+            r["bytes_per_step"] == gloo_bytes for r in got["ranks"]),
               f"mh_nccl: {[r['bytes_per_step'] for r in got['ranks']]} B "
               f"a step, mh_r2d2 exchanged {gloo_bytes}")
         rates[nproc] = min(r["grad_steps_per_s"] for r in got["ranks"])
+        RATES[f"mh_nccl_{nproc}"] = rates[nproc]
+        RATES["mh_nccl_bytes"] = got["ranks"][0]["bytes_per_step"]
         launches += got["gather_rows"]
         mh_line("mh_nccl", f"`{' '.join(argv)}`", outs, got, wall,
                 "dist: r2d2 learner alone, one process: "
                 f"{RATES.get('dist_r2d2_graph', math.nan):.2f}",
                 backend="nccl")
-    if 2 in rates:
+    if 2 in rates and 1 in rates:
         log(f"mh_nccl: dp_scaling_efficiency "
             f"{rates[2] / (2 * rates[1]):.4f} (two ranks on two cards "
             f"{rates[2]:.2f} grad-steps/s, one rank {rates[1]:.2f}); card "
             f"{CARD}")
-    else:
+    elif 2 not in rates:
         log(f"mh_nccl: dp_scaling_efficiency not measured: {cards} card "
             f"visible, and two ranks need two")
     return {"gather_rows": launches}
@@ -4169,6 +4272,9 @@ def cards_cli(seed: int, name: str, preset: str, dp: int, tp: int,
         f"dropped {out['ingest_dropped']}; "
         f"peak/budget GB by card {mem}; {wall:.2f} s; card {CARD}")
     RATES[name] = fps
+    if starts["dispatch"]:
+        RATES[f"{name}_gsps"] = out["grad_steps"] / max(
+            t0 + wall - starts["dispatch"][0], 1e-9)
     gc.collect()
     torch.cuda.empty_cache()
     return {"gather_rows": launches}
@@ -4245,17 +4351,291 @@ def cards_sites(seed: int) -> list[dict]:
                             seq_m // r2_dp)]
 
 
+def phase_batch_study(dev) -> dict:
+    """`python -m ape_x_dqn_tpu_torch.utils.batch_study` with
+    BATCH_STUDY_ARGS on this card, in this process (its JSON lines and
+    table captured, so that this script's only JSON lines stay the last
+    two): the pong learner at full width over a frame ring, its
+    train_many dispatches replaying captured graphs. Checks: the four
+    measurements in A-B-B-A order, each with the original's keys,
+    finite positive rates, and the gather launched. -> its launches."""
+    from ape_x_dqn_tpu_torch.obs.profiling import device_peaks
+    from ape_x_dqn_tpu_torch.ops import frame_gather as fg
+    from ape_x_dqn_tpu_torch.utils import batch_study
+
+    argv = [*BATCH_STUDY_ARGS, "--device", str(dev)]
+    out, err = io.StringIO(), io.StringIO()
+    fg.gather_rows.launches = 0       # count the main path's run only
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(out), contextlib.redirect_stderr(err):
+        rc = batch_study.main(argv)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = {"gather_rows": fg.gather_rows.launches}
+    check(rc == 0, f"batch_study exited {rc}: {err.getvalue()[-2000:]}")
+    rows = [json.loads(x) for x in out.getvalue().strip().splitlines()]
+    batches = [int(b) for b in
+               BATCH_STUDY_ARGS[BATCH_STUDY_ARGS.index("--batches") + 1]
+               .split(",")]
+    keys = {"batch_size", "grad_steps_per_s", "spread", "samples_per_s",
+            "achieved_tflops", "mfu", "order_pos"}
+    check([r.get("batch_size") for r in rows] == batches + batches[::-1]
+          and all(set(r) == keys and r["grad_steps_per_s"] > 0
+                  and math.isfinite(r["mfu"]) for r in rows),
+          f"batch_study: its lines {rows}")
+    check(launches["gather_rows"] > 0, "batch_study: the gather never "
+          "launched")
+    table = [ln for ln in err.getvalue().splitlines()
+             if not ln.startswith("[")]
+    # its four learners' streams each left a cuBLAS workspace, which the
+    # later phases' peaks would carry: released here
+    held = held_memory()
+    log(f"batch_study: `python -m ape_x_dqn_tpu_torch.utils.batch_study "
+        f"{' '.join(argv)}` (A-B-B-A): "
+        + "; ".join(json.dumps(r) for r in rows)
+        + f"; table {table}; MFU against the card's dense bf16 peak "
+        f"{device_peaks(dev)[0] / 1e12:.1f} TFLOP/s; launches={launches}; "
+        f"{wall:.2f} s ({'within' if wall <= BATCH_STUDY_LIMIT_S else 'OVER'}"
+        f" its {BATCH_STUDY_LIMIT_S} s); held after it "
+        f"{held['allocated'] / 1e9:.3f} GB, "
+        f"{held['allocated_after_cublas'] / 1e9:.3f} GB with cuBLAS's "
+        f"workspaces released; card {CARD}")
+    return launches
+
+
+def cards_driver_run(name: str, argv: list[str], timers) -> tuple:
+    """`argv` through the CLI in this process with ApexDriver.__init__
+    wrapped to keep the driver and `timers` (context managers yielding
+    lists of seconds) entered around the run; the gather's launches
+    counted from zero. -> (summary, wall, driver, launches, the
+    timers' lists)."""
+    from ape_x_dqn_tpu_torch.ops import frame_gather as fg
+    from ape_x_dqn_tpu_torch.runtime.driver import ApexDriver
+
+    seen: dict = {}
+    orig = ApexDriver.__init__
+
+    def driver_init(self, *a, **kw):
+        orig(self, *a, **kw)
+        seen["driver"] = self
+
+    threads_before = {t.ident for t in threading.enumerate()}
+    ApexDriver.__init__ = driver_init
+    try:
+        with contextlib.ExitStack() as stack:
+            lists = [stack.enter_context(t) for t in timers]
+            fg.gather_rows.launches = 0   # count the main path's run only
+            fg.gather_rows.by_device.clear()
+            out, wall = run_cli(argv)
+    finally:
+        ApexDriver.__init__ = orig
+    left = [t.name for t in threading.enumerate()
+            if t.ident not in threads_before]
+    driver = seen.pop("driver")
+    check(out["actor_errors"] == [] and out["loop_errors"] == [],
+          f"{name}: actor_errors {out['actor_errors']}, loop_errors "
+          f"{out['loop_errors']}")
+    check(not left, f"{name}: driver threads still running: {left}")
+    check(driver.cards and out.get("mesh") is not None,
+          f"{name}: not a mesh over the cards")
+    per_card = out["mesh"]["per_card"]
+    owners = set(out["mesh"]["rows_per_card"])
+    check(out["grad_steps"] > 0 and all(
+        per_card[o]["gather_launches"] > 0 for o in owners),
+          f"{name}: grad_steps {out['grad_steps']}, the gather by card "
+          f"{ {c: v['gather_launches'] for c, v in per_card.items()} }")
+    return out, wall, driver, fg.gather_rows.launches, lists
+
+
+@contextlib.contextmanager
+def timed_flushes():
+    """ApexDriver._add_block (the legacy path's add of one flushed
+    block) timed on the host clock. Yields the list of seconds."""
+    from ape_x_dqn_tpu_torch.runtime.driver import ApexDriver
+
+    orig = ApexDriver._add_block
+    secs: list[float] = []
+
+    def add_block(self, take, count):
+        t0 = time.perf_counter()
+        try:
+            return orig(self, take, count)
+        finally:
+            secs.append(time.perf_counter() - t0)
+
+    ApexDriver._add_block = add_block
+    try:
+        yield secs
+    finally:
+        ApexDriver._add_block = orig
+
+
+def cards_cold(seed: int, n: int) -> dict:
+    """cards (e): atari57_apex through the CLI at dp = the `n` cards,
+    tp=1, with the tiers: phase's RAM and disk cold stores (as
+    phase_dist_cold sets them), 8 actors, CARDS_COLD_FRAMES. Checks: a
+    clean end, the closure per shard with every shard swapping, every
+    card's swap graphs replayed, each card group's ring full with its
+    host and device cursors equal, the gather on every owner. Prints
+    host ms per swap beside dist_cold:'s one card. -> its launches."""
+    tmp = tempfile.mkdtemp(prefix="apex-chip-smoke-cards-cold-")
+    argv = ["--config", "atari57_apex", "--seed", str(seed),
+            "--device", DEVICE, "--total-env-frames", str(CARDS_COLD_FRAMES),
+            "--wall-clock-limit", str(CARDS_COLD_WALL_S),
+            "--set", f"parallel.dp={n}", "--set", "parallel.tp=1"]
+    for s_ in (f"replay.capacity={TIERS_CAPACITY}",
+               f"replay.min_fill={TIERS_CAPACITY // 2}",
+               f"replay.cold_tier_capacity={TIERS_CAPACITY}",
+               f"replay.cold_tier_disk_dir={os.path.join(tmp, 'disk')}",
+               f"replay.cold_tier_disk_capacity={16 * TIERS_CAPACITY}",
+               "actors.num_actors=8", *TIERS_SETS):
+        argv += ["--set", s_]
+    try:
+        out, wall, driver, launches, (swaps,) = cards_driver_run(
+            "cards_cold", argv, [timed_swaps()])
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    ct = out.get("cold_tier") or {}
+    ev, st, dr = (np.asarray(ct.get(f"{k}_per_shard", []))
+                  for k in ("evicted", "stored", "dropped"))
+    check(ev.shape == (n,) and (ev > 0).all()
+          and np.array_equal(ev, st + dr) and ev.sum() == ct["evicted"]
+          and ct["evicted"] == ct["stored"] + ct["dropped"],
+          f"cards_cold: the per-shard closure fails or a shard never "
+          f"swapped: {ct}")
+    by_card = ct.get("swap_graph_replays_by_card", {})
+    check(len(by_card) == n and all(
+        g.get("evict", 0) > 0 and g.get("add_at", 0) > 0
+        for g in by_card.values()),
+          f"cards_cold: a card's swap graphs never replayed: {by_card}")
+    for grp in driver.state.groups:
+        rs = grp.replay
+        check(rs.pos.tolist() == rs.pos_dev.tolist()
+              and rs.size.tolist() == rs.size_dev.tolist()
+              and (rs.size == driver.capacity // n).all(),
+              f"cards_cold: a group's cursors {rs.pos}/{rs.size} vs "
+              f"device {rs.pos_dev.tolist()}/{rs.size_dev.tolist()}")
+    ms = np.asarray(swaps) * 1e3
+    SWAP_MS["cards_cold"] = float(np.median(ms)) if len(ms) else math.nan
+    log(f"cards_cold: `{' '.join(argv)}` on the visible cards: "
+        f"frames={out['frames']} frames/s={out['frames'] / wall:.1f} "
+        f"(dist_cold: {RATES.get('dist_cold', math.nan):.1f}); "
+        f"grad_steps={out['grad_steps']}; evicted per shard {ev.tolist()} "
+        f"= stored {st.tolist()} + dropped {dr.tolist()}; recalled "
+        f"{ct.get('recalled')}; swaps by card (evict, add_at replays) "
+        f"{ {c: (g['evict'], g['add_at']) for c, g in by_card.items()} }; "
+        f"{len(ms)} swaps, host ms per swap median "
+        f"{SWAP_MS['cards_cold']:.2f} p90 "
+        f"{np.percentile(ms, 90) if len(ms) else math.nan:.2f} (dist_cold, "
+        f"one card: {SWAP_MS.get('dist_cold', math.nan):.2f}); disk "
+        f"{json.dumps(ct.get('disk'))}; launches {launches} by card "
+        f"{ {c: v['gather_launches'] for c, v in out['mesh']['per_card'].items()} }"
+        f"; {wall:.2f} s; card {CARD}")
+    del driver
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"gather_rows": launches}
+
+
+def cards_legacy(seed: int, n: int) -> dict:
+    """cards (f): pong's legacy staging through the CLI at dp = the `n`
+    cards, tp=1 (LEGACY_SETS, CARDS_LEGACY_WALL_S): each flushed
+    block's rows go from the host to their owner card. Checks: a clean
+    end, no stager, frames in every card group's replay, the gather on
+    every owner. Prints host ms a flush beside legacy:'s one card. ->
+    its launches."""
+    argv = ["--config", "pong", "--seed", str(seed), "--total-env-frames",
+            "60000", "--wall-clock-limit", str(CARDS_LEGACY_WALL_S),
+            "--device", DEVICE, "--set", f"parallel.dp={n}",
+            "--set", "parallel.tp=1"]
+    for s_ in LEGACY_SETS:
+        argv += ["--set", s_]
+    out, wall, driver, launches, (flushes,) = cards_driver_run(
+        "cards_legacy", argv, [timed_flushes()])
+    check(driver._stager is None, "cards_legacy: the stager was built")
+    sizes = out["replay_shards"]["sizes"]
+    check(flushes and len(sizes) == n and min(sizes) == max(sizes) > 0,
+          f"cards_legacy: {len(flushes)} flushes, shard sizes {sizes}")
+    ms = np.asarray(flushes) * 1e3
+    log(f"cards_legacy: `{' '.join(argv)}` on the visible cards: "
+        f"frames={out['frames']} frames/s={out['frames'] / wall:.1f}; "
+        f"{len(ms)} block adds, host ms a flush median {np.median(ms):.2f} "
+        f"p90 {np.percentile(ms, 90):.2f} (legacy, one card: "
+        f"{ADD_MS.get('legacy', math.nan):.2f}); shard sizes {sizes}; "
+        f"grad_steps={out['grad_steps']}; dropped {out['ingest_dropped']}; "
+        f"launches {launches}; {wall:.2f} s; card {CARD}")
+    del driver
+    gc.collect()
+    torch.cuda.empty_cache()
+    return {"gather_rows": launches}
+
+
+def mh_cards(seed: int, n: int) -> dict | None:
+    """cards (g): two CLI ranks of r2d2 at full width over NCCL, rank r
+    holding cards [r * n/2, (r + 1) * n/2) (`--device cuda:0,cuda:1`
+    and `cuda:2,cuda:3` on four): dp=4 x tp=2, two rows a rank,
+    column-split over its cards. Checks: the lockstep invariants and
+    equal CRC-32, backend nccl, one cross-rank exchange a step, 5
+    graphs a card group per macro-step, every card's peak under its
+    budget. Prints grad-steps/s beside mh_nccl's two one-card ranks and
+    cards_r2d2, the exchange's bytes, peak against budget by card. On
+    fewer than four cards: skipped, None."""
+    if n < 4:
+        log(f"mh_cards: skipped ({n} cards visible; two ranks of two "
+            f"cards need four)")
+        return None
+    half = n // 2
+    devices = [",".join(f"cuda:{r * half + i}" for i in range(half))
+               for r in range(2)]
+    argv = ["--config", "r2d2", "--seed", str(seed),
+            "--total-env-frames", str(MH_CARDS_FRAMES),
+            "--max-grad-steps", str(MH_CARDS_STEPS),
+            "--set", f"actors.num_actors={MH_NCCL_ACTORS // 2}"]
+    for s_ in MH_NCCL_SETS:
+        argv += ["--set", s_]
+    t0 = time.perf_counter()
+    outs = mh_ranks("mh_cards", argv, 2, devices)
+    wall = time.perf_counter() - t0
+    got = mh_check("mh_cards", outs, backend="nccl", cards=True)
+    want = RATES.get("mh_nccl_bytes")
+    check(want is None or all(r["bytes_per_step"] == want
+                              for r in got["ranks"]),
+          f"mh_cards: {[r['bytes_per_step'] for r in got['ranks']]} B a "
+          f"step, mh_nccl exchanged {want}")
+    per_card = {c: f"{v['peak_mem_bytes'] / 1e9:.2f}/"
+                   f"{v['budget_bytes'] / 1e9:.2f}"
+                for o in outs
+                for c, v in o["multihost"]["cards"]["per_card"].items()}
+    mh_line("mh_cards", f"`{' '.join(argv)}` with --device {devices}",
+            outs, got, wall,
+            f"mh_nccl, two ranks of one card: "
+            f"{RATES.get('mh_nccl_2', math.nan):.2f}; cards_r2d2, one "
+            f"process over the cards: "
+            f"{RATES.get('cards_r2d2_gsps', math.nan):.2f}",
+            backend="nccl")
+    log(f"mh_cards: layout {outs[0]['multihost']['cards']['rows_per_card']}"
+        f" (local rows), tp partners "
+        f"{[o['multihost']['cards']['tp_partners'] for o in outs]}; NCCL "
+        f"across ranks {got['ranks'][0]['bytes_per_step']} B sent a step "
+        f"({json.dumps(outs[0]['multihost']['exchange'])}); peak/budget "
+        f"GB by card {per_card}; card {CARD}")
+    return {"gather_rows": got["gather_rows"]}
+
+
+
 def phase_cards(dev, seed: int) -> dict | None:
     """The one-process mesh over distinct cards, where two or more are
     visible: (a) `cards_learners`; (b) atari57_apex through the CLI
     with dp = the cards, tp=1 (dp over the cards); (c) r2d2 through
     the CLI with dp = cards / 2, tp=2 (tp across the cards, through
-    the LSTM), both cut as CARDS_* say; (d) `cards_server`;
-    and the gather at the per-card shapes (`cards_sites`). On one card:
-    skipped, None."""
+    the LSTM), both cut as CARDS_* say; (d) `cards_server`; (e)
+    `cards_cold`; (f) `cards_legacy`; (g) `mh_cards` (four cards or
+    more); and the gather at the per-card shapes (`cards_sites`). On
+    one card: each part skipped, None."""
     n = torch.cuda.device_count()
     if n < 2:
-        log(f"cards: skipped ({n} card visible)")
+        for part in ("cards", "cards_cold", "cards_legacy", "mh_cards"):
+            log(f"{part}: skipped ({n} card visible)")
         return None
     t0 = time.perf_counter()
     out = {"learners": cards_learners(dev, seed)}
@@ -4267,6 +4647,18 @@ def phase_cards(dev, seed: int) -> dict | None:
                                   max(n // 2, 1), 2, DIST_R2D2_SETS,
                                   CARDS_R2D2_FRAMES, CARDS_R2D2_WALL_S)
     cards_server(seed)
+    for name, part in (("cards_cold", cards_cold),
+                       ("cards_legacy", cards_legacy)):
+        t1 = time.perf_counter()
+        out[name] = part(seed, n)
+        log(f"{name}: {time.perf_counter() - t1:.2f} s")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t1 = time.perf_counter()
+    mh = mh_cards(seed, n)
+    if mh is not None:
+        out["mh_cards"] = mh
+        log(f"mh_cards: {time.perf_counter() - t1:.2f} s")
     out["sites"] = cards_sites(seed)
     log(f"cards: {time.perf_counter() - t0:.2f} s")
     return out
@@ -4305,8 +4697,9 @@ def memory_table() -> list[str]:
 def cards_only(dev, seed: int) -> int:
     """`--cards-only`, on two or more cards: atari57_apex through
     ApexDriver on its dp=4 x tp=2 mesh of card 0 at cards_apex's depth
-    (`dist_driver` with CARDS_APEX_SETS and CARDS_APEX_FRAMES), then the
-    cards phase, so that the one-card and the over-cards rates and
+    (`dist_driver` with CARDS_APEX_SETS and CARDS_APEX_FRAMES), on four
+    cards or more mh_nccl's two one-card ranks at mh_cards' depth, then
+    the cards phase, so that the one-card and the over-cards rates and
     windows come from one call. Prints no contract line. -> 0 when
     every check passed."""
     n = torch.cuda.device_count()
@@ -4322,6 +4715,16 @@ def cards_only(dev, seed: int) -> int:
         failed.append(f"dist_apex: {e!r}")
     log(f"dist_apex (one card, cards_apex's depth): "
         f"{time.perf_counter() - t0:.2f} s")
+    if n >= 4:
+        # mh_cards' comparison: two ranks of one card each, cut alike
+        t1 = time.perf_counter()
+        try:
+            phase_mh_nccl(seed, None, counts=(2,), probe=False,
+                          steps=MH_CARDS_STEPS)
+        except Exception as e:
+            failed.append(f"mh_nccl: {e!r}")
+        log(f"mh_nccl (two ranks of one card, mh_cards' depth): "
+            f"{time.perf_counter() - t1:.2f} s")
     try:
         out = phase_cards(dev, seed)
         log("cards sites: " + json.dumps(out["sites"]))
@@ -4372,6 +4775,10 @@ def main() -> int:
     t0 = time.perf_counter()
     ring = phase_main(dev, args.seed)
     log(f"main: {time.perf_counter() - t0:.2f} s")
+    # 5b. the learner's batch-size study, cut
+    t0 = time.perf_counter()
+    study = phase_batch_study(dev)
+    log(f"batch_study: {time.perf_counter() - t0:.2f} s")
     # 6. the Ape-X driver through the default CLI mode
     apex = phase_apex(args.seed)
     # 7. the R2D2 preset through the same driver
@@ -4458,8 +4865,8 @@ def main() -> int:
         cards["sites"][0]["launches"] = cards["cards_apex"]["gather_rows"]
         cards["sites"][1]["launches"] = cards["cards_r2d2"]["gather_rows"]
         sites += cards["sites"]
-        by_path = {k: cards[k]["gather_rows"]
-                   for k in ("learners", "cards_apex", "cards_r2d2")}
+        by_path = {k: v["gather_rows"] for k, v in cards.items()
+                   if k != "sites"}
         by_path["cards_learners"] = by_path.pop("learners")
     for site in sites:
         check(site["launches"] > 0, f"gather_rows never launched on the "
@@ -4468,7 +4875,9 @@ def main() -> int:
                          ("resume", resume), ("obs", obs),
                          ("serve", serve), ("tiers", tiers),
                          ("legacy", legacy), ("dist_cold", dist_cold),
-                         *mh.items()):
+                         ("batch_study", study), *mh.items(),
+                         *((k, {"gather_rows": v})
+                           for k, v in by_path.items())):
         check(counts["gather_rows"] > 0, f"gather_rows never launched on "
               f"the {path} path")
     top = sites[2]
@@ -4489,6 +4898,7 @@ def main() -> int:
                                  "dist_r2d2": dist_r2d2["gather_rows"],
                                  "legacy": legacy["gather_rows"],
                                  "dist_cold": dist_cold["gather_rows"],
+                                 "batch_study": study["gather_rows"],
                                  **{k: v["gather_rows"]
                                     for k, v in mh.items()},
                                  **by_path},

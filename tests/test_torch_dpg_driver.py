@@ -11,7 +11,11 @@ original's tests (64x64 nets, a 16,384-slot replay, 2 actors); the
 humanoid case steps the real dm_control physics, which imports here.
 The learning bar is the original's: greedy eval on the native pendulum
 above -400 (a random policy scores about -1400), as a `slow` CPU test
-and as a card test."""
+and as a card test. Over the real dm_control physics (ids with an
+underscore): the original's driver e2e on pendulum swingup (`slow`
+here: about 55 s on the CPU), and its two `slow` bars, eval above 200 on pendulum swingup within 60,000 frames
+and above 90 on walker stand within 120,000, each also as a card case
+(which skips where dm_control is not installed)."""
 
 import json
 
@@ -168,3 +172,69 @@ def test_dpg_improves_pendulum_on_the_card(cuda_device, capsys):
         print(f"\ndpg pendulum bar on the card: eval {out['eval']}; "
               f"frames {out['frames']}, grad_steps {out['grad_steps']}, "
               f"wall {out['wall_s']:.1f} s")
+
+
+# -- the real dm_control physics (ids with an underscore route to the
+# DMControlAdapter): the original's three driver cases over it
+
+def _real(device, env_id, frames, wall, *extra) -> list[str]:
+    return _argv(device, frames, wall, f"env.id={env_id}", *extra)
+
+
+@pytest.mark.slow
+@pytest.mark.skipif(not HAVE_DM_CONTROL, reason="dm_control not installed")
+def test_dpg_driver_real_dm_control_e2e(capsys):
+    """The driver against REAL MuJoCo physics (pendulum swingup): the
+    original's test_dpg_driver_real_dm_control_e2e, paced at one
+    grad-step per frame past min_fill. `slow`: ~55 s on the CPU (the
+    three 1,000-step eval episodes of the real physics), past the 30 s
+    a tier-1 test may take."""
+    out = _cli(capsys, _real("cpu", "pendulum_swingup", 2400, 240,
+                             "learner.steps_per_frame_cap=1.0"))
+    assert out["actor_errors"] == [] and out["loop_errors"] == [], out
+    assert out["grad_steps"] >= 60 and out["frames"] >= 1000, out
+    # deterministic eval on the real physics; swingup rewards lie in
+    # [0, 1] a step, so a return lies in [0, 1000]
+    assert out["eval"] is not None and out["eval"]["episodes"] > 0
+    assert 0.0 <= out["eval"]["mean_return"] <= 1000.0
+
+
+# the original's real-physics bars: (env.id, frames, wall s, eval above)
+REAL_BARS = {"pendulum": ("pendulum_swingup", 60_000, 600, 200.0),
+             "walker_stand": ("walker_stand", 120_000, 900, 90.0)}
+
+
+def _real_bar(capsys, device, which) -> dict:
+    if not HAVE_DM_CONTROL:
+        pytest.skip("dm_control not installed (the real physics)")
+    env_id, frames, wall, above = REAL_BARS[which]
+    out = _cli(capsys, _real(device, env_id, frames, wall))
+    assert out["actor_errors"] == [] and out["loop_errors"] == [], out
+    assert out["eval"] is not None, out
+    assert out["eval"]["mean_return"] > above, out["eval"]
+    return out
+
+
+@pytest.mark.slow
+def test_dpg_improves_real_pendulum(capsys):
+    """The original's bar: greedy eval above 200 on the real pendulum
+    swingup within 60,000 frames (random: ~0-80)."""
+    _real_bar(capsys, "cpu", "pendulum")
+
+
+@pytest.mark.slow
+def test_dpg_improves_real_walker_stand(capsys):
+    """The original's bar: greedy eval above 90 on the real walker
+    stand within 120,000 frames (random: ~25-45)."""
+    _real_bar(capsys, "cpu", "walker_stand")
+
+
+@pytest.mark.slow
+@pytest.mark.cuda
+@pytest.mark.parametrize("which", list(REAL_BARS))
+def test_dpg_improves_real_physics_on_the_card(cuda_device, capsys, which):
+    out = _real_bar(capsys, "cuda", which)
+    with capsys.disabled():
+        print(f"\ndpg {which} bar on the card: eval {out['eval']}; frames "
+              f"{out['frames']}, grad_steps {out['grad_steps']}, wall "
+              f"{out['wall_s']:.1f} s")

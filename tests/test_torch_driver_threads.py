@@ -209,8 +209,9 @@ def test_driver_refuses_what_is_not_ported():
     distinct devices its card groups (parallel/cards.py),
     ingest_zero_copy=False the legacy staging path, and the profiler
     capture and the remediation plane (items 17 and 19) build. Over
-    distinct devices, the cold tier and legacy staging still wait,
-    naming ROADMAP item 6."""
+    two distinct devices the cold tier and legacy staging build too:
+    the cold tier with one ColdStore and a swap per card group, legacy
+    staging without a stager."""
     base = _tiny_cfg()
     dist = ApexDriver(base.replace(parallel=ParallelConfig(dp=2, tp=1)),
                       device="cpu", mesh_devices=["cpu", "cpu"])
@@ -226,14 +227,18 @@ def test_driver_refuses_what_is_not_ported():
     for d in (dist, legacy, cards):
         d.server.stop()
     two = base.replace(parallel=ParallelConfig(dp=2, tp=1))
-    for cfg in (two.replace(replay=ReplayConfig(
-                    kind="prioritized", capacity=2048,
-                    ingest_zero_copy=False)),
-                two.replace(replay=ReplayConfig(
-                    kind="prioritized", capacity=2048,
-                    cold_tier_capacity=1024))):
-        with pytest.raises(NotImplementedError, match="item 6\\b"):
-            ApexDriver(cfg, device="cpu", mesh_devices=["cpu:0", "cpu:1"])
+    for cold, cfg in ((False, two.replace(replay=ReplayConfig(
+                           kind="prioritized", capacity=2048,
+                           ingest_zero_copy=False))),
+                      (True, two.replace(replay=ReplayConfig(
+                          kind="prioritized", capacity=2048,
+                          cold_tier_capacity=1024)))):
+        driver = ApexDriver(cfg, device="cpu",
+                            mesh_devices=["cpu:0", "cpu:1"])
+        assert driver.cards and len(driver.learner.groups) == 2
+        assert (driver._cold is not None) == cold
+        assert (driver._stager is None) == (not cold)
+        driver.server.stop()
     for cfg in (base.replace(profile_dir="prof"),
                 base.replace(remediation=type(base.remediation)(
                     mode="observe"))):

@@ -1,6 +1,8 @@
 """The PyTorch package stands alone: no module of ape_x_dqn_tpu_torch/,
-and not chip_smoke.py, imports jax, flax, optax or anything of the JAX
-package, and importing the port's main path loads no JAX. Its copies of
+and not chip_smoke.py, imports jax, flax, optax, anything of the JAX
+package or the root bench.py (which imports it), no module of the port
+imports chip_smoke.py, and importing the port's main path loads no
+JAX. Its copies of
 configs.py, of the Atari score table and of the native framing codec
 (cpp/framing.cpp) must not drift from the originals, nor its copies of
 the host-only observability and operations modules (obs/registry.py,
@@ -24,7 +26,9 @@ from ape_x_dqn_tpu_torch import configs as torch_configs
 from ape_x_dqn_tpu_torch.utils import metrics as torch_metrics
 
 ROOT = Path(__file__).resolve().parent.parent
-FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ape_x_dqn_tpu")
+FORBIDDEN = ("jax", "jaxlib", "flax", "optax", "ape_x_dqn_tpu", "bench")
+# a module of the port also leaves the chip smoke script alone
+PORT_FORBIDDEN = FORBIDDEN + ("chip_smoke",)
 SOURCES = sorted((ROOT / "ape_x_dqn_tpu_torch").rglob("*.py")) \
     + [ROOT / "chip_smoke.py"]
 
@@ -43,8 +47,10 @@ def _imported_modules(path: Path) -> list[str]:
 @pytest.mark.parametrize("path", SOURCES,
                          ids=[str(p.relative_to(ROOT)) for p in SOURCES])
 def test_no_jax_or_reference_imports(path):
+    forbidden = FORBIDDEN if path.name == "chip_smoke.py" \
+        else PORT_FORBIDDEN
     bad = [m for m in _imported_modules(path)
-           if m.split(".")[0] in FORBIDDEN]
+           if m.split(".")[0] in forbidden]
     assert not bad, f"{path.relative_to(ROOT)} imports {bad}"
 
 
@@ -95,6 +101,8 @@ def test_main_path_import_loads_no_jax():
         "import ape_x_dqn_tpu_torch.parallel.sharding\n"
         "import ape_x_dqn_tpu_torch.parallel.multihost\n"
         "import ape_x_dqn_tpu_torch.runtime.multihost_driver\n"
+        "import ape_x_dqn_tpu_torch.parallel.cards\n"
+        "import ape_x_dqn_tpu_torch.utils.batch_study\n"
         "bad = [m for m in sys.modules if m.split('.')[0] in %r]\n"
         "assert not bad, bad\n" % (str(ROOT), FORBIDDEN))
     env = {"PATH": "/usr/bin:/bin", "PYTHONNOUSERSITE": "1"}
