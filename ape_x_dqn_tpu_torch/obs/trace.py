@@ -28,8 +28,17 @@ Design constraints:
 The no-op twin `NullTracer` keeps every call site branch-free when
 tracing is off (ObsConfig.trace_path empty / obs disabled).
 
+The clock: a span file carries ``baseTimeNanoseconds``, the Unix-epoch
+time of the tracer's construction, read once beside `perf_counter`, and
+each event's ``ts`` counts from it, as ``torch.profiler``'s exported
+traces count theirs from a base of their own. `merge_traces` lays a span
+file onto a profiler trace (``--profile-dir``), so the host spans and
+the device's kernels, the learner's stage markers among them
+(obs/stages.py), read as one timeline.
+
 The PyTorch package's copy of ``ape_x_dqn_tpu/obs/trace.py``, the same
-code (tests/test_torch_isolation.py pins it).
+code but for the clock's base and `merge_traces`
+(tests/test_torch_isolation.py pins it).
 """
 
 from __future__ import annotations
@@ -71,8 +80,9 @@ NULL_TRACER = NullTracer()
 class SpanTracer:
     """Thread-safe span recorder writing one `trace_event` JSON file.
 
-    Events use the 'X' (complete) phase with microsecond ts/dur
-    relative to tracer construction; pid/tid map to the OS process and
+    Events use the 'X' (complete) phase with microsecond ts/dur; ts
+    counts from the tracer's construction, whose Unix-epoch time the
+    file gives as ``baseTimeNanoseconds``; pid/tid map to the OS process and
     Python thread ids, with 'M' metadata events naming each thread so
     Perfetto's track labels read "learner", "actor-3", ... instead of
     raw ids.
@@ -89,6 +99,9 @@ class SpanTracer:
         self._thread_names: dict[int, str] = {}
         self._peer_tids: dict[str, int] = {}  # synthetic remote tracks
         self._agg: dict[str, list[float]] = {}  # name -> [count, total, max]
+        # one paired reading of the two clocks: spans are timed with
+        # perf_counter and placed on the Unix-epoch clock of the base
+        self._base_ns = time.time_ns()
         self._t0 = time.perf_counter()
         self._closed = False
 
@@ -174,6 +187,7 @@ class SpanTracer:
             dropped = self._dropped
         payload = {"traceEvents": meta + events,
                    "displayTimeUnit": "ms",
+                   "baseTimeNanoseconds": self._base_ns,
                    "otherData": {"dropped_events": dropped}}
         os.makedirs(os.path.dirname(self._path) or ".", exist_ok=True)
         tmp = self._path + ".tmp"
@@ -192,3 +206,22 @@ def span_names(trace: dict) -> set[str]:
     """Distinct span ('X' event) names in a loaded trace."""
     return {ev["name"] for ev in trace.get("traceEvents", ())
             if ev.get("ph") == "X"}
+
+
+def merge_traces(span_path: str, profile_path: str, out_path: str) -> None:
+    """Write to `out_path` the ``torch.profiler`` trace at
+    `profile_path` with the span file at `span_path` laid onto its
+    timeline: each span's ``ts`` is moved from the span file's base to
+    the profiler trace's (both ``baseTimeNanoseconds``, Unix-epoch
+    nanoseconds)."""
+    spans, prof = load_trace(span_path), load_trace(profile_path)
+    shift_us = (spans["baseTimeNanoseconds"]
+                - prof["baseTimeNanoseconds"]) / 1e3
+    moved = [dict(ev, ts=ev["ts"] + shift_us) if "ts" in ev else ev
+             for ev in spans["traceEvents"]]
+    merged = dict(prof, traceEvents=prof["traceEvents"] + moved)
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    tmp = out_path + ".tmp"
+    with open(tmp, "w") as fh:
+        json.dump(merged, fh)
+    os.replace(tmp, out_path)

@@ -11,7 +11,9 @@ stacks through it (replay/frame_ring.py ``_gather``).
 - On CUDA tensors it launches the kernel in ``csrc/frame_gather.cu`` or
   raises: there is no fallback. The kernel is built with nvcc for
   sm_90a at first use, from the sources in this package, into
-  ``_build/`` (listed in .gitignore), and loaded with ctypes.
+  ``_build/`` (listed in .gitignore), and loaded with ctypes. The same
+  nvcc call builds the learner's stage markers (``csrc/stage_marks.cu``,
+  launched by obs/stages.py) into the same library.
 - On CPU tensors, and only there, it runs `gather_rows_reference`.
 
 `gather_rows.launches` counts kernel launches (and nothing else), so a
@@ -40,6 +42,8 @@ import torch
 
 _PKG = Path(__file__).resolve().parent.parent
 SOURCE = _PKG / "csrc" / "frame_gather.cu"
+# every source of the library: the gather and the stage markers
+SOURCES = (SOURCE, _PKG / "csrc" / "stage_marks.cu")
 BUILD_DIR = _PKG / "_build"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
@@ -73,18 +77,20 @@ def build() -> float:
     if _lib is not None:
         return 0.0
     t0 = time.perf_counter()
-    # named by the source's hash: an edited source builds anew
-    digest = hashlib.sha256(SOURCE.read_bytes()).hexdigest()[:10]
+    # named by the sources' hash: an edited source builds anew
+    digest = hashlib.sha256(
+        b"".join(p.read_bytes() for p in SOURCES)).hexdigest()[:10]
     so = BUILD_DIR / f"libframe_gather.{digest}.so"
     if not so.exists():
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
         tmp = so.with_suffix(f".{os.getpid()}.tmp")
-        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(SOURCE)]
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *map(str, SOURCES)]
         proc = subprocess.run(cmd, capture_output=True, text=True,
                               timeout=600)
         if proc.returncode != 0:
             raise RuntimeError(
-                f"nvcc failed ({proc.returncode}) building {SOURCE}:\n"
+                f"nvcc failed ({proc.returncode}) building "
+                f"{', '.join(map(str, SOURCES))}:\n"
                 f"{proc.stdout}\n{proc.stderr}")
         os.replace(tmp, so)
     lib = ctypes.CDLL(str(so))
@@ -93,8 +99,17 @@ def build() -> float:
                    ctypes.c_int, ctypes.c_void_p, ctypes.c_int64,
                    ctypes.c_int64, ctypes.c_int64, ctypes.c_void_p]
     fn.restype = ctypes.c_int
+    mark = lib.stage_mark_launch
+    mark.argtypes = [ctypes.c_int, ctypes.c_void_p]
+    mark.restype = ctypes.c_int
     _lib = lib
     return time.perf_counter() - t0
+
+
+def library() -> ctypes.CDLL:
+    """The built library (built and loaded at first use)."""
+    build()
+    return _lib
 
 
 def gather_rows(src: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:

@@ -517,7 +517,7 @@ class CardsLearner(SingleChipLearner):
                  noise: torch.Tensor | None = None):
         with self.on_cards():
             noises = self._noises(state, k * self.b_local, noise)
-            return self._each(lambda i, g, lrn: lrn._sample_stage(
+            return self._each(lambda i, g, lrn: lrn._sample_dispatch(
                 state.groups[i].replay, k, noises[i]))
 
     def learn_k(self, state: CardsTrainState, sample, k: int):

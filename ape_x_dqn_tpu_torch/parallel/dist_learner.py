@@ -81,6 +81,7 @@ import torch
 from torch import nn
 
 from ape_x_dqn_tpu_torch.obs import learning as learn_obs
+from ape_x_dqn_tpu_torch.obs.stages import mark_stage
 from ape_x_dqn_tpu_torch.ops.losses import (TransitionBatch, make_dqn_loss,
                                             make_r2d2_loss)
 from ape_x_dqn_tpu_torch.parallel.mesh import Mesh
@@ -182,6 +183,7 @@ class _DistLearnerBase(SingleChipLearner):
         exactly, even with skewed shard masses. Dead frame-ring pad
         slots train with weight 0. -> (items [dp, n, ...], idx [dp, n],
         w [dp, n] NOT yet max-normalized)."""
+        mark_stage("sample", replay_state.tree.device)
         items, idx, probs = self.replay.sample_items(replay_state, n, noise)
         # across processes the lockstep adds keep every process's fill
         # equal, so this process's sum times nproc is the global fill
@@ -204,11 +206,13 @@ class _DistLearnerBase(SingleChipLearner):
         already-sampled [dp, b_local] batch, in place. `w` is the raw IS
         weight, max-normalized here over exactly this training batch.
         -> (td_shard [dp, b_local], metrics)."""
+        mark_stage("loss", w.device)
         w = w / torch.clamp(w.max(), min=1e-12)
         batch = self._make_batch({k: self._flat(v) for k, v in items.items()})
         wf = self._flat(w)
         loss, aux = self.loss_fn(state.net, state.target_net, batch, wf)
         grads, updates, params = self._optimize(state, loss)
+        mark_stage("diag", w.device)
         td_shard = aux["td_abs"].reshape(self.dp_local, self.b_local)
         metrics = {"loss": loss.detach(), "q_mean": aux["q_mean"],
                    "td_abs_mean": aux["td_abs"].mean(),
@@ -234,12 +238,15 @@ class _DistLearnerBase(SingleChipLearner):
         receive every process's), then the exact global gradient,
         loss and means and the update (module docstring). -> (td_shard,
         metrics)."""
+        mark_stage("loss", w.device)
         m_p = torch.clamp(w.max(), min=1e-12)
         batch = self._make_batch({k: self._flat(v) for k, v in items.items()})
         wf = self._flat(w / m_p)
         loss, aux = self.loss_fn(state.net, state.target_net, batch, wf)
         params = list(state.net.parameters())
+        mark_stage("backward", w.device)
         grads = torch.autograd.grad(loss, params)
+        mark_stage("exchange", w.device)
         td_mean = aux["td_abs"].mean()
         # on the owner: the pieces of a net split across cards come
         # over (parallel/tensor_parallel.py), and go back below
@@ -255,6 +262,7 @@ class _DistLearnerBase(SingleChipLearner):
         grads = [v.view_as(p).to(p.device) for v, p in
                  zip(flat.split([p.numel() for p in params]), params)]
         updates, params = self._apply_grads(state, grads)
+        mark_stage("diag", w.device)
         td_shard = aux["td_abs"].reshape(self.dp_local, self.b_local)
         metrics = {"loss": total[-4] * scale,
                    "q_mean": total[-2] / self.nproc,
@@ -275,11 +283,7 @@ class _DistLearnerBase(SingleChipLearner):
                                               self.b_local)
         td_shard, metrics = self._sgd_step(state, items, w)
         # draw and write-back see the same shard trees: staleness is 0
-        metrics["diag"] = {**metrics["diag"],
-                           **learn_obs.replay_health_sharded(
-                               self.replay, state.replay, idx, None)}
-        self.replay.update_priorities(state.replay, idx, td_shard)
-        return metrics
+        return self._write_back_step(state, idx, td_shard, metrics)
 
     def _step_body_exchanged(self, state: DistTrainState,
                              noise: torch.Tensor):
@@ -287,10 +291,20 @@ class _DistLearnerBase(SingleChipLearner):
                                               self.b_local)
         td_shard, metrics = yield from self._sgd_step_exchanged(
             state, items, w)
+        return self._write_back_step(state, idx, td_shard, metrics)
+
+    def _write_back_step(self, state: DistTrainState, idx, td_shard,
+                         metrics: dict) -> dict:
+        """The end of an exact step: replay health, the per-shard
+        write-back."""
+        dev = state.replay.tree.device
+        mark_stage("diag", dev)
         metrics["diag"] = {**metrics["diag"],
                            **learn_obs.replay_health_sharded(
                                self.replay, state.replay, idx, None)}
+        mark_stage("writeback", dev)
         self.replay.update_priorities(state.replay, idx, td_shard)
+        mark_stage("end", dev)
         return metrics
 
     def _sample_stage(self, replay_state, k: int,
@@ -345,20 +359,24 @@ class _DistLearnerBase(SingleChipLearner):
     def _write_back(self, state: DistTrainState, idx, pri_k, td_parts,
                     metrics: dict, k: int) -> dict:
         # write-back-time replay health: the shard trees now vs pri_k
+        dev = state.replay.tree.device
+        mark_stage("diag", dev)
         metrics["diag"] = {**metrics["diag"],
                            **learn_obs.replay_health_sharded(
                                self.replay, state.replay, idx, pri_k)}
         # invert the chunking: td_all[d, i*k + j] = td_parts[j][d, i]
+        mark_stage("writeback", dev)
         td_all = torch.movedim(torch.stack(td_parts), 0, 2).reshape(
             self.dp_local, k * self.b_local)
         self.replay.update_priorities(state.replay, idx, td_all)
+        mark_stage("end", dev)
         return metrics
 
     def sample_k(self, state: DistTrainState, k: int,
                  noise: torch.Tensor | None = None):
         """SAMPLE dispatch of the double-buffered pipeline (see
         `SingleChipLearner.sample_k`), its noise from `_draw`."""
-        return self._sample_stage(
+        return self._sample_dispatch(
             state.replay, k, self._draw(state, k * self.b_local, noise))
 
     def learn_k(self, state: DistTrainState, sample, k: int):

@@ -42,6 +42,7 @@ import numpy as np
 import torch
 import torch.nn.functional as F
 
+from ape_x_dqn_tpu_torch.obs.stages import mark_stage
 from ape_x_dqn_tpu_torch.ops import sum_tree
 from ape_x_dqn_tpu_torch.ops.frame_gather import gather_rows
 from ape_x_dqn_tpu_torch.replay.packing import (ItemSpec, frame_mode,
@@ -390,13 +391,16 @@ class FrameRingReplay(PrioritizedReplay):
         without a copy)."""
         st = state.storage
         obs_rows, next_rows = self.stack_rows(state, idx)
+        mark_stage("gather", idx.device)
+        obs = gather_rows(st["frames"], obs_rows)
+        # dead slots: next_off 0 — never sampled
+        nxt = gather_rows(st["frames"], next_rows)
+        mark_stage("sample", idx.device)
         return {
-            "obs": self.unpack_stack(gather_rows(st["frames"], obs_rows)),
+            "obs": self.unpack_stack(obs),
             "action": st["action"][idx],
             "reward": st["reward"][idx],
-            # dead slots: next_off 0 — never sampled
-            "next_obs": self.unpack_stack(
-                gather_rows(st["frames"], next_rows)),
+            "next_obs": self.unpack_stack(nxt),
             "discount": st["discount"][idx],
         }
 

@@ -55,6 +55,7 @@ from typing import Any
 import numpy as np
 import torch
 
+from ape_x_dqn_tpu_torch.obs.stages import mark_stage
 from ape_x_dqn_tpu_torch.ops import sum_tree
 from ape_x_dqn_tpu_torch.ops.frame_gather import gather_rows
 from ape_x_dqn_tpu_torch.replay.packing import (PixelPacker,
@@ -349,13 +350,19 @@ class _FlatStorage:
 
     def _gather(self, storage: dict, idx: torch.Tensor) -> dict:
         """Items at slots idx [B]: packed byte-row leaves through the
-        row-gather kernel (one launch each), the others by indexing;
-        then decoded back to frames (a view)."""
+        row-gather kernel (one launch each, before the others), the
+        others by indexing; then decoded back to frames (a view)."""
         packer = self._packer
-        items = {k: gather_rows(buf, idx)
-                 if packer is not None and packer.packed(k) else buf[idx]
-                 for k, buf in storage.items()}
-        return packer.decode(items) if packer is not None else items
+        if packer is None:
+            return {k: buf[idx] for k, buf in storage.items()}
+        rows = {}
+        packed = [k for k in storage if packer.packed(k)]
+        if packed:
+            mark_stage("gather", idx.device)
+            rows = {k: gather_rows(storage[k], idx) for k in packed}
+            mark_stage("sample", idx.device)
+        return packer.decode({k: rows[k] if k in rows else buf[idx]
+                              for k, buf in storage.items()})
 
     def _gather_sharded(self, state: ShardedReplayState,
                         idx: torch.Tensor) -> dict:

@@ -29,6 +29,7 @@ from torch import nn
 from ape_x_dqn_tpu_torch.models.base import soft_update
 from ape_x_dqn_tpu_torch.models.dpg import server_params
 from ape_x_dqn_tpu_torch.obs import learning as learn_obs
+from ape_x_dqn_tpu_torch.obs.stages import mark_stage
 from ape_x_dqn_tpu_torch.ops.losses import ContinuousBatch, make_dpg_losses
 from ape_x_dqn_tpu_torch.replay.packing import ItemSpec, torch_dtype
 from ape_x_dqn_tpu_torch.replay.prioritized import ReplayState
@@ -102,7 +103,9 @@ class DPGLearner(GraphedEndpoints):
                loss: torch.Tensor):
         """Gradients of `loss` for `params`, one optimizer step in place.
         -> (grads, updates)."""
+        mark_stage("backward", loss.device)
         grads = torch.autograd.grad(loss, params)
+        mark_stage("optimizer", loss.device)
         updates = optimizer.update(grads, opt_state)
         with torch.no_grad():
             for p, u in zip(params, updates):
@@ -110,9 +113,16 @@ class DPGLearner(GraphedEndpoints):
         return grads, updates
 
     def _step_body(self, state: DPGTrainState, noise: torch.Tensor) -> dict:
-        """One grad-step, in place on `state` (captured on the card)."""
+        """One grad-step, in place on `state` (captured on the card),
+        its stages marked as the DQN learners' (obs/stages.py): sample,
+        then loss, backward and optimizer for the critic and again for
+        the policy (the soft target updates close the second optimizer
+        stage), diag, writeback, end."""
+        dev = state.replay.tree.device
+        mark_stage("sample", dev)
         items, idx, is_w = self.replay.sample(
             state.replay, self.lcfg.batch_size, noise)
+        mark_stage("loss", dev)
         batch = ContinuousBatch(
             obs=items["obs"], actions=items["action"],
             rewards=items["reward"], next_obs=items["next_obs"],
@@ -123,11 +133,13 @@ class DPGLearner(GraphedEndpoints):
         c_grads, c_updates = self._apply(self.critic_optimizer,
                                          state.critic_opt, c_params, c_loss)
         # the policy ascends the UPDATED critic (standard DDPG ordering)
+        mark_stage("loss", dev)
         p_loss, p_aux = self.policy_loss(state.actor, state.critic, batch)
         self._apply(self.actor_optimizer, state.actor_opt,
                     list(state.actor.parameters()), p_loss)
         soft_update(state.target_actor, state.actor, self.lcfg.tau)
         soft_update(state.target_critic, state.critic, self.lcfg.tau)
+        mark_stage("diag", dev)
         metrics = {
             "loss": c_loss.detach(),
             "policy_loss": p_loss.detach(),
@@ -141,7 +153,9 @@ class DPGLearner(GraphedEndpoints):
                      **learn_obs.replay_health(self.replay, state.replay,
                                                idx, None)},
         }
+        mark_stage("writeback", dev)
         self.replay.update_priorities(state.replay, idx, c_aux["td_abs"])
+        mark_stage("end", dev)
         return metrics
 
     # -- endpoints ------------------------------------------------------------

@@ -1623,23 +1623,28 @@ class ApexDriver:
                 self._pinned[k] = torch.empty(v.shape, dtype=v.dtype,
                                               pin_memory=True)
             self._pinned[k].copy_(v, non_blocking=True)
-        torch.cuda.current_stream(self.device).synchronize()
+        with self.obs.span("learner.publish_wait"):
+            torch.cuda.current_stream(self.device).synchronize()
         # fresh arrays: the transport keeps them after the pinned
         # buffers are rewritten by the next publication
         return {k: self._pinned[k].numpy().copy() for k in pub}
 
     def _publish_params(self) -> None:
-        # copy under the state lock: an add or a train dispatch would
-        # otherwise write the tensors being copied
-        with self._state_lock:
-            with self.obs.span("learner.publish_params"):
+        """The whole publication under one span: the device copy, the
+        host copy and the wait for the learner's stream, which drains
+        the dispatches in flight (its own span, `learner.publish_wait`)."""
+        with self.obs.span("learner.publish_params"):
+            # copy under the state lock: an add or a train dispatch would
+            # otherwise write the tensors being copied
+            with self._state_lock:
                 pub = self.learner.publish_params(self.state)
-        # the host copy (remote hosts) waits for the caller's stream, the
-        # learner's on its thread, which the server needs anyway: it
-        # reads `pub` on its own stream
-        host = self._transport_params(pub)
-        if self._learn_stream is not None and not self._host_params:
-            self._learn_stream.synchronize()
+            # the host copy (remote hosts) waits for the caller's stream,
+            # the learner's on its thread, which the server needs anyway:
+            # it reads `pub` on its own stream
+            host = self._transport_params(pub)
+            if self._learn_stream is not None and not self._host_params:
+                with self.obs.span("learner.publish_wait"):
+                    self._learn_stream.synchronize()
         self.server.update_params(pub, self._grad_steps_total)
         self.transport.publish_params(host, self._grad_steps_total)
 
@@ -1649,7 +1654,6 @@ class ApexDriver:
         chunk = max(min(self.cfg.learner.train_chunk, publish_every), 1)
         last_log = 0
         last_ckpt = self._grad_steps_total
-        sync_every = self.cfg.learner.target_sync_every
         m = None
         while (not self.stop_event.is_set()
                and self._grad_steps_total < max_grad_steps):
@@ -1700,14 +1704,6 @@ class ApexDriver:
             self._grad_steps_total += k
             self.grad_steps.add(k)
             self.obs.set_learner_step(self._grad_steps_total)
-            # sampling, the priority write-back and (boundary permitting)
-            # the target sync run inside the train graph: mark, don't span
-            self.obs.mark("replay.sample", fused_into="learner.train")
-            self.obs.mark("replay.priority_update",
-                          fused_into="learner.train")
-            if done // sync_every != self._grad_steps_total // sync_every:
-                self.obs.mark("learner.target_sync",
-                              fused_into="learner.train")
             if done // publish_every != self._grad_steps_total // publish_every:
                 self._publish_params()
             if (self.ckpt is not None and self._grad_steps_total - last_ckpt

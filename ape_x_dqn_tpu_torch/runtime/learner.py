@@ -41,6 +41,7 @@ from torch import nn
 
 from ape_x_dqn_tpu_torch.models.base import hard_update
 from ape_x_dqn_tpu_torch.obs import learning as learn_obs
+from ape_x_dqn_tpu_torch.obs.stages import mark_stage
 from ape_x_dqn_tpu_torch.ops.losses import TransitionBatch, make_dqn_loss
 from ape_x_dqn_tpu_torch.replay.packing import ItemSpec, torch_dtype
 from ape_x_dqn_tpu_torch.replay.prioritized import ReplayState
@@ -216,10 +217,14 @@ def make_optimizer(lcfg) -> ClipAdam:
 class SingleChipLearner(GraphedEndpoints):
     """Shared single-device learner machinery: state init, the exact
     per-step path, the K-batch relaxation, train_many, the ingest add
-    and param publication. Subclasses define `_sgd_step(state, items,
-    is_w) -> (td_abs, metrics)`, the family-specific piece; it runs
-    inside the step bodies, so it may not read host state that changes
-    between calls or synchronise with the host."""
+    and param publication. Subclasses set `loss_fn` and define
+    `_make_batch(items) -> the loss's batch`, the family-specific
+    piece; it runs inside the step bodies, so it may not read host
+    state that changes between calls or synchronise with the host.
+
+    Every step body opens its stages with `mark_stage` (obs/stages.py):
+    sample, gather (in the replay), then per SGD step loss, backward,
+    optimizer and diag, then diag, writeback and end."""
 
     # -- state ------------------------------------------------------------
 
@@ -234,9 +239,28 @@ class SingleChipLearner(GraphedEndpoints):
 
     # -- core step ----------------------------------------------------------
 
+    def _make_batch(self, items: dict):
+        raise NotImplementedError  # family-specific: the loss's batch
+
     def _sgd_step(self, state: TrainState, items: dict,
                   is_w: torch.Tensor):
-        raise NotImplementedError  # family-specific: batch + loss
+        """One loss/grad/optimizer/target-sync update on an already-
+        sampled batch, in place on `state`. -> (td_abs, metrics); R2D2's
+        td_abs are the eta-mixed per-sequence priorities, over which its
+        diagnostics' TD quantiles run too."""
+        mark_stage("loss", is_w.device)
+        loss, aux = self.loss_fn(state.net, state.target_net,
+                                 self._make_batch(items), is_w)
+        grads, updates, params = self._optimize(state, loss)
+        mark_stage("diag", is_w.device)
+        metrics = {"loss": loss.detach(), "q_mean": aux["q_mean"],
+                   "td_abs_mean": aux["td_abs"].mean()}
+        if "valid_frac" in aux:     # R2D2's share of unmasked steps
+            metrics["valid_frac"] = aux["valid_frac"]
+        metrics["grad_norm"] = learn_obs.global_norm(grads)
+        metrics["diag"] = learn_obs.sgd_diag(aux, is_w, grads, updates,
+                                             params)
+        return aux["td_abs"], metrics
 
     def _optimize(self, state: TrainState, loss: torch.Tensor):
         """The family-independent half of an SGD step, in place on
@@ -245,6 +269,7 @@ class SingleChipLearner(GraphedEndpoints):
         keyed on Adam's device count, which counts the grad-steps (the
         host step count is the endpoints' to advance). -> (grads,
         updates, the params after the update, detached)."""
+        mark_stage("backward", loss.device)
         grads = torch.autograd.grad(loss, list(state.net.parameters()))
         updates, params = self._apply_grads(state, grads)
         return grads, updates, params
@@ -254,6 +279,7 @@ class SingleChipLearner(GraphedEndpoints):
         sync, in place on `state` (the multi-process dist learner calls
         it on the gradient reduced across processes). -> (updates, the
         params after the update, detached)."""
+        mark_stage("optimizer", state.opt_state.count.device)
         params = list(state.net.parameters())
         updates = self.optimizer.update(grads, state.opt_state)
         with torch.no_grad():
@@ -266,14 +292,19 @@ class SingleChipLearner(GraphedEndpoints):
 
     def _step_body(self, state: TrainState, noise: torch.Tensor) -> dict:
         """The body of one exact grad-step (captured on the card)."""
+        dev = state.replay.tree.device
+        mark_stage("sample", dev)
         items, idx, is_w = self.replay.sample(
             state.replay, self.lcfg.batch_size, noise)
         td_abs, metrics = self._sgd_step(state, items, is_w)
         # draw and write-back see the same tree: staleness is 0
+        mark_stage("diag", dev)
         metrics["diag"] = {**metrics["diag"],
                            **learn_obs.replay_health(
                                self.replay, state.replay, idx, None)}
+        mark_stage("writeback", dev)
         self.replay.update_priorities(state.replay, idx, td_abs)
+        mark_stage("end", dev)
         return metrics
 
     def _per_draw(self) -> int:
@@ -296,6 +327,7 @@ class SingleChipLearner(GraphedEndpoints):
         steps. -> (items_k [K, B, ...], idx_k [K, B], is_w_k [K, B],
         pri_k [K, B] descent-time leaf priorities)."""
         b = self.lcfg.batch_size
+        mark_stage("sample", replay_state.tree.device)
         items, idx, is_w = self.replay.sample_state(replay_state, k * b,
                                                     noise, generator)
         pri = self.replay.leaf_priorities(replay_state, idx)
@@ -316,11 +348,20 @@ class SingleChipLearner(GraphedEndpoints):
                                       min=1e-12)
         return items_k, chunked(idx), is_w_k, chunked(pri)
 
+    def _sample_dispatch(self, replay_state, k: int,
+                         noise: torch.Tensor | None = None,
+                         generator: torch.Generator | None = None):
+        """`_sample_stage` as a dispatch of its own (`sample_k`): what
+        follows it is no stage of it."""
+        sample = self._sample_stage(replay_state, k, noise, generator)
+        mark_stage("end", replay_state.tree.device)
+        return sample
+
     def _learn_stage(self, state: TrainState, sample, k: int) -> dict:
         """LEARN stage: K SGD steps over an already-drawn sample + ONE
-        priority write-back (target sync happens inside the steps).
-        -> the last step's metrics; the host step count is the
-        caller's to advance."""
+        priority write-back (target sync happens inside the steps), to
+        the end of the body. -> the last step's metrics; the host step
+        count is the caller's to advance."""
         b = self.lcfg.batch_size
         items_k, idx_k, is_w_k, pri_k = sample
         td_parts = []
@@ -331,12 +372,16 @@ class SingleChipLearner(GraphedEndpoints):
             td_parts.append(td_abs)
         # write-back-time replay health, read before the write-back:
         # the tree now vs pri_k, what the descent saw
+        dev = state.replay.tree.device
+        mark_stage("diag", dev)
         metrics["diag"] = {**metrics["diag"],
                            **learn_obs.replay_health(
                                self.replay, state.replay, idx_k, pri_k)}
         # td_parts[j] pairs with idx_k[j] (chunk order)
+        mark_stage("writeback", dev)
         self.replay.update_state(state.replay, idx_k.reshape(k * b),
                                  torch.cat(td_parts))
+        mark_stage("end", dev)
         return metrics
 
     def _step_body_k(self, state: TrainState, k: int,
@@ -381,7 +426,8 @@ class SingleChipLearner(GraphedEndpoints):
         gathered items, so later in-place writes do not reach it.
         `noise`: [k * batch_size] stratification noise, as in
         `train_step_k`."""
-        return self._sample_stage(state.replay, k, noise, state.generator)
+        return self._sample_dispatch(state.replay, k, noise,
+                                     state.generator)
 
     def learn_k(self, state: TrainState, sample, k: int):
         """LEARN dispatch: K SGD steps + one write-back on a sample drawn
@@ -484,21 +530,8 @@ class DQNLearner(SingleChipLearner):
             double=lcfg.double_dqn, huber_delta=lcfg.huber_delta,
             rescale=lcfg.value_rescale)
 
-    def _sgd_step(self, state: TrainState, items: dict,
-                  is_w: torch.Tensor):
-        """One loss/grad/optimizer/target-sync update on an already-
-        sampled batch, in place on `state`. -> (td_abs, metrics)."""
-        batch = TransitionBatch(
+    def _make_batch(self, items: dict) -> TransitionBatch:
+        return TransitionBatch(
             obs=items["obs"], actions=items["action"],
             rewards=items["reward"], next_obs=items["next_obs"],
             discounts=items["discount"])
-        loss, aux = self.loss_fn(state.net, state.target_net, batch, is_w)
-        grads, updates, params = self._optimize(state, loss)
-        metrics = {
-            "loss": loss.detach(),
-            "q_mean": aux["q_mean"],
-            "td_abs_mean": aux["td_abs"].mean(),
-            "grad_norm": learn_obs.global_norm(grads),
-            "diag": learn_obs.sgd_diag(aux, is_w, grads, updates, params),
-        }
-        return aux["td_abs"], metrics

@@ -441,7 +441,8 @@ class MultihostApexDriver:
         pub = self.learner.publish_params(self.state)
         host = self._transport_params(pub)
         if self.device.type == "cuda":
-            torch.cuda.current_stream(self.device).synchronize()
+            with self.obs.span("learner.publish_wait"):
+                torch.cuda.current_stream(self.device).synchronize()
         self.server.update_params(pub, version)
         self.transport.publish_params(host, version)
 
@@ -815,10 +816,6 @@ class MultihostApexDriver:
                                             t_train)
                         self._grad_steps += k
                         self.obs.set_learner_step(self._grad_steps)
-                        self.obs.mark("replay.sample",
-                                      fused_into="learner.train")
-                        self.obs.mark("replay.priority_update",
-                                      fused_into="learner.train")
                         progressed = True
                         if done // publish_every != \
                                 self._grad_steps // publish_every:

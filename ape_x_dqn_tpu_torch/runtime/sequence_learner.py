@@ -12,14 +12,11 @@ place; the LSTM unrolls are Python loops over time (models/lstm_q.py).
 
 from __future__ import annotations
 
-import torch
-
-from ape_x_dqn_tpu_torch.obs import learning as learn_obs
 from ape_x_dqn_tpu_torch.ops.losses import make_r2d2_loss
 from ape_x_dqn_tpu_torch.replay.sequence import batch_to_sequence_batch
 from ape_x_dqn_tpu_torch.runtime.learner import (ClipAdam,
                                                  SingleChipLearner,
-                                                 TrainState, make_optimizer)
+                                                 make_optimizer)
 
 
 class SequenceLearner(SingleChipLearner):
@@ -36,22 +33,5 @@ class SequenceLearner(SingleChipLearner):
             huber_delta=lcfg.huber_delta, double=lcfg.double_dqn,
             rescale=lcfg.value_rescale, priority_eta=rcfg.priority_eta)
 
-    def _sgd_step(self, state: TrainState, items: dict,
-                  is_w: torch.Tensor):
-        """One unroll/loss/optimizer/target-sync update on an already-
-        sampled sequence batch, in place on `state`. -> (the eta-mixed
-        per-sequence |TD| priorities, metrics)."""
-        batch = batch_to_sequence_batch(items)
-        loss, aux = self.loss_fn(state.net, state.target_net, batch, is_w)
-        grads, updates, params = self._optimize(state, loss)
-        metrics = {
-            "loss": loss.detach(),
-            "q_mean": aux["q_mean"],
-            "td_abs_mean": aux["td_abs"].mean(),
-            "valid_frac": aux["valid_frac"],
-            "grad_norm": learn_obs.global_norm(grads),
-            # td quantiles here are over the eta-mixed per-sequence
-            # priorities (the write-back signal)
-            "diag": learn_obs.sgd_diag(aux, is_w, grads, updates, params),
-        }
-        return aux["td_abs"], metrics
+    def _make_batch(self, items: dict):
+        return batch_to_sequence_batch(items)

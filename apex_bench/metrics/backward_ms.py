@@ -1,0 +1,12 @@
+"""Device milliseconds per macro-step of the learner step's ``backward``
+stage: the gradients (autograd's backward pass). Read from the stage
+markers in the traced stretch, summed over the cell's cards
+(``apex_bench/stages.py``)."""
+
+from __future__ import annotations
+
+from apex_bench.stages import read_stage_ms
+
+
+def read(ctx) -> float | None:
+    return read_stage_ms(ctx, "backward")

@@ -1,0 +1,12 @@
+"""Device milliseconds per macro-step of the learner step's ``loss`` stage:
+the loss: the batch, the online and target forward passes and, for R2D2,
+the burn-in unroll. Read from the stage markers in the traced stretch,
+summed over the cell's cards (``apex_bench/stages.py``)."""
+
+from __future__ import annotations
+
+from apex_bench.stages import read_stage_ms
+
+
+def read(ctx) -> float | None:
+    return read_stage_ms(ctx, "loss")

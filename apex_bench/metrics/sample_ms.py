@@ -1,0 +1,13 @@
+"""Device milliseconds per macro-step of the learner step's ``sample``
+stage: the sum-tree descent, the IS weights and the chunking of a draw
+(the frame-gather launches excluded: ``gather_ms``). Read from the stage
+markers in the traced stretch, summed over the cell's cards
+(``apex_bench/stages.py``)."""
+
+from __future__ import annotations
+
+from apex_bench.stages import read_stage_ms
+
+
+def read(ctx) -> float | None:
+    return read_stage_ms(ctx, "sample")

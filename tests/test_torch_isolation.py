@@ -143,7 +143,34 @@ def test_framing_source_copy_matches_original():
 # jits) and labels its hbm/ section for captured graphs
 ON_PURPOSE = {
     "obs/registry.py": (),
-    "obs/trace.py": (),
+    # the clock: span files on the Unix-epoch base torch.profiler's
+    # traces use, and their merge onto a profiler trace
+    "obs/trace.py": (
+        ("        self._t0 = time.perf_counter()\n",
+         "        self._base_ns = time.time_ns()\n"
+         "        self._t0 = time.perf_counter()\n"),
+        ('''                   "displayTimeUnit": "ms",
+''', '''                   "displayTimeUnit": "ms",
+                   "baseTimeNanoseconds": self._base_ns,
+'''),
+        ('''            if ev.get("ph") == "X"}
+''', '''            if ev.get("ph") == "X"}
+
+
+def merge_traces(span_path: str, profile_path: str, out_path: str) -> None:
+    spans, prof = load_trace(span_path), load_trace(profile_path)
+    shift_us = (spans["baseTimeNanoseconds"]
+                - prof["baseTimeNanoseconds"]) / 1e3
+    moved = [dict(ev, ts=ev["ts"] + shift_us) if "ts" in ev else ev
+             for ev in spans["traceEvents"]]
+    merged = dict(prof, traceEvents=prof["traceEvents"] + moved)
+    os.makedirs(os.path.dirname(out_path) or ".", exist_ok=True)
+    tmp = out_path + ".tmp"
+    with open(tmp, "w") as fh:
+        json.dump(merged, fh)
+    os.replace(tmp, out_path)
+'''),
+    ),
     "obs/fleet.py": (),
     # uninstall compared a fresh bound method with `is`, which never
     # holds, so the original never restored sys.excepthook

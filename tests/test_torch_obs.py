@@ -19,6 +19,7 @@ import json
 
 import numpy as np
 import pytest
+import torch
 
 from ape_x_dqn_tpu import configs as jcfgs
 from ape_x_dqn_tpu.obs import core as jcore
@@ -77,12 +78,17 @@ def test_registry_publishes_the_same_records(seed):
 
 
 def test_tracer_writes_the_same_trace_on_one_clock(tmp_path, monkeypatch):
+    """The same events and aggregates; the port's `ts` count from the
+    Unix-epoch base its file gives (the tracer's construction, as the
+    original's count from it)."""
     clock = {"t": 100.0}
+    epoch_ns = 1_790_000_000_123_456_789
 
     def tick():
         clock["t"] += 0.25
         return clock["t"]
 
+    monkeypatch.setattr(ttrace.time, "time_ns", lambda: epoch_ns)
     out = []
     for mod, name in ((jtrace, "jax"), (ttrace, "torch")):
         clock["t"] = 100.0
@@ -97,12 +103,50 @@ def test_tracer_writes_the_same_trace_on_one_clock(tmp_path, monkeypatch):
         tr.remote_span("actor.ship", 0.5, age_s=1.0, peer="host-a")
         agg = tr.aggregates()
         tr.close()
-        events = json.loads(path.read_text())["traceEvents"]
+        payload = json.loads(path.read_text())
+        # Unix-epoch ns of the construction, read back from the file
+        base = payload.get("baseTimeNanoseconds", epoch_ns)
+        events = payload["traceEvents"]
         for ev in events:
             ev.pop("pid", None)
             ev.pop("tid", None)
+            if "ts" in ev:
+                ev["ts"] = round(ev["ts"] + (base - epoch_ns) / 1e3, 6)
         out.append((agg, events, mod.span_names(mod.load_trace(str(path)))))
+    assert json.loads((tmp_path / "torch.json").read_text())[
+        "baseTimeNanoseconds"] == epoch_ns
     assert out[0] == out[1]
+
+
+def test_merged_span_and_profiler_event_start_together(tmp_path):
+    """A span and a ``torch.profiler`` range of the same interval, once
+    `merge_traces` has laid the span file onto the profiler's trace,
+    start within 1 ms of each other. On a loaded host the range opens a
+    little after the span around it, so its start is held between the
+    span's start and that of a second span opened inside it, 1 ms either
+    way."""
+    from torch.profiler import ProfilerActivity, profile, record_function
+
+    span_path, prof_path = tmp_path / "spans.json", tmp_path / "prof.json"
+    tr = ttrace.SpanTracer(str(span_path))
+    with profile(activities=[ProfilerActivity.CPU]) as prof:
+        with record_function("warm-up"):
+            pass
+        with tr.span("learner.train"):
+            with record_function("learner.train"):
+                with tr.span("inside"):
+                    torch.ones(64).sum()
+    tr.close()
+    prof.export_chrome_trace(str(prof_path))
+    out = tmp_path / "merged.json"
+    ttrace.merge_traces(str(span_path), str(prof_path), str(out))
+    events = json.loads(out.read_text())["traceEvents"]
+    starts = {(ev["name"], ev.get("cat")): ev["ts"] for ev in events
+              if ev.get("ph") == "X"}
+    outer = starts[("learner.train", "apex")]
+    inner = starts[("inside", "apex")]
+    ranged = starts[("learner.train", "user_annotation")]
+    assert outer - 1000.0 < ranged < inner + 1000.0, (outer, ranged, inner)
 
 
 def test_watchdog_attributes_the_same_stall():
